@@ -1,0 +1,94 @@
+"""Weights carried across: the reference's param layout <-> the port's.
+
+The reference keeps a decoder's params as ``group{g}/l{i}/...`` with every
+leaf of a repeated group stacked on a leading ``repeat`` axis; the port
+keeps one module per layer under ``layers/<n>/...`` in execution order.
+Leaf keys are the same in both (``w``, ``wr``, ``wi``, ``w_scale``,
+``_fused``, ``scale``, ``table``, ...).
+
+:func:`from_reference` turns a reference tree given as nested dicts of
+numpy arrays into the port's tensor tree (install it with
+``nn.module.load_tree`` or pass it to ``ServeEngine``);
+:func:`to_reference` exports a port tree back to the reference layout as
+numpy arrays (bf16 leaves as exact float32 copies, since numpy has no
+bf16), so trees can be compared leaf by leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+__all__ = ["from_reference", "to_reference"]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bf16: same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+def _layer_slots(cfg: ModelConfig):
+    """(group index, layer key, repeat index or None) per port layer, in
+    execution order."""
+    out = []
+    for gi, group in enumerate(cfg.layer_groups()):
+        for r in range(group.repeat):
+            for li in range(len(group.layers)):
+                out.append((gi, f"l{li}", r if group.repeat > 1 else None))
+    return out
+
+
+def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
+                   ) -> Dict[str, Any]:
+    """Reference-layout numpy tree -> the port's per-layer tensor tree on
+    ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    out = {k: _map(lambda a: _to_tensor(a, dev), v) for k, v in tree.items()
+           if not k.startswith("group")}
+    layers = {}
+    for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
+        sub = tree[f"group{gi}"][lkey]
+        pick = (lambda a: a) if r is None else (lambda a, r=r: np.asarray(a)[r])
+        layers[str(n)] = _map(lambda a: _to_tensor(pick(a), dev), sub)
+    out["layers"] = layers
+    return out
+
+
+def to_reference(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's tensor tree -> reference-layout numpy tree (repeated
+    groups restacked on a leading axis)."""
+    out = {k: _map(_to_numpy, v) for k, v in tree.items() if k != "layers"}
+    stacks: Dict[tuple, list] = {}
+    for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
+        stacks.setdefault((gi, lkey, r is not None), []).append(
+            _map(_to_numpy, tree["layers"][str(n)]))
+
+    def stack(subs):
+        if isinstance(subs[0], dict):
+            return {k: stack([s[k] for s in subs]) for k in subs[0]}
+        return np.stack(subs)
+
+    for (gi, lkey, stacked), subs in stacks.items():
+        out.setdefault(f"group{gi}", {})[lkey] = (stack(subs) if stacked
+                                                  else subs[0])
+    return out

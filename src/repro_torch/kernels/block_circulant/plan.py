@@ -1,0 +1,224 @@
+"""Frozen frequency tables: compute FFT(w) once, launch forever.
+
+The paper's inference dataflow computes FFT(w) once and keeps it resident;
+only activations stream through FFT → ∘ → IFFT. ``freeze_params`` walks a
+(specs, params) tree pair and replaces every circulant-tagged ``w`` with
+``wr`` / ``wi`` = rfft(w), so ``nn.Linear`` takes the frozen kernel path.
+It also pre-concatenates the known fused projection groups (attention
+Q/K/V along p; the LSTM's gate tables and biases) under ``"_fused"``, so
+the fused launch reads one resident table.
+
+``quantize="int8"`` stores the frozen tables int8 with one symmetric f32
+max-abs scale per (p, q) block (``w_scale``), dequantized in the kernel.
+
+The reference's TPU tile choosers (``plan_geometry``/``choose_blocks``)
+have no counterpart: the CUDA kernel picks its own launch geometry and
+masks ragged edges, so frozen tables are stored unpadded.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.quant import (dequantize_symmetric, quantize_symmetric,
+                                    symmetric_scales)
+from repro_torch.kernels.block_circulant import ops as bc_ops
+
+__all__ = ["freeze_params", "count_frozen_tables", "frozen_table_bytes",
+           "dequantize_frozen", "FUSED_KEY", "QUANTIZE_MODES"]
+
+# Legal ``quantize=`` values (and, transitively, ServeEngine / --quantize).
+QUANTIZE_MODES = ("off", "int8")
+
+# Reserved param-tree key for a pre-concatenated multi-projection frozen
+# group ({"wr", "wi"[, "bias", "w_scale"]}).
+FUSED_KEY = "_fused"
+
+
+def _check_quantize(quantize: str) -> None:
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(
+            f"quantize={quantize!r}; expected one of {QUANTIZE_MODES}")
+
+
+def _frozen_pair(d) -> bool:
+    return isinstance(d, dict) and "wr" in d and "wi" in d
+
+
+def _attach_fused(out: Dict[str, Any]) -> bool:
+    """Attach a pre-concatenated ``FUSED_KEY`` entry when ``out`` is one of
+    the known fused projection groups; returns True if added.
+
+    * attention Q/K/V — sibling frozen ``q``/``k``/``v`` sharing (q, K):
+      stacked along the output-block (p) axis;
+    * LSTM gates — ``W{g}x``/``W{g}r`` for g in i/f/c/o: each gate's x- and
+      recurrent-side tables concatenate along q, the four gates stack along
+      p, and the gate biases ``b{g}`` pre-concatenate alongside.
+
+    The per-projection tables stay beside the fused copy. Quantized members
+    fuse too: per-block scales concatenate alongside the tables (all or
+    none of a group may be quantized).
+    """
+    if FUSED_KEY in out:
+        return False
+
+    def _cat_scales(scales, cat):
+        if all(s is not None for s in scales):
+            return cat(scales)
+        if any(s is not None for s in scales):
+            raise ValueError(
+                "fused projection group mixes quantized and fp32 frozen "
+                "tables; freeze with a single quantize mode")
+        return None
+
+    qkv = [out.get(n) for n in ("q", "k", "v")]
+    if all(_frozen_pair(d) for d in qkv):
+        wrs = [d["wr"] for d in qkv]
+        shapes = {tuple(w.shape[:-3]) + tuple(w.shape[-2:]) for w in wrs}
+        if all(w.dim() >= 3 for w in wrs) and len(shapes) == 1:
+            fused = {"wr": torch.cat(wrs, dim=-3),
+                     "wi": torch.cat([d["wi"] for d in qkv], dim=-3)}
+            sc = _cat_scales([d.get("w_scale") for d in qkv],
+                             lambda ss: torch.cat(ss, dim=-2))
+            if sc is not None:
+                fused["w_scale"] = sc
+            out[FUSED_KEY] = fused
+            return True
+        return False
+    gates = []
+    for g in ("i", "f", "c", "o"):
+        px, pr, b = out.get(f"W{g}x"), out.get(f"W{g}r"), out.get(f"b{g}")
+        if not (_frozen_pair(px) and _frozen_pair(pr) and b is not None):
+            return False
+        gates.append((px, pr, b))
+    x_shapes = {tuple(px["wr"].shape) for px, _, _ in gates}
+    r_shapes = {tuple(pr["wr"].shape) for _, pr, _ in gates}
+    if len(x_shapes) != 1 or len(r_shapes) != 1:
+        return False
+    xs, rs = x_shapes.pop(), r_shapes.pop()
+    if len(xs) != 3 or len(rs) != 3 or xs[0] != rs[0] or xs[-1] != rs[-1]:
+        return False
+    fused = {
+        "wr": torch.cat([torch.cat([px["wr"], pr["wr"]], dim=-2)
+                         for px, pr, _ in gates], dim=-3),
+        "wi": torch.cat([torch.cat([px["wi"], pr["wi"]], dim=-2)
+                         for px, pr, _ in gates], dim=-3),
+        "bias": torch.cat([b.reshape(-1).float() for _, _, b in gates]),
+    }
+    sc = _cat_scales(
+        [s for px, pr, _ in gates
+         for s in (px.get("w_scale"), pr.get("w_scale"))],
+        lambda ss: torch.cat(
+            [torch.cat(ss[2 * i: 2 * i + 2], dim=-1)
+             for i in range(len(ss) // 2)], dim=-2))
+    if sc is not None:
+        fused["w_scale"] = sc
+    out[FUSED_KEY] = fused
+    return True
+
+
+def _quantize_pair(wr, wi):
+    sc = symmetric_scales(wr, wi)
+    return quantize_symmetric(wr, sc), quantize_symmetric(wi, sc), sc
+
+
+def freeze_params(specs, params, quantize: str = "off") -> Dict[str, Any]:
+    """Replace every circulant table with its frozen frequency weights.
+
+    Walks the ParamSpec tree (circulant leaves carry the ``"circulant"``
+    tag — see ``nn.Linear.specs``) in lockstep with the param tree; every
+    tagged ``w`` is REPLACED by ``wr`` / ``wi`` = rfft(w) (the time-domain
+    table is dropped). ``quantize="int8"`` stores the tables int8 with a
+    sibling ``w_scale``; an fp32-frozen tree re-frozen with ``"int8"``
+    quantizes in place (no new rfft) and a quantized tree passes through
+    under either mode. Fused groups get a ``FUSED_KEY`` entry. Idempotent;
+    untouched subtrees are returned as the same objects.
+    """
+    from repro_torch.nn.module import ParamSpec
+
+    _check_quantize(quantize)
+    if isinstance(specs, ParamSpec) or not isinstance(specs, dict) \
+            or not isinstance(params, dict):
+        return params
+    out = {}
+    dropped = set()
+    changed = False
+    for key, sub_spec in specs.items():
+        sub_param = params[key] if key in params else None
+        if (isinstance(sub_spec, ParamSpec) and key == "w"
+                and "circulant" in sub_spec.tags):
+            if "wr" in params and "wi" in params:       # already frozen
+                wr, wi = params["wr"], params["wi"]
+                if (quantize == "int8" and "w_scale" not in params
+                        and wr.dtype.is_floating_point):
+                    wr, wi, out["w_scale"] = _quantize_pair(wr, wi)
+                    changed = True
+                out["wr"], out["wi"] = wr, wi
+            else:
+                wr, wi = bc_ops.freq_weights(sub_param)
+                if quantize == "int8":
+                    wr, wi, out["w_scale"] = _quantize_pair(wr, wi)
+                out["wr"], out["wi"] = wr, wi
+                changed = True
+            if "w" in params:
+                dropped.add("w")
+                changed = True
+        else:
+            new = freeze_params(sub_spec, sub_param, quantize)
+            out[key] = new
+            changed = changed or (new is not sub_param)
+    # params-only keys (already-frozen trees) stay
+    for key in params:
+        if key in out or key in dropped:
+            continue
+        if (key == FUSED_KEY and quantize == "int8"
+                and isinstance(params[key], dict)
+                and "w_scale" not in params[key]):
+            # stale fp32 fused group over members just re-quantized above
+            changed = True
+            continue
+        out[key] = params[key]
+    changed = _attach_fused(out) or changed
+    return out if changed else params
+
+
+def frozen_table_bytes(params) -> int:
+    """Resident bytes of every frozen table in a param tree: all ``wr`` /
+    ``wi`` pairs (fused copies included) plus any ``w_scale`` leaves."""
+    if not isinstance(params, dict):
+        return 0
+    n = 0
+    for key in ("wr", "wi", "w_scale"):
+        if key in params and isinstance(params[key], torch.Tensor):
+            n += int(params[key].nbytes)
+    return n + sum(frozen_table_bytes(v) for v in params.values()
+                   if isinstance(v, dict))
+
+
+def dequantize_frozen(params):
+    """int8-frozen tree -> the equivalent fp32-frozen tree: every
+    ``(wr, wi, w_scale)`` triple becomes a ``dequantize_symmetric`` f32
+    pair without the scale. Non-dict subtrees pass through."""
+    if not isinstance(params, dict):
+        return params
+    out = {}
+    for key, val in params.items():
+        if key == "w_scale" and "wr" in params:
+            continue
+        if key in ("wr", "wi") and "w_scale" in params:
+            out[key] = dequantize_symmetric(val, params["w_scale"])
+        else:
+            out[key] = dequantize_frozen(val)
+    return out
+
+
+def count_frozen_tables(params) -> int:
+    """Number of frozen ``wr``/``wi`` pairs in a param tree — the rfft(w)
+    transforms ``freeze_params`` performed (``FUSED_KEY`` copies skipped)."""
+    if not isinstance(params, dict):
+        return 0
+    n = 1 if ("wr" in params and "wi" in params) else 0
+    return n + sum(count_frozen_tables(v) for key, v in params.items()
+                   if key != FUSED_KEY)

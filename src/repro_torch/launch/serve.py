@@ -1,0 +1,130 @@
+"""Serving launcher: builds the model, initializes seeded demo params and
+serves batched requests through the continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --model qwen3-0.6b \
+        --batch 4 --cache-len 128
+
+The circulant implementation (``impl``) comes from the config. The engine
+freezes the frequency tables once at load, rounds prefill launches to
+(batch-bucket, prompt-bucket) shapes and compacts decode launches to the
+smallest decode bucket holding the active slots. ``--device`` defaults to
+``cuda`` and fails without a card; ``--device cpu`` runs the plain
+PyTorch path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCHS, get_config, get_smoke
+from repro_torch.device import resolve_device
+from repro_torch.launch.specs import build_model
+from repro_torch.nn.module import init_params
+from repro_torch.serve.engine import (Request, SamplingParams, Scheduler,
+                                      ServeEngine)
+
+
+def _parse_buckets(ap: argparse.ArgumentParser, text: str, flag: str):
+    """Comma-separated bucket list -> tuple of ints (ap.error otherwise)."""
+    if not text:
+        return None
+    try:
+        return tuple(int(tok) for tok in text.split(","))
+    except ValueError:
+        ap.error(f"{flag} must be comma-separated ints, got {text!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="",
+                    help=f"registry model name, one of {sorted(ARCHS)}")
+    ap.add_argument("--arch", default="", help="alias for --model")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4, help="cache slots")
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--n-requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--policy", choices=Scheduler.POLICIES, default="fifo",
+                    help="admission order: fifo | sjf (shortest prompt first)")
+    ap.add_argument("--prompt-buckets", default="",
+                    help="comma-separated prompt-length buckets, e.g. 8,16,32 "
+                         "(default: powers of two up to cache-len)")
+    ap.add_argument("--decode-buckets", default="",
+                    help="comma-separated decode batch buckets, e.g. 1,2,4 "
+                         "(default: powers of two up to --batch)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stop-token", type=int, action="append", default=[],
+                    help="stop generation at this token id (repeatable)")
+    ap.add_argument("--quantize", choices=("off", "int8"), default="off",
+                    help="int8: freeze the circulant frequency tables as int8 "
+                         "with per-block scales (dequantized in the kernel)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain PyTorch path)")
+    args = ap.parse_args(argv)
+
+    if bool(args.model) == bool(args.arch):
+        ap.error("pass exactly one of --model / --arch (they are aliases)")
+    arch = (args.model or args.arch).strip().lower().replace("_", "-")
+    if arch not in ARCHS:
+        ap.error(f"unknown model {arch!r}; choices: {sorted(ARCHS)}")
+    device = resolve_device(args.device)
+    cfg = get_smoke(arch) if args.smoke else get_config(arch)
+    model = build_model(cfg, device=device)
+    params = init_params(model.specs(), args.seed, device=device)
+    print(f"serving seeded random params (demo mode) on {device}, "
+          f"impl={cfg.swm.impl}")
+    try:
+        engine = ServeEngine(
+            model, cfg, params, batch=args.batch, cache_len=args.cache_len,
+            prompt_buckets=_parse_buckets(ap, args.prompt_buckets,
+                                          "--prompt-buckets"),
+            decode_buckets=_parse_buckets(ap, args.decode_buckets,
+                                          "--decode-buckets"),
+            policy=args.policy, quantize=args.quantize)
+    except ValueError as e:
+        if "_buckets" in str(e):
+            ap.error(str(e))
+        raise
+    print(f"buckets: batch={engine.batch_buckets} "
+          f"prompt={engine.prompt_buckets} decode={engine.decode_buckets} "
+          f"(<= {engine.max_prefill_variants} prefill + "
+          f"{engine.max_decode_variants} decode shapes)")
+    if args.quantize != "off":
+        print(f"quantize={args.quantize}: frozen table bytes = "
+              f"{engine.frozen_table_bytes()}")
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
+                                 ).astype(np.int32),
+                    max_new=args.max_new, stop_tokens=tuple(args.stop_token),
+                    sampling=sampling)
+            for _ in range(args.n_requests)]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    for i, o in enumerate(outs):
+        print(f"request {i}: {o}")
+    n_tok = sum(len(o) for o in outs)
+    s = engine.stats
+    print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s); "
+          f"prefill shapes={sorted(s.prefill_shapes)} "
+          f"decode shapes={sorted(s.decode_shapes)} "
+          f"tokens/decode-step={s.tokens_per_decode_step:.2f} "
+          f"decode-rows/token={s.decode_rows_per_token:.2f}")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,210 @@
+"""Grouped-query attention: rotary, qk-norm, ring-buffer KV cache.
+
+GQA/MQA with optional qk-norm (qwen3), causal. Masks are predicates over
+absolute positions: keys with negative ``kv_pos`` (unfilled cache slots and
+the serve engine's left-pad lanes) are always masked. Long queries
+(``S > flash_q_chunk``) use a chunked online-softmax attention written as
+plain PyTorch loops. The KV cache stores absolute positions beside k/v and
+is updated in place. Local (sliding-window), cross, bidirectional and
+prefix-LM attention wait for the slices that serve those families.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import circulant as circ
+from repro_torch.kernels.block_circulant.plan import FUSED_KEY
+from repro_torch.nn.layers import RMSNorm, apply_rope, rotary
+from repro_torch.nn.linear import Linear
+
+__all__ = ["Attention", "init_kv_cache", "flash_attention"]
+
+_NEG = -2.0e38
+
+
+def init_kv_cache(batch, cache_len, n_kv, head_dim, dtype, device):
+    """Empty cache; pos = -1 marks an unfilled (always-masked) slot."""
+    return {
+        "k": torch.zeros((batch, cache_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, Skv) additive f32 bias: valid cache slots (``kv_pos >= 0``)
+    at or before the query position."""
+    kp = kv_pos[:, None, :]
+    ok = (kp >= 0) & (kp <= q_pos[:, :, None])
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, neg)
+
+
+def _scores(q, k, softcap):
+    """(B, Sq, HKV, G, hd) x (B, Skv, HKV, hd) -> f32 (B, HKV, G, Sq, Skv)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    s = s * (q.shape[-1] ** -0.5)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    return s
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0,
+                    q_chunk: int = 512, kv_chunk: int = 1024):
+    """Online-softmax attention over KV chunks, O(S·chunk) memory.
+    q (B, Sq, HKV, G, hd), k/v (B, Skv, HKV, hd) -> (B, Sq, HKV, G, hd)."""
+    B, Sq, HKV, G, hd = q.shape
+    Skv = k.shape[1]
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qi, qpi = q[:, q0:q0 + q_chunk], q_pos[:, q0:q0 + q_chunk]
+        qc = qi.shape[1]
+        m = torch.full((B, HKV, G, qc), float("-inf"), device=q.device)
+        l = torch.zeros((B, HKV, G, qc), device=q.device)
+        acc = torch.zeros((B, HKV, G, qc, hd), device=q.device)
+        for k0 in range(0, Skv, kv_chunk):
+            ki, vi = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            s = _scores(qi, ki, softcap) + _mask_bias(
+                qpi, kv_pos[:, k0:k0 + kv_chunk])[:, None, None]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(qi.dtype).float(), vi.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, qc, HKV, G, hd)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _direct_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0):
+    """Small-Sq path (decode, short prefill): one materialized score
+    tensor."""
+    s = _scores(q, k, softcap) + _mask_bias(q_pos, kv_pos)[:, None, None]
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", w.to(q.dtype), v)
+
+
+class Attention(nn.Module):
+    """Self-attention with a fused QKV launch when all three projections
+    are circulant with one block size."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.n_img_tokens:
+            raise NotImplementedError("prefix-LM attention is not ported yet")
+        self.cfg = cfg
+        hd = cfg.head_dim
+
+        def proj(i, o):
+            return Linear(i, o, family="attn", swm=cfg.swm,
+                          dtype=cfg.param_dtype)
+
+        self.add_module("q", proj(cfg.d_model, cfg.n_heads * hd))
+        self.add_module("k", proj(cfg.d_model, cfg.n_kv_heads * hd))
+        self.add_module("v", proj(cfg.d_model, cfg.n_kv_heads * hd))
+        self.add_module("o", proj(cfg.n_heads * hd, cfg.d_model))
+        if cfg.qk_norm:
+            self.add_module("q_norm", RMSNorm(hd))
+            self.add_module("k_norm", RMSNorm(hd))
+
+    def specs(self):
+        return {n: m.specs() for n, m in self._modules.items()
+                if n != FUSED_KEY}
+
+    def _fused_qkv(self, x):
+        """Q/K/V as ONE stacked-p circulant launch, or None when the three
+        tables are not circulant with one block size. Frozen trees carry
+        the pre-concatenated table under ``FUSED_KEY``."""
+        projs = [self._modules[n] for n in ("q", "k", "v")]
+        kb = projs[0].block_size
+        if not all(p.is_circulant and p.block_size == kb for p in projs):
+            return None
+        impl = self.cfg.swm.impl
+        fused = self._modules.get(FUSED_KEY)
+        if fused is not None:
+            fb = fused._buffers
+            return circ.block_circulant_apply_multi(
+                x, None, impl=impl, w_freq_cat=(fb["wr"], fb["wi"]),
+                w_scale_cat=fb.get("w_scale"),
+                splits=tuple(p.out_dim // kb for p in projs), k=kb)
+        frozen = all(p.frozen_freq() is not None for p in projs)
+        return circ.block_circulant_apply_multi(
+            x, None if frozen else [p._buffers["w"] for p in projs],
+            impl=impl,
+            # int8 per-projection tables dequantize here (the multi path
+            # concatenates plain f32 tables)
+            w_freqs=([circ.dequantize_freq_pair(*p.frozen_freq(),
+                                                p.frozen_scale())
+                      for p in projs] if frozen else None),
+            k=kb)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """x (B, S, D), positions (B, S) -> (out, cache). The cache, when
+        given, is updated in place and returned."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, HQ, HKV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        qkv = self._fused_qkv(x)
+        if qkv is None:
+            qkv = [self._modules[n](x) for n in ("q", "k", "v")]
+        q = qkv[0].reshape(B, S, HQ, hd)
+        k = qkv[1].reshape(B, S, HKV, hd)
+        v = qkv[2].reshape(B, S, HKV, hd)
+        if cfg.qk_norm:
+            q = self._modules["q_norm"](q)
+            k = self._modules["k_norm"](k)
+        cos, sin = rotary(positions, hd, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+        if cache is not None:
+            cache = self._write_cache(cache, k, v, positions)
+            if S == 1 or S < cache["k"].shape[1]:
+                # decode / short append: attend over the cache
+                k_att, v_att = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+                kv_pos = cache["pos"]
+            else:
+                # prefill covering the whole cache: attend over fresh kv
+                k_att, v_att, kv_pos = k, v, positions
+        else:
+            k_att, v_att, kv_pos = k, v, positions
+
+        qg = q.reshape(B, S, HKV, HQ // HKV, hd)
+        if S > cfg.flash_q_chunk:
+            out = flash_attention(qg, k_att, v_att, positions, kv_pos,
+                                  softcap=cfg.logit_softcap,
+                                  q_chunk=cfg.flash_q_chunk,
+                                  kv_chunk=cfg.flash_kv_chunk)
+        else:
+            out = _direct_attention(qg, k_att, v_att, positions, kv_pos,
+                                    softcap=cfg.logit_softcap)
+        return self._modules["o"](out.reshape(B, S, HQ * hd)), cache
+
+    @staticmethod
+    def _write_cache(cache, k, v, positions):
+        """Ring-buffer write at slot = pos % cache_len, in place. A span
+        longer than the cache writes only its trailing cache_len tokens."""
+        B, S = positions.shape
+        cache_len = cache["k"].shape[1]
+        if S >= cache_len:
+            k, v = k[:, -cache_len:], v[:, -cache_len:]
+            positions = positions[:, -cache_len:]
+        slots = torch.remainder(positions, cache_len).long()
+        bidx = torch.arange(B, device=positions.device)[:, None]
+        cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+        cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+        cache["pos"][bidx, slots] = positions.to(torch.int32)
+        return cache

@@ -1,0 +1,55 @@
+"""Feed-forward blocks: SwiGLU (LM family) and GeLU MLP, SWM-aware."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import SWMConfig
+from repro_torch.nn.linear import Linear
+
+__all__ = ["SwiGLU", "MLP"]
+
+
+class SwiGLU(nn.Module):
+    """wo( silu(wi(x)) * wu(x) ) — llama/gemma/qwen FFN."""
+
+    def __init__(self, d_model: int, d_ff: int,
+                 swm: Optional[SWMConfig] = None, family: str = "ffn",
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        kw = dict(family=family, swm=swm, dtype=dtype)
+        self.add_module("wi", Linear(d_model, d_ff, **kw))
+        self.add_module("wu", Linear(d_model, d_ff, **kw))
+        self.add_module("wo", Linear(d_ff, d_model, **kw))
+
+    def specs(self):
+        return {n: self._modules[n].specs() for n in ("wi", "wu", "wo")}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self._modules
+        g = torch.nn.functional.silu(m["wi"](x))
+        return m["wo"](g * m["wu"](x))
+
+
+class MLP(nn.Module):
+    """wo(gelu(wi(x))) — classic 2-matrix FFN (tanh-approximate gelu, as
+    the reference's ``jax.nn.gelu`` default)."""
+
+    def __init__(self, d_model: int, d_ff: int,
+                 swm: Optional[SWMConfig] = None, family: str = "ffn",
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        kw = dict(family=family, swm=swm, dtype=dtype)
+        self.add_module("wi", Linear(d_model, d_ff, **kw))
+        self.add_module("wo", Linear(d_ff, d_model, **kw))
+
+    def specs(self):
+        return {n: self._modules[n].specs() for n in ("wi", "wo")}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.nn.functional.gelu(self._modules["wi"](x),
+                                     approximate="tanh")
+        return self._modules["wo"](h)

@@ -1,0 +1,163 @@
+"""Parameter specs and the param-tree view of the port's modules.
+
+Every leaf is declared up front as a :class:`ParamSpec` (shape, dtype,
+initializer, tags); ``init_params`` materializes a spec tree into a nested
+dict of tensors with explicit ``torch.Generator``s.
+
+The port's modules are ``nn.Module``s that hold their tensors as buffers
+named by the reference's leaf keys (``w``, ``wr``, ``wi``, ``w_scale``,
+``scale``, ``table``) and their sub-dicts as child modules (``q``, ``ffn_dense``,
+``_fused``, ...). :func:`module_tree` reads a module as such a nested dict
+and :func:`load_tree` installs one (no copies), so tree functions like
+``plan.freeze_params`` apply to a live model. Layers are per-layer modules
+(``layers.<i>``); the reference's stacked layout is ``convert``'s concern.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.device import resolve_device
+
+__all__ = ["ParamSpec", "ParamDict", "init_params", "param_count",
+           "module_tree", "load_tree"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declaration of a single parameter tensor.
+
+    shape: full shape. dtype: storage dtype. init: "normal" | "zeros" |
+    "ones". scale: std of "normal". tags: markers read by tooling
+    ("circulant" lets ``plan.freeze_params`` find SWM tables).
+    """
+
+    shape: tuple
+    dtype: Any = torch.float32
+    init: str = "normal"
+    scale: float = 0.02
+    tags: tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+        object.__setattr__(self, "dtype", torch_dtype(self.dtype))
+        object.__setattr__(self, "tags", tuple(self.tags))
+
+    def materialize(self, gen: torch.Generator, device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if self.init == "normal":
+            x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            return (x * self.scale).to(self.dtype)
+        raise ValueError(f"unknown init {self.init!r}")
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, ParamSpec):
+        yield path, tree
+        return
+    if isinstance(tree, Mapping):
+        for k in sorted(tree.keys()):
+            yield from _walk(tree[k], path + (k,))
+        return
+    if tree is None:
+        return
+    raise TypeError(f"spec trees are nested dicts of ParamSpec; got "
+                    f"{type(tree)} at {path}")
+
+
+def _map_specs(fn: Callable, tree):
+    """Structure-preserving map over a spec tree; fn(path, spec) -> leaf."""
+    def rec(t, path):
+        if isinstance(t, ParamSpec):
+            return fn(path, t)
+        if isinstance(t, Mapping):
+            return {k: rec(v, path + (k,)) for k, v in t.items()}
+        if t is None:
+            return None
+        raise TypeError(f"bad spec tree node {type(t)} at {path}")
+
+    return rec(tree, ())
+
+
+def _path_seed(seed: int, path) -> int:
+    """Deterministic per-path generator seed: the root seed and a stable
+    hash of the path string."""
+    h = int.from_bytes(hashlib.blake2b("/".join(map(str, path)).encode(),
+                                       digest_size=4).digest(), "big")
+    return (int(seed) << 32) | h
+
+
+def init_params(specs, seed: int = 0, device="cuda"):
+    """Materialize a spec tree into a tensor tree on ``device`` (default
+    ``"cuda"``; raises without CUDA unless ``device="cpu"``). Deterministic
+    in the seed for a given device type."""
+    dev = resolve_device(device)
+
+    def make(path, spec):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_path_seed(seed, path))
+        return spec.materialize(gen, dev)
+
+    return _map_specs(make, specs)
+
+
+def param_count(specs) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in _walk(specs))
+
+
+# ---------------------------------------------------------------------------
+# Module <-> param tree
+# ---------------------------------------------------------------------------
+
+
+class ParamDict(nn.Module):
+    """A plain sub-dict of a param tree (e.g. the ``_fused`` group):
+    buffers and child nodes only, no forward."""
+
+
+def module_tree(module: nn.Module) -> dict:
+    """The module's tensors as a nested dict keyed like the reference's
+    param tree (the live buffers — no copies)."""
+    out = {k: v for k, v in module._buffers.items() if v is not None}
+    for name, child in module._modules.items():
+        out[name] = module_tree(child)
+    return out
+
+
+def load_tree(module: nn.Module, tree: dict) -> nn.Module:
+    """Install ``tree``'s tensors as the module's buffers (no copies).
+
+    Buffers absent from ``tree`` are dropped (a frozen tree replaces ``w``
+    with ``wr``/``wi``); sub-dicts with no child module become
+    :class:`ParamDict` nodes; a structural child the tree lacks raises.
+    """
+    for key in [k for k in module._buffers if k not in tree]:
+        del module._buffers[key]
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            child = module._modules.get(key)
+            if child is None:
+                child = ParamDict()
+                module.add_module(key, child)
+            load_tree(child, val)
+        elif isinstance(val, torch.Tensor):
+            module.register_buffer(key, val)
+        else:
+            raise TypeError(f"param tree leaf {key!r} is {type(val)}, "
+                            f"not a tensor")
+    for key in [k for k in module._modules if k not in tree]:
+        if not isinstance(module._modules[key], ParamDict):
+            raise KeyError(f"param tree has no entry for submodule {key!r}")
+        del module._modules[key]
+    return module

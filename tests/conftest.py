@@ -94,3 +94,6 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): hard wall-clock cap, enforced when "
         "pytest-timeout is installed")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skipped on machines without one")
