@@ -6,25 +6,36 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device line (``nvidia-smi`` name and power limit), then build every
-   kernel from the sources in this checkout and print the build time;
+   kernel from the sources in this checkout (one ``nvcc`` per source, all
+   started together) and print the build time;
 2. serve full-width qwen3-0.6b (28 layers, d_model 1024, vocab 151936,
    bf16) with ``impl="pallas"`` (the kernel path) and seeded random params:
    ``ServeEngine(batch=4, cache_len=128)``, 8 greedy requests of 16 tokens;
-   the kernel's launch count must equal 140 x the forwards run; then a
+   ``bc_matmul``'s launch count must equal 140 x the forwards run; then a
    ``torch.profiler`` view of decode steps (device busy time per step);
-3. every kernel against its plain PyTorch version on the card: the
-   slice's projection shapes at every row count the serve run launched
-   (read from its prefill and decode shape sets) and at B in {1, 4, 512},
-   with f32 and bf16 x; small ragged shapes (k in {7, 8, 16}) with bias and
-   every activation; the int8 tables bit for bit against the f32 launch on
-   dequantized tables;
-4. the first request's prefill logits on the card (kernel) against the
-   same params on the CPU (plain versions);
-5. a short int8-table engine pass and its resident table bytes;
-6. kernel, plain-version and ``torch.matmul`` (dense-equivalent matrix,
-   a yardstick the port never calls) device times at the slice's shapes,
-   beside the least time the card could take for the function (transforms
-   counted at an FFT's operations), and the wrapper's host time per call.
+3. train the same model (``remat="block"``, AdamW, ``SyntheticLM(seed=0)``,
+   batch 8 x seq 256): one warm-up step, then 4 counted steps with finite
+   losses; the launch counts must equal (forward + recompute + dx) x 140 x
+   steps for ``bc_matmul`` and 140 x steps for ``bc_dw``; every circulant
+   table's grad finite and non-zero; params unchanged by step 0 (lr 0)
+   and moved by the later steps;
+4. every kernel against its plain PyTorch version on the card: the
+   slice's projection shapes at every row count the serve and train runs
+   launched and at B in {1, 4, 512}, with f32 and bf16 x; small ragged
+   shapes (k in {1, 7, 8, 16}) with bias and every activation; the int8
+   tables bit for bit against the f32 launch on dequantized tables; the dx
+   launches (``bc_matmul`` on the transposed shapes) and ``bc_dw`` in both
+   epilogues at the train rows and 512, f32 and bf16, plus ragged shapes;
+5. the first request's prefill logits on the card (kernels) against the
+   same params on the CPU (plain versions), and one full-width train step
+   (batch 2 x seq 32) on the card against the CPU: loss and grad norm;
+6. a short int8-table engine pass and its resident table bytes;
+7. kernel, plain-version and yardstick device times at the slice's shapes
+   (``torch.matmul`` with the dense-equivalent matrix for ``bc_matmul``
+   and the dense weight gradient ``g.T @ x`` for ``bc_dw``, both calls the
+   port never makes), beside the least time the card could take for the
+   function (transforms counted at an FFT's operations), and the
+   wrapper's host time per call.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -60,6 +71,12 @@ BF16_TOL = 2.0 ** -7 + FP32_TOL
 # kernel and the plain version flip single roundings, which propagate
 # through 28 layers. 1% of the largest logit bounds that drift
 FULL_WIDTH_TOL = 1e-2
+# bc_dw sums B rows per element, in other orders in the kernel (row ranges
+# then a split reduction) and in the plain version (cuBLAS). The worst-case
+# rounding error of an n-term f32 sum grows linearly in n (Higham: (n-1)·u
+# times the sum of |terms|), so FP32_TOL, which holds to 512 rows, scales
+# with the row count beyond that
+DW_TOL_ROWS = 512
 # device-side sleep queued ahead of each timed call (~5 ms at 1.98 GHz), so
 # the host has enqueued the call before the device reaches it and the
 # events time the device alone, not the Python launch path
@@ -70,7 +87,10 @@ K = 128
 # launches per forward (28 layers)
 SLICE_SHAPES = [("qkv", 32, 8, 28), ("o", 8, 16, 28), ("wi_wu", 24, 8, 56),
                 ("wo", 8, 24, 28)]
+# dx = g @ W runs bc_matmul on the transposed block grid (q, p)
+DX_SHAPES = [(f"{name}.dx", q, p, n) for name, p, q, n in SLICE_SHAPES]
 RAGGED = [(37, 5, 3, 7), (9, 3, 11, 8), (13, 2, 2, 16), (3, 1, 1, 1)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 4
 
 
 def fail(msg: str) -> None:
@@ -97,7 +117,7 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
     gen = torch.Generator(device=dev).manual_seed(1)
     worst_abs = 0.0
     n_checks = 0
-    for name, p, q, _ in SLICE_SHAPES:
+    for name, p, q, _ in SLICE_SHAPES + DX_SHAPES:
         wr, wi = tables(p, q, K, gen, dev)
         for B in row_counts:
             x32 = torch.randn(B, q * K, generator=gen, device=dev)
@@ -147,11 +167,59 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
         if not torch.equal(y8, yd):
             fail(f"ragged k={k}: int8 launch differs from dequantized f32")
         n_checks += 1
-    print(f"kernel checks: {n_checks} passed at slice-shape rows "
-          f"{list(row_counts)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
+    print(f"bc_matmul checks: {n_checks} passed at forward and dx shapes, "
+          f"rows {list(row_counts)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
           f"{BF16_TOL:.3g}, int8 bit-identical); max abs err at the slice "
           f"shapes (f32) = {worst_abs!r}")
-    print("kernels: [\"bc_matmul\"]")
+    return worst_abs
+
+
+def dw_tol(B, dtype, torch):
+    base = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    return base * max(1.0, B / DW_TOL_ROWS)
+
+
+def phase_dw(torch, kernel, dev, row_counts):
+    """bc_dw against its plain version: the slice's shapes at ``row_counts``
+    in both epilogues, f32 and bf16 inputs, and ragged shapes; the same
+    launch twice must agree bit for bit. Returns the max abs error of the
+    f32 checks at the slice's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst_abs, n_checks = 0.0, 0
+    cases = [(name, B, p, q, K) for name, p, q, _ in SLICE_SHAPES
+             for B in row_counts]
+    cases += [(f"ragged k={k}", B, p, q, k) for B, p, q, k in RAGGED]
+    for name, B, P, Q, k in cases:
+        x32 = torch.randn(B, Q * k, generator=gen, device=dev)
+        g32 = torch.randn(B, P * k, generator=gen, device=dev)
+        for x, g in ((x32, g32), (x32.bfloat16(), g32.bfloat16())):
+            tol = dw_tol(B, x.dtype, torch)
+            for freq_out in (False, True):
+                got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+                again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+                ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k,
+                                         freq_out=freq_out)
+                torch.cuda.synchronize()
+                got, again, ref = ((t,) if not freq_out else t
+                                   for t in (got, again, ref))
+                for a, a2, r in zip(got, again, ref):
+                    e = rel_err(a, r)
+                    if not e <= tol:
+                        fail(f"bc_dw {name} B={B} P={P} Q={Q} k={k} "
+                             f"{x.dtype} freq_out={freq_out}: rel err "
+                             f"{e:.3g} > {tol:.3g}")
+                    if not torch.equal(a, a2):
+                        fail(f"bc_dw {name} B={B}: two launches differ")
+                    if x.dtype == torch.float32 and k == K:
+                        worst_abs = max(worst_abs,
+                                        float((a - r).abs().max()))
+                n_checks += 1
+    print(f"bc_dw checks: {n_checks} passed at slice shapes x rows "
+          f"{list(row_counts)} and {len(RAGGED)} ragged shapes, both "
+          f"epilogues (f32 rel <= {FP32_TOL} x max(1, B/{DW_TOL_ROWS}), "
+          f"bf16 rel <= {BF16_TOL:.3g} x the same; repeat launches "
+          f"bit-identical); max abs err at the slice shapes (f32) = "
+          f"{worst_abs!r}")
     return worst_abs
 
 
@@ -225,16 +293,140 @@ def phase_serve(torch, dev):
             statistics.median(decode_ms), row_counts)
 
 
+def to_device(tree, dev):
+    from repro_torch.nn.module import tree_map
+
+    return tree_map(lambda v: v.detach().to(dev), tree)
+
+
+def phase_train(torch, dev):
+    """Full-width qwen3-0.6b training through the kernels: one warm-up
+    step, then TRAIN_STEPS counted steps with the launch counts read."""
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.block_circulant import kernel
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.train.loop import (init_train_state, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    tcfg = TrainConfig()
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    state = init_train_state(params, tcfg, cfg.optimizer)
+    step_fn = make_train_step(model, cfg, tcfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=0)
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+            dev)}
+
+    circ = [p for p in tree_leaves(params) if p.dim() == 3]
+    before = [p.detach().clone() for p in circ]
+    t = time.perf_counter()
+    state, m = step_fn(state, batch(0))          # warm-up; lr(0) = 0
+    loss0 = float(m["loss"])
+    warm_s = time.perf_counter() - t
+    if not all(torch.equal(a, b) for a, b in zip(before, circ)):
+        fail("step 0 (learning rate 0) changed the params")
+
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    losses, norms, step_ms = [], [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t = time.perf_counter()
+        state, m = step_fn(state, batch(i))
+        losses.append(float(m["loss"]))          # waits for the device
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(kernel.LAUNCHES)
+    per_pass = 5 * cfg.n_layers
+    passes = 3 if cfg.remat != "none" else 2      # forward, recompute, dx
+    want = {"bc_matmul": passes * per_pass * TRAIN_STEPS,
+            "bc_dw": per_pass * TRAIN_STEPS}
+    if not all(math.isfinite(v) for v in losses + norms + [loss0]):
+        fail(f"non-finite train loss or grad norm: {losses} {norms}")
+    if launches != want:
+        fail(f"train launches {launches} != {want} ({passes} x {per_pass} "
+             f"bc_matmul and {per_pass} bc_dw per step, remat="
+             f"{cfg.remat!r})")
+    if any(torch.equal(a, b) for a, b in zip(before, circ)):
+        fail("a circulant table did not move in steps 1..4")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = statistics.median(step_ms)
+    print(f"train: qwen3-0.6b full width, remat={cfg.remat!r}, AdamW, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} = {tokens} tokens/step; "
+          f"warm-up step {warm_s:.2f}s (loss {loss0!r}); steps 1..."
+          f"{TRAIN_STEPS}: losses {losses}, grad norms {norms}, ms/step "
+          f"{step_ms} (median {ms:.1f} = {tokens / ms * 1e3:.1f} tokens/s); "
+          f"launches {launches} = {want}")
+
+    # where a step's device time goes: one more full step, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch(TRAIN_STEPS + 1))
+        torch.cuda.synchronize()
+    report_profile(torch, prof, 1, ms, f"train step (batch {TRAIN_BATCH} x "
+                   f"seq {TRAIN_SEQ}; wall = the median unprofiled step)")
+
+    # every circulant table gets a finite, non-zero grad (outside the count)
+    _, grads = value_and_grad(make_loss_fn(model, cfg, tcfg),
+                              state["params"], batch(99), has_aux=True)
+    cg = [g for p, g in zip(tree_leaves(state["params"]),
+                            tree_leaves(grads)) if p.dim() == 3]
+    bad = [i for i, g in enumerate(cg)
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    if len(cg) != 7 * cfg.n_layers or bad:
+        fail(f"circulant grads: {len(cg)} tables, not finite or zero at {bad}")
+    print(f"train grads: {len(cg)} circulant tables, all finite and "
+          f"non-zero; global grad norm {float(global_norm(grads))!r}")
+    return cfg, launches, ms, tokens
+
+
+def phase_train_cpu_vs_card(torch, cfg, dev):
+    """One full-width train step at batch 2 x seq 32 on the card and on
+    the CPU from the same params and batch: loss and grad norm."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    tcfg = TrainConfig()
+    card_params = init_params(build_model(cfg, device=dev).specs(), seed=1,
+                              device=dev)
+    tokens = torch.from_numpy(SyntheticLM(vocab=cfg.vocab, seq_len=32,
+                                          batch=2, seed=1).batch_np(0)[
+                                              "tokens"])
+    out = {}
+    for name, d, params in (("card", dev, card_params),
+                            ("cpu", "cpu", to_device(card_params, "cpu"))):
+        model = build_model(cfg, device=d)
+        state = init_train_state(params, tcfg, cfg.optimizer)
+        _, m = make_train_step(model, cfg, tcfg)(
+            state, {"tokens": tokens.to(d)})
+        out[name] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, nc), (lp, npu) = out["card"], out["cpu"]
+    el, en = abs(lc - lp) / abs(lp), abs(nc - npu) / abs(npu)
+    print(f"card vs cpu train step (full width, batch 2 x seq 32): loss "
+          f"{lc!r} vs {lp!r} (rel {el:.3g}), grad norm {nc!r} vs {npu!r} "
+          f"(rel {en:.3g}); tolerance {FULL_WIDTH_TOL}")
+    if not (el <= FULL_WIDTH_TOL and en <= FULL_WIDTH_TOL):
+        fail("card vs cpu train step differs beyond the tolerance")
+
+
 def phase_cpu_vs_card(torch, cfg, engine, prompt_req):
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import load_tree
 
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-
     cpu_model = build_model(cfg, device="cpu")
-    load_tree(cpu_model, to_cpu(engine.params))
+    load_tree(cpu_model, to_device(engine.params, "cpu"))
     toks = torch.as_tensor(prompt_req.prompt, dtype=torch.long)[None]
     with torch.no_grad():
         card = engine.runner.model.forward(toks.cuda(),
@@ -287,48 +479,59 @@ def time_ms(torch, fn, runs=30):
     return statistics.median(times)
 
 
-def phase_times(torch, kernel, dev):
+def bound(nbytes, flops):
+    """(least time in ms, what bounds it) on the H100's published peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_times(torch, kernel, dev, cases):
+    """bc_matmul device times at ``cases`` = [(name, p, q, launches, B)]."""
     from repro_torch.core.circulant import blocks_to_dense
     from repro_torch.kernels.block_circulant.ops import freq_weights
 
     gen = torch.Generator(device=dev).manual_seed(2)
     Kf = K // 2 + 1
     rows = []
-    print("device times (bf16 x, f32 tables, no bias; median of 30 runs, "
-          "CUDA events; bound = max(bytes / 3.35 TB/s, flops / "
+    print("bc_matmul device times (bf16 x, f32 tables, no bias; median of "
+          "30 runs, CUDA events; bound = max(bytes / 3.35 TB/s, flops / "
           "67 TFLOP/s), flops with FFT-counted transforms; 'dense-DFT' = "
-          "the kernel's own flops / 67 TFLOP/s):")
-    for name, p, q, per_fwd in SLICE_SHAPES:
+          "the kernel's own flops / 67 TFLOP/s; torch.matmul = the "
+          "dense-equivalent product, a yardstick):")
+    for name, p, q, per, B in cases:
         w = torch.randn(p, q, K, generator=gen, device=dev) * (q * K) ** -0.5
         wr, wi = freq_weights(w)
         dense_t = blocks_to_dense(w).T.contiguous().bfloat16()
-        for B in (4, 512):
-            x = torch.randn(B, q * K, generator=gen, device=dev).bfloat16()
-            ms = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=K))
-            plain = time_ms(torch,
-                            lambda: kernel.bc_matmul_plain(x, wr, wi, k=K))
-            lib = time_ms(torch, lambda: torch.matmul(x, dense_t))
-            nbytes = x.nbytes + wr.nbytes + wi.nbytes + B * p * K * 2
-            # least work: q forward and p inverse real transforms per row at
-            # an FFT's 2.5·k·log2(k), plus the per-bin complex products
-            flops = B * (2.5 * K * math.log2(K) * (q + p) + 8 * p * q * Kf)
-            # this kernel's own count: transforms as dense DFT matmuls
-            kernel_flops = B * (4 * q * K * Kf + 8 * p * q * Kf
-                                + 4 * p * Kf * K)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOP_PER_S * 1e3
-            row = dict(shape=name, B=B, p=p, q=q, k=K, launches_per_forward=
-                       per_fwd, ms=ms, plain_ms=plain, library_ms=lib,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, flops=flops, kernel_flops=kernel_flops,
-                       kernel_flops_ms=kernel_flops / F32_FLOP_PER_S * 1e3)
-            rows.append(row)
-            print(f"  {name:6s} p={p:2d} q={q:2d} B={B:3d}: kernel {ms!r} ms, "
-                  f"plain {plain!r} ms, torch.matmul {lib!r} ms, bound "
-                  f"{row['bound_ms']!r} ms ({row['bound_by']}), dense-DFT "
-                  f"{row['kernel_flops_ms']!r} ms, {per_fwd} launches/forward")
-    # host cost of the wrapper: enqueue time per call, no device wait
+        x = torch.randn(B, q * K, generator=gen, device=dev).bfloat16()
+        ms = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=K))
+        plain = time_ms(torch, lambda: kernel.bc_matmul_plain(x, wr, wi, k=K))
+        lib = time_ms(torch, lambda: torch.matmul(x, dense_t))
+        nbytes = x.nbytes + wr.nbytes + wi.nbytes + B * p * K * 2
+        # least work: q forward and p inverse real transforms per row at
+        # an FFT's 2.5·k·log2(k), plus the per-bin complex products
+        flops = B * (2.5 * K * math.log2(K) * (q + p) + 8 * p * q * Kf)
+        # this kernel's own count: transforms as dense DFT matmuls
+        kernel_flops = B * (4 * q * K * Kf + 8 * p * q * Kf + 4 * p * Kf * K)
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(shape=name, B=B, p=p, q=q, k=K, launches=per, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes, flops=flops,
+                   kernel_flops=kernel_flops,
+                   kernel_flops_ms=kernel_flops / F32_FLOP_PER_S * 1e3)
+        rows.append(row)
+        print(f"  {name:9s} p={p:2d} q={q:2d} B={B:4d}: kernel {ms!r} ms, "
+              f"plain {plain!r} ms, torch.matmul {lib!r} ms, bound "
+              f"{b_ms!r} ms ({b_by}), dense-DFT {row['kernel_flops_ms']!r} "
+              f"ms, {per} launches")
+    return rows
+
+
+def phase_host_time(torch, kernel, dev):
+    """Host cost of the bc_matmul wrapper: enqueue time per call."""
+    from repro_torch.kernels.block_circulant.ops import freq_weights
+
+    gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(4, 8 * K, generator=gen, device=dev).bfloat16()
     wr, wi = freq_weights(torch.randn(32, 8, K, generator=gen, device=dev))
     torch.cuda.synchronize()
@@ -339,7 +542,58 @@ def phase_times(torch, kernel, dev):
     torch.cuda.synchronize()
     print(f"host time per bc_matmul call (qkv, B=4, enqueue only): "
           f"{host_us:.1f} us")
+
+
+def phase_dw_times(torch, kernel, dev, B):
+    """bc_dw device times at the train shapes (B rows, bf16 x and g, the
+    time-domain epilogue the trainable tables take)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Kf = K // 2 + 1
+    rows = []
+    print(f"bc_dw device times (B={B}, bf16 x and g, dw (P, Q*k) f32; median "
+          f"of 30 runs, CUDA events; bound = max(one read of x and g and one "
+          f"write of dw / 3.35 TB/s, flops / 67 TFLOP/s) with (P+Q) FFT-"
+          f"counted transforms and 8*P*Q*K per row; g.T @ x = the dense "
+          f"weight gradient, a yardstick the port never calls):")
+    for name, P, Q, per in SLICE_SHAPES:
+        x = torch.randn(B, Q * K, generator=gen, device=dev).bfloat16()
+        g = torch.randn(B, P * K, generator=gen, device=dev).bfloat16()
+        ms = time_ms(torch, lambda: kernel.bc_dw(x, g, P=P, Q=Q, k=K))
+        plain = time_ms(torch, lambda: kernel.bc_dw_plain(x, g, P=P, Q=Q,
+                                                          k=K))
+        dense = time_ms(torch, lambda: torch.matmul(g.T, x))
+        nbytes = x.nbytes + g.nbytes + P * Q * K * 4
+        flops = B * (2.5 * K * math.log2(K) * (P + Q) + 8 * P * Q * Kf)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(shape=name, B=B, P=P, Q=Q, k=K, launches=per,
+                         ms=ms, plain_ms=plain, library_ms=None,
+                         dense_dw_matmul_ms=dense, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes, flops=flops))
+        print(f"  {name:6s} P={P:2d} Q={Q:2d}: kernel {ms!r} ms, plain "
+              f"{plain!r} ms, g.T @ x {dense!r} ms, bound {b_ms!r} ms "
+              f"({b_by}), {per} launches/step")
     return rows
+
+
+def report_profile(torch, prof, n, wall_ms, what):
+    """Device busy time per step and the top kernels of a profile."""
+    # kernel (device-side) rows only: CPU op rows carry the device time of
+    # the kernels they launch, which would count it twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy_ms == 0:
+        print(f"profile, {what}: the profiler saw no device time "
+              f"(not measured)")
+        return
+    print(f"profile, {what}: device busy {busy_ms:.3f} ms/step of "
+          f"{wall_ms:.2f} ms/step unprofiled (device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}); "
+          f"{sum(e.count for e in kernels) // n} device kernels/step")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+              f"{e.count // n:5d} launches/step  {e.key[:70]}")
 
 
 def phase_profile(torch, engine, reqs, step_ms):
@@ -356,23 +610,7 @@ def phase_profile(torch, engine, reqs, step_ms):
             engine.step()
         torch.cuda.synchronize()
     engine.drain(rids)
-
-    # kernel (device-side) rows only: CPU op rows carry the device time of
-    # the kernels they launch, which would count it twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    if busy_ms == 0:
-        print("profile: the profiler saw no device time (not measured)")
-        return
-    print(f"profile, decode step at 4 active slots: device busy "
-          f"{busy_ms:.3f} ms/step of {step_ms:.2f} ms/step unprofiled "
-          f"(device idle share {1 - busy_ms / step_ms:.3f}); "
-          f"{sum(e.count for e in kernels) // n} device kernels/step")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:6]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
-              f"{e.count // n:5d} launches/step  {e.key[:70]}")
+    report_profile(torch, prof, n, step_ms, "decode step at 4 active slots")
 
 
 def main() -> int:
@@ -393,28 +631,42 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     t0 = time.perf_counter()
-    lib, log = kernel.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f}s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    libs = kernel.build()
+    print(f"built {sorted(lib.name for lib, _ in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name, (_, log) in sorted(libs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
-    cfg, engine, params, reqs, launches, step_ms, serve_rows = phase_serve(
-        torch, dev)
+    cfg, engine, params, reqs, serve_launches, step_ms, serve_rows = \
+        phase_serve(torch, dev)
     phase_profile(torch, engine, reqs, step_ms)
+    train_cfg, train_launches, train_ms, train_rows = phase_train(torch, dev)
     max_abs = phase_kernels(torch, kernel, quant, dev,
-                            sorted({1, 4, 512} | serve_rows))
+                            sorted({1, 4, 512, train_rows} | serve_rows))
+    dw_abs = phase_dw(torch, kernel, dev, sorted({512, train_rows}))
+    print("kernels: [\"bc_matmul\", \"bc_dw\"]")
     phase_cpu_vs_card(torch, cfg, engine, reqs[0])
+    phase_train_cpu_vs_card(torch, train_cfg, dev)
     phase_int8(torch, cfg, params, dev, engine.frozen_table_bytes())
-    rows = phase_times(torch, kernel, dev)
+    rows = phase_times(
+        torch, kernel, dev,
+        [(n, p, q, per, B) for n, p, q, per in SLICE_SHAPES for B in (4, 512)]
+        + [(n, p, q, per, train_rows) for n, p, q, per in DX_SHAPES])
+    phase_host_time(torch, kernel, dev)
+    dw_rows = phase_dw_times(torch, kernel, dev, train_rows)
 
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
+    dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
     report = {"kernels": [{
         "name": "bc_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_matmul.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
-        "launches": launches,
+        "launches": serve_launches + train_launches["bc_matmul"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches["bc_matmul"]},
         "max_abs_err": max_abs,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -424,7 +676,25 @@ def main() -> int:
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
         "all_shapes": rows,
-    }]}
+    }, {
+        "name": "bc_dw",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
+        "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
+        "launches": train_launches["bc_dw"],
+        "max_abs_err": dw_abs,
+        "ms": dw_row["ms"],
+        "plain_ms": dw_row["plain_ms"],
+        "bound_ms": dw_row["bound_ms"],
+        "bound_by": dw_row["bound_by"],
+        "library_ms": None,
+        "dense_dw_matmul_ms": dw_row["dense_dw_matmul_ms"],
+        "shape": f"fused QKV weight adjoint in training: x ({train_rows}, "
+                 f"1024) and g ({train_rows}, 4096) bf16, dw (32, 1024) "
+                 f"f32, k=128",
+        "all_shapes": dw_rows,
+    }], "train": {"ms_per_step": train_ms,
+                  "tokens_per_s": train_rows / train_ms * 1e3}}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,8 @@
-"""Config dataclasses for models and SWM compression (serve subset).
+"""Config dataclasses: models, SWM compression, input shapes, training.
 
 The port's own copy of ``repro.configs.base``: the same fields and
-defaults, so a config means the same model in both packages, with dtypes
-resolved to ``torch.dtype``. Shape cells and training configs wait for the
-slices that use them.
+defaults, so a config means the same model and the same training run in
+both packages, with dtypes resolved to ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["SWMConfig", "LayerSpec", "LayerGroup", "ModelConfig",
-           "torch_dtype"]
+           "ShapeConfig", "SHAPES", "TrainConfig", "torch_dtype"]
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -209,3 +208,49 @@ def _group_layers(specs: Tuple[LayerSpec, ...]) -> Tuple[LayerGroup, ...]:
                                          repeat=1))
             return tuple(groups)
     return (LayerGroup(layers=specs, repeat=1),)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assignment's 4 shapes)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str               # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    seed: int = 0
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    moment_dtype: str = "float32"
+    z_loss: float = 1e-4
+    moe_aux_loss: float = 1e-2
+    microbatch: int = 0                 # 0 = no gradient accumulation
+    grad_compression: str = "none"      # none | int8_ef
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    # quantization-aware training: fake-quantize params through the clipped
+    # STE every forward (0 = off). frac_bits -1 derives bits-4, matching the
+    # paper's fixed-point split; biases/norm scales are exempt.
+    qat_bits: int = 0
+    qat_frac_bits: int = -1

@@ -23,14 +23,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.nn.module import tree_map
 
 __all__ = ["from_reference", "to_reference"]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -63,13 +58,15 @@ def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
     """Reference-layout numpy tree -> the port's per-layer tensor tree on
     ``device`` (default ``"cuda"``)."""
     dev = resolve_device(device)
-    out = {k: _map(lambda a: _to_tensor(a, dev), v) for k, v in tree.items()
+    out = {k: tree_map(lambda a: _to_tensor(a, dev), v)
+           for k, v in tree.items()
            if not k.startswith("group")}
     layers = {}
     for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
         sub = tree[f"group{gi}"][lkey]
         pick = (lambda a: a) if r is None else (lambda a, r=r: np.asarray(a)[r])
-        layers[str(n)] = _map(lambda a: _to_tensor(pick(a), dev), sub)
+        layers[str(n)] = tree_map(lambda a, pick=pick: _to_tensor(pick(a),
+                                                                  dev), sub)
     out["layers"] = layers
     return out
 
@@ -77,11 +74,12 @@ def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
 def to_reference(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tensor tree -> reference-layout numpy tree (repeated
     groups restacked on a leading axis)."""
-    out = {k: _map(_to_numpy, v) for k, v in tree.items() if k != "layers"}
+    out = {k: tree_map(_to_numpy, v) for k, v in tree.items()
+           if k != "layers"}
     stacks: Dict[tuple, list] = {}
     for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
         stacks.setdefault((gi, lkey, r is not None), []).append(
-            _map(_to_numpy, tree["layers"][str(n)]))
+            tree_map(_to_numpy, tree["layers"][str(n)]))
 
     def stack(subs):
         if isinstance(subs[0], dict):

@@ -42,6 +42,7 @@ __all__ = [
     "concat_biases",
     "split_outputs",
     "dft_bases",
+    "dft_bases_adjoint",
 ]
 
 
@@ -161,6 +162,29 @@ def dft_bases(k: int, device="cpu"):
     call copies host memory to the device; callers never write to them."""
     return tuple(torch.from_numpy(b).to(device).contiguous()
                  for b in _dft_bases_np(k))
+
+
+@functools.lru_cache(maxsize=64)
+def _dft_bases_adjoint_np(k: int):
+    C, S, Ci, Si = _dft_bases_np(k)
+    return (C, S, np.ascontiguousarray(Ci.T), np.ascontiguousarray(Si.T),
+            np.ascontiguousarray(C.T), np.ascontiguousarray(S.T))
+
+
+@functools.lru_cache(maxsize=64)
+def dft_bases_adjoint(k: int, device="cpu"):
+    """Bases of the weight adjoint ``(C, S, CiT, SiT, CT, ST)`` as
+    contiguous f32 tensors, cached per (k, device) like :func:`dft_bases`:
+
+      * ``C, S`` (k, K) — analysis bases for x̂;
+      * ``CiT, SiT`` (k, K) — adjoint of the inverse rDFT, applied to the
+        upstream cotangent: ``gyr = g @ Ciᵀ``, ``gyi = g @ Siᵀ``;
+      * ``CT, ST`` (K, k) — adjoint of the forward rDFT, folding the
+        frequency cotangent back to the time domain:
+        ``dw = dwr @ Cᵀ + dwi @ Sᵀ``.
+    """
+    return tuple(torch.from_numpy(b).to(device).contiguous()
+                 for b in _dft_bases_adjoint_np(k))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Public ops: block-circulant matmuls backed by the CUDA kernel (forward).
+"""Public ops: differentiable block-circulant matmuls backed by the kernels.
 
 ``block_circulant_matmul(x, w)``: x (..., q·k) × blocks w (p, q, k)
 -> (..., p·k), with an optional fused epilogue (bias add + activation) and
@@ -9,8 +9,24 @@ the per-call ``rfft(w)`` — the paper's resident FFT(w) inference path.
 ``block_circulant_matmul_multi`` stacks several projections that share one
 input (attention QKV, LSTM gates) along p and runs them as one launch.
 
-The kernel masks ragged edges itself, so nothing here pads. The autograd
-Functions of the reference's custom VJPs arrive with the training slice.
+Gradients are the reference's closed-form circulant adjoints
+(``repro/kernels/block_circulant/ops.py``), as ``torch.autograd.Function``s
+whose backward launches the kernels on the card and runs their plain
+versions on the CPU:
+
+* dL/dx = g @ W reuses the forward kernel ``bc_matmul`` on the transposed
+  tables (a circulant transpose is the index-reversed vector, conj(ŵ) in
+  the frequency domain; the block grid transposes p ↔ q);
+* dL/dw is the weight-adjoint kernel ``bc_dw``: folded back to the time
+  domain for a trainable table ``w`` (``_BCMatmul2d``), the raw frequency
+  pair for trainable frozen tables (``_BCFreq2d``);
+* the forward's (wr, wi) are saved, so the backward never re-transforms w.
+
+Under autograd the activation runs unfused after a ``"none"`` launch, so
+the pre-activation is what the activation's own backward reads; a call
+that records no gradient stays fully fused. The int8 path is primal-only,
+as in the reference: differentiating through it raises. The kernels mask
+ragged edges themselves, so nothing here pads.
 """
 
 from __future__ import annotations
@@ -19,14 +35,17 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.circulant import concat_biases, split_outputs
-from repro_torch.kernels.block_circulant.kernel import bc_matmul
+from repro_torch.core.circulant import (concat_biases, dft_bases,
+                                        split_outputs)
+from repro_torch.kernels.block_circulant.kernel import (apply_activation,
+                                                        bc_dw, bc_matmul)
 
 __all__ = ["block_circulant_matmul", "block_circulant_matmul_multi",
            "freq_weights", "freq_weights_trace_count"]
 
 # Counts every rfft(w) issued. Serving freezes weights exactly once, so the
-# tests assert this does not move across an engine's lifetime after freeze.
+# tests assert this does not move across an engine's lifetime after freeze;
+# a train step issues one per forward (the backward reuses it).
 _FREQ_WEIGHT_CALLS = 0
 
 
@@ -44,6 +63,145 @@ def freq_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return wf.real.contiguous(), wf.imag.contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Closed-form adjoints
+# ---------------------------------------------------------------------------
+
+
+def _transpose_freq(wr: torch.Tensor, wi: torch.Tensor):
+    """Frequency tables of the transposed block-circulant matrix:
+    (Wᵀ)_ji = W_ijᵀ, and a circulant transpose is conj(ŵ) — swap (p, q),
+    negate wi. Contiguous, as the kernel takes them."""
+    return (wr.permute(1, 0, 2).contiguous(),
+            (-wi).permute(1, 0, 2).contiguous())
+
+
+def _dx_via_kernel(gz: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """dx = gz @ W through the forward kernel on the transposed tables;
+    gz (B, p·k) -> (B, q·k) in gz's dtype."""
+    wrT, wiT = _transpose_freq(wr, wi)
+    return bc_matmul(gz.contiguous(), wrT, wiT, k=k)
+
+
+def _dw_via_kernel(x2d: torch.Tensor, gz: torch.Tensor, P: int, Q: int,
+                   k: int, freq_out: bool = False):
+    """Weight adjoint through the ``bc_dw`` kernel: time-domain ``dw
+    (P, Q, k)`` f32, or the frequency cotangents ``(dwr, dwi)`` each
+    (P, Q, K) f32 when ``freq_out``."""
+    out = bc_dw(x2d.contiguous(), gz.contiguous(), P=P, Q=Q, k=k,
+                freq_out=freq_out)
+    return out if freq_out else out.reshape(P, Q, k)
+
+
+def _dw_freq_cotangents(x2d, gz, P, Q, k):
+    """(dwr, dwi) frequency cotangents of the per-bin complex GEMM as
+    einsums — the oracle :func:`_dw_via_kernel` is tested against (test
+    use only)."""
+    C, S, Ci, Si = dft_bases(k, device=x2d.device)
+    xb = x2d.float().reshape(-1, Q, k)
+    xr, xi = xb @ C, xb @ S
+    gb = gz.float().reshape(-1, P, k)
+    # adjoint of the inverse rDFT (y = yr@Ci + yi@Si)
+    gyr, gyi = gb @ Ci.T, gb @ Si.T
+    dwr = (torch.einsum("bpf,bqf->pqf", gyr, xr)
+           + torch.einsum("bpf,bqf->pqf", gyi, xi))
+    dwi = (-torch.einsum("bpf,bqf->pqf", gyr, xi)
+           + torch.einsum("bpf,bqf->pqf", gyi, xr))
+    return dwr, dwi
+
+
+def _bias_grad(gz: torch.Tensor) -> torch.Tensor:
+    return gz.sum(0).to(torch.float32)
+
+
+class _BCMatmul2d(torch.autograd.Function):
+    """Trainable time-domain table ``w (p, q, k)``: the reference's
+    ``_bc_matmul2d`` custom VJP. Returns the pre-activation
+    ``z = x @ W + bias`` in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, bias):
+        k = w.shape[-1]
+        wr, wi = freq_weights(w)
+        z = bc_matmul(x2d, wr, wi, bias, k=k)
+        # saved after the launch: a recomputing checkpoint may stop at the
+        # last save, and the launch belongs to the recomputed forward
+        ctx.save_for_backward(x2d, wr, wi)
+        ctx.w_dtype = w.dtype
+        return z
+
+    @staticmethod
+    def backward(ctx, gz):
+        x2d, wr, wi = ctx.saved_tensors
+        p, q, _ = wr.shape
+        k = x2d.shape[1] // q
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _dx_via_kernel(gz, wr, wi, k).to(x2d.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _dw_via_kernel(x2d, gz, p, q, k).to(ctx.w_dtype)
+        if ctx.needs_input_grad[2]:
+            db = _bias_grad(gz)
+        return dx, dw, db
+
+
+class _BCFreq2d(torch.autograd.Function):
+    """Trainable frozen tables ``(wr, wi) (p, q, K)``: the reference's
+    ``_bc_freq2d`` custom VJP. Returns the pre-activation in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, wr, wi, bias, k):
+        z = bc_matmul(x2d, wr, wi, bias, k=k)
+        ctx.save_for_backward(x2d, wr, wi)
+        ctx.k = k
+        return z
+
+    @staticmethod
+    def backward(ctx, gz):
+        x2d, wr, wi = ctx.saved_tensors
+        p, q, _ = wr.shape
+        k = ctx.k
+        dx = dwr = dwi = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _dx_via_kernel(gz, wr, wi, k).to(x2d.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dwr, dwi = _dw_via_kernel(x2d, gz, p, q, k, freq_out=True)
+            dwr, dwi = dwr.to(wr.dtype), dwi.to(wi.dtype)
+        if ctx.needs_input_grad[3]:
+            db = _bias_grad(gz)
+        return dx, dwr, dwi, db, None
+
+
+class _BCFreqQuant2d(torch.autograd.Function):
+    """int8 frozen tables: primal-only, as the reference's
+    ``_bc_freq_quant2d`` (``jax.grad`` through it raises). The forward is
+    the fused launch; any gradient through it raises instead of coming
+    back silently zero."""
+
+    @staticmethod
+    def forward(ctx, x2d, wr, wi, w_scale, bias, k, activation):
+        return bc_matmul(x2d, wr, wi, bias, w_scale, k=k,
+                         activation=activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the int8 frozen-table path carries no gradient (primal-only, "
+            "as the reference's _bc_freq_quant2d); train through f32 "
+            "tables")
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
 def block_circulant_matmul(
     x: torch.Tensor,
     w: Optional[torch.Tensor],
@@ -54,7 +212,7 @@ def block_circulant_matmul(
     w_scale: Optional[torch.Tensor] = None,
     k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Block-circulant matmul; arbitrary leading batch dims.
+    """Differentiable block-circulant matmul; arbitrary leading batch dims.
 
     ``bias`` (p·k,) and ``activation`` fuse into the kernel epilogue.
     ``w_freq=(wr, wi)`` (p, q, K) selects the frozen path; pass ``k`` with
@@ -74,12 +232,20 @@ def block_circulant_matmul(
         raise ValueError(
             f"x feature dim {x.shape[-1]} is incompatible with block "
             f"tables (q={q}, k={k}): expected exactly q*k={q * k}")
-    if w_freq is None:
-        wr, wi = freq_weights(w)
+    k = int(k)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     b = None if bias is None else bias.reshape(-1).float().contiguous()
-    y = bc_matmul(x2d, wr, wi, b, w_scale, k=int(k), activation=activation)
+    if not _records_grad(x, w, b, w_scale, *(w_freq or ())):
+        if w_freq is None:
+            wr, wi = freq_weights(w)
+        y = bc_matmul(x2d, wr, wi, b, w_scale, k=k, activation=activation)
+    elif w_scale is not None:
+        y = _BCFreqQuant2d.apply(x2d, wr, wi, w_scale, b, k, activation)
+    else:
+        z = (_BCMatmul2d.apply(x2d, w, b) if w_freq is None
+             else _BCFreq2d.apply(x2d, wr, wi, b, k))
+        y = apply_activation(z, activation).to(x.dtype)
     return y.reshape(*lead, p * k)
 
 

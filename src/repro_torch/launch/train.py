@@ -1,0 +1,81 @@
+"""Training launcher: one device, synthetic data, a per-step line.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --steps 10 --seq 256 --batch 8                   # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --smoke --steps 4 --device cpu                    # on the CPU
+
+Builds the model and seeded params on ``--device`` (default ``cuda``;
+raises without a card unless ``--device cpu``), then runs
+``make_train_step`` over ``SyntheticLM`` batches and prints the
+reference's ``step … loss … (… ms)`` line per step. Without ``--seq`` /
+``--batch`` the shape is ``train_4k``'s (``--smoke``: 64 × 8). The
+circulant implementation comes from the config (qwen3-0.6b's says
+``paper``, ``torch.fft``; the kernel path is ``SWMConfig(impl="pallas")``,
+as ``chip_smoke.py`` builds it).
+
+The reference launcher's mesh, sharded state, host-sharded batches,
+automatic restarts and checkpoints wait for the port's ``dist`` and
+``ft`` modules.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import SHAPES, TrainConfig
+from repro_torch.configs.registry import ARCHS, get_config, get_smoke
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.launch.specs import build_model
+from repro_torch.nn.module import init_params
+from repro_torch.train.loop import init_train_state, make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="",
+                    help=f"registry model name, one of {sorted(ARCHS)}")
+    ap.add_argument("--model", default="", help="alias for --arch")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config + small synthetic shapes")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    args = ap.parse_args(argv)
+    arch = args.arch or args.model
+    if not arch:
+        ap.error("--arch (or --model) is required")
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(arch) if args.smoke else get_config(arch)
+    shape = SHAPES["train_4k"]
+    seq = args.seq or (64 if args.smoke else shape.seq_len)
+    batch = args.batch or (8 if args.smoke else shape.global_batch)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       microbatch=args.microbatch,
+                       z_loss=0.0 if args.smoke else 1e-4)
+
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), tcfg.seed, device=dev)
+    state = init_train_state(params, tcfg, cfg.optimizer)
+    step_fn = make_train_step(model, cfg, tcfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
+                       seed=tcfg.seed)
+    for step in range(args.steps):
+        tokens = torch.from_numpy(data.batch_np(step)["tokens"]).to(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": tokens})
+        loss = float(m["loss"])              # waits for the device
+        dt = time.perf_counter() - t0
+        print(f"step {step:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,9 +4,12 @@ The reference stacks each layer group's params on a leading ``repeat``
 axis and runs the group with ``lax.scan``; the port keeps one
 :class:`DecoderLayer` module per layer (``layers.<i>``, in execution order)
 and runs them in a Python loop. Caches are a list with one
-``{"k", "v", "pos"}`` dict per layer, slot axis 0. Other mixers (mamba,
-rwkv, local attention), MoE FFNs and untied logits heads raise until their
-slices are ported.
+``{"k", "v", "pos"}`` dict per layer, slot axis 0. Under autograd with
+``cfg.remat != "none"`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's per-layer
+``jax.checkpoint``: only the residual stream between layers stays live.
+Other mixers (mamba, rwkv, local attention), MoE FFNs and untied logits
+heads raise until their slices are ported.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -55,6 +59,10 @@ class DecoderLayer(nn.Module):
         return x, cache
 
 
+def _layer_out(layer: DecoderLayer, x, positions):
+    return layer(x, positions)[0]
+
+
 class HybridDecoderLM(nn.Module):
     """Embedding, per-layer blocks, final norm, tied logits head.
     Tensors are installed with ``nn.module.load_tree``; ``device`` is where
@@ -93,19 +101,41 @@ class HybridDecoderLM(nn.Module):
         """tokens (B, S) -> (logits, cache). ``positions`` (B, S) default
         to ``0..S-1``; negative positions (left-pad lanes) are masked out
         of attention. ``logits_mode`` 'all' | 'last' (only the final
-        position goes through the head). The cache, when given, is updated
-        in place."""
+        position goes through the head) | 'none' (the final hidden states
+        instead of logits, for the chunked training loss). The cache, when
+        given, is updated in place."""
+        if logits_mode not in ("all", "last", "none"):
+            raise ValueError(f"logits_mode {logits_mode!r}: all | last | none")
         x = self._modules["embed"].encode(tokens)
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
+        remat = (self.cfg.remat != "none" and cache is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self._modules["layers"]):
-            x, _ = layer(x, positions, None if cache is None else cache[i])
+            if remat:
+                x = checkpoint(_layer_out, layer, x, positions,
+                               use_reentrant=False)
+            else:
+                x, _ = layer(x, positions,
+                             None if cache is None else cache[i])
         x = self._modules["final_norm"](x)
+        if logits_mode == "none":
+            return x, cache
         if logits_mode == "last":
             x = x[:, -1:]
         return self._modules["embed"].decode(x), cache
+
+    def forward_hidden(self, tokens: torch.Tensor):
+        """Final hidden states for chunked-loss training: (hidden (B, S,
+        D), aux), aux being the MoE auxiliary loss (0: no MoE layers)."""
+        h, _ = self.forward(tokens, logits_mode="none")
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def output_table(self) -> torch.Tensor:
+        """(V, D) matrix the chunked loss uses: the tied embedding."""
+        return self._modules["embed"]._buffers["table"]
 
     def decode_step(self, tokens, cache, pos):
         """One-token decode: tokens (B, 1), pos (B,) -> (logits (B, V),

@@ -11,6 +11,11 @@ named by the reference's leaf keys (``w``, ``wr``, ``wi``, ``w_scale``,
 and :func:`load_tree` installs one (no copies), so tree functions like
 ``plan.freeze_params`` apply to a live model. Layers are per-layer modules
 (``layers.<i>``); the reference's stacked layout is ``convert``'s concern.
+
+Training takes the same buffers as leaf tensors that require grad and
+updates them in place; :func:`tree_leaves` / :func:`tree_map` walk a param
+tree (or a grad or moment tree keyed like it) in one fixed order, sorted
+keys, as ``jax.tree`` walks the reference's dicts.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamSpec", "ParamDict", "init_params", "param_count",
-           "module_tree", "load_tree"]
+           "module_tree", "load_tree", "tree_leaves", "tree_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +115,22 @@ def init_params(specs, seed: int = 0, device="cuda"):
         return spec.materialize(gen, dev)
 
     return _map_specs(make, specs)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested-dict tree, keys sorted at every level."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same keys); same structure, keys sorted."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def param_count(specs) -> int:

@@ -1,0 +1,155 @@
+"""The train step: loss (chunked CE + z-loss + MoE aux), grad
+accumulation (microbatching), global-norm clip, AdamW or Adafactor.
+
+The state is the reference's dict ``{"params", "opt", "step"}``. Its param
+leaves are the model's own buffers, made leaf tensors that require grad by
+:func:`init_train_state`; a step takes grads with ``torch.autograd.grad``
+into a tree keyed like the params and updates params and moments in place
+under ``torch.no_grad()``, so no step copies the model. ``step`` is a
+Python int (the host computes the learning rate from it).
+
+Not in the port yet, and refused with ``NotImplementedError``: the
+structural audit (``audit_args``, which needs ``analysis/``) and
+quantization-aware training (``qat_bits > 0``, which needs
+``core.quant.quantize_tree``/``fixed_point``). The mesh, sharding and the
+fault-tolerant restarts join with the port's ``dist``/``ft`` modules.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.nn.module import load_tree, tree_leaves, tree_map
+from repro_torch.optim.optimizers import (adafactor_init, adafactor_update,
+                                          adamw_init, adamw_update,
+                                          clip_by_global_norm)
+from repro_torch.train.losses import chunked_cross_entropy
+
+__all__ = ["make_loss_fn", "make_train_step", "init_train_state",
+           "make_grad_step", "value_and_grad"]
+
+
+def _refuse_audit(audit_args) -> None:
+    if audit_args is not None:
+        raise NotImplementedError(
+            "audit_args needs the structural auditor (repro.analysis), "
+            "which is not ported yet")
+
+
+def value_and_grad(fn: Callable, params, batch, *, has_aux: bool = False):
+    """``fn(params, batch)`` and its gradient with respect to every param
+    leaf (each a leaf tensor that requires grad), as a tree keyed like
+    ``params``. Returns (value, grads) or ((value, aux), grads)."""
+    out = fn(params, batch)
+    loss = out[0] if has_aux else out
+    leaves = tree_leaves(params)
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    gtree = tree_map(lambda p: _or_zeros(next(grads), p), params)
+    if has_aux:
+        return (loss.detach(), tree_map(torch.Tensor.detach, out[1])), gtree
+    return loss.detach(), gtree
+
+
+def _or_zeros(g, p):
+    return torch.zeros_like(p) if g is None else g
+
+
+def make_grad_step(loss_fn: Callable, lr: float = 0.1, audit_args=None):
+    """Minimal SGD step over a bare ``loss_fn(params, batch)`` (no
+    optimizer state): ``p -= lr * g`` in the param's dtype, in place.
+    Returns ``step(params, batch) -> (params, loss)``."""
+    _refuse_audit(audit_args)
+
+    def step(params, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        with torch.no_grad():
+            for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+                p.sub_(lr * g.to(p.dtype))
+        return params, loss
+
+    return step
+
+
+def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
+    """``loss_fn(params, batch) -> (loss, metrics)`` for ``batch =
+    {"tokens": (B, S+1)}``: installs ``params`` in ``model`` (the same
+    tensors, no copies), runs it to its final hidden states and takes the
+    chunked cross-entropy against the tied table."""
+    if int(tcfg.qat_bits or 0):
+        raise NotImplementedError(
+            "qat_bits > 0 needs quantize_tree/fixed_point (repro.core.quant "
+            "QAT), which are not ported yet")
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"{cfg.family!r} losses are not ported yet (lm only)")
+
+    def loss_fn(params, batch):
+        load_tree(model, params)
+        tokens = batch["tokens"]
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        hidden, aux = model.forward_hidden(inp)
+        ce, metrics = chunked_cross_entropy(hidden, model.output_table(),
+                                            labels, z_loss=tcfg.z_loss)
+        loss = ce + tcfg.moe_aux_loss * aux
+        return loss, {"ce": ce, "aux": aux, **metrics}
+
+    return loss_fn
+
+
+def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw"):
+    """``{"params", "opt", "step": 0}``. Every param leaf becomes a leaf
+    tensor that requires grad, in place (the tree keeps its tensors)."""
+    for p in tree_leaves(params):
+        if not p.is_leaf:
+            raise ValueError("param leaves must be leaf tensors (no grad "
+                             "history); detach them first")
+        p.requires_grad_(True)
+    init = adafactor_init if optimizer == "adafactor" else adamw_init
+    return {"params": params, "opt": init(params, tcfg), "step": 0}
+
+
+def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
+                    audit_args=None):
+    """``train_step(state, batch) -> (state, metrics)``: grads (averaged
+    over ``tcfg.microbatch`` slices of the batch when > 1), global-norm
+    clip, then AdamW or Adafactor by ``cfg.optimizer``; the state is
+    updated in place and returned."""
+    _refuse_audit(audit_args)
+    loss_fn = make_loss_fn(model, cfg, tcfg)
+
+    def compute_grads(params, batch):
+        n = tcfg.microbatch
+        if n and n > 1:
+            micro = [{k: v.chunk(n)[i] for k, v in batch.items()}
+                     for i in range(n)]
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device), params)
+            loss, metrics = 0.0, []
+            for mb in micro:
+                (l, m), grads = value_and_grad(loss_fn, params, mb,
+                                               has_aux=True)
+                with torch.no_grad():
+                    for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
+                        a.add_(g.float() / n)
+                loss = loss + l / n
+                metrics.append(m)
+            # metrics averaged over the microbatches, as the loss is
+            mean = tree_map(lambda *ms: torch.stack(ms).mean(0), *metrics)
+            return loss, mean, acc
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch,
+                                                has_aux=True)
+        return loss, metrics, grads
+
+    update = adafactor_update if cfg.optimizer == "adafactor" else adamw_update
+
+    def train_step(state, batch):
+        loss, metrics, grads = compute_grads(state["params"], batch)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        update(state["params"], grads, state["opt"], state["step"], tcfg)
+        state["step"] += 1
+        return state, {"loss": loss, "grad_norm": gnorm, **metrics}
+
+    return train_step

@@ -38,7 +38,11 @@ def test_cuda_sources_present():
     from repro_torch.kernels.block_circulant import kernel
 
     csrc = PORT / "kernels" / "block_circulant" / "csrc"
-    assert kernel.SOURCE == csrc / "bc_matmul.cu"
-    assert kernel.SOURCE.is_file()
-    assert sorted(p.name for p in csrc.glob("*.cu")) == ["bc_matmul.cu"]
-    assert "extern \"C\" int bc_matmul_forward" in kernel.SOURCE.read_text()
+    assert kernel.SOURCES == {"bc_dw": csrc / "bc_dw.cu",
+                              "bc_matmul": csrc / "bc_matmul.cu"}
+    assert sorted(p.name for p in csrc.glob("*.cu")) == ["bc_dw.cu",
+                                                         "bc_matmul.cu"]
+    assert sorted(kernel.LAUNCHES) == sorted(kernel.SOURCES)
+    for name, entry in (("bc_matmul", "bc_matmul_forward"),
+                        ("bc_dw", "bc_dw_launch")):
+        assert f"extern \"C\" int {entry}" in kernel.SOURCES[name].read_text()

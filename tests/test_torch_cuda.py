@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-smoke engine on the card against the same engine on the CPU. Every test
-here needs a CUDA device (marked ``gpu``; skipped without one). This file
+"""The port on the card: the CUDA kernels against their plain versions,
+the smoke engine on the card against the same engine on the CPU, and the
+autograd Functions' grads on the card against the CPU. Every test here
+needs a CUDA device (marked ``gpu``; skipped without one). This file
 imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed:
 
@@ -14,12 +15,14 @@ import pytest
 import torch
 
 from repro_torch.configs import qwen3_0_6b as tq
-from repro_torch.configs.base import SWMConfig
+from repro_torch.configs.base import SWMConfig, TrainConfig
 from repro_torch.core.quant import (dequantize_symmetric, quantize_symmetric,
                                     symmetric_scales)
-from repro_torch.kernels.block_circulant import kernel
+from repro_torch.kernels.block_circulant import kernel, ops
 from repro_torch.launch.specs import build_model
-from repro_torch.nn.module import init_params
+from repro_torch.nn.module import init_params, tree_leaves
+from repro_torch.train.loop import (init_train_state, make_loss_fn,
+                                    value_and_grad)
 from repro_torch.serve.engine import Request, SamplingParams, ServeEngine
 
 REL_TOL = 2e-5          # fp32 vs fp32 (tests/test_conformance.py REL_TOL)
@@ -116,3 +119,84 @@ def test_smoke_engine_on_card_matches_cpu(cuda):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("B,P,Q,k", [(64, 32, 8, 128), (37, 5, 3, 7),
+                                     (9, 3, 11, 8), (13, 2, 2, 16),
+                                     (3, 1, 1, 1)])
+@pytest.mark.parametrize("freq_out", [False, True])
+def test_dw_kernel_matches_plain(cuda, B, P, Q, k, freq_out):
+    gen = torch.Generator().manual_seed(B * 100 + k)
+    x = torch.randn(B, Q * k, generator=gen).to(cuda)
+    g = torch.randn(B, P * k, generator=gen).to(cuda)
+    n0 = kernel.LAUNCHES["bc_dw"]
+    got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["bc_dw"] == n0 + 1
+    ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    for a, b in zip(got if freq_out else [got], ref if freq_out else [ref]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= REL_TOL
+    again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    for a, b in zip(got if freq_out else [got],
+                    again if freq_out else [again]):
+        assert torch.equal(a, b)         # fixed-order reduction
+
+
+@pytest.mark.parametrize("path", ["w", "w_freq"])
+def test_function_grads_on_card_match_cpu(cuda, path):
+    """dx, dw (or dwr/dwi) and db of the ops' autograd Functions: kernels
+    on the card against plain versions on the CPU, f32."""
+    B, p, q, k = 6, 3, 2, 8
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(B, q * k, generator=gen)
+    bias = torch.randn(p * k, generator=gen)
+    tabs = ([torch.randn(p, q, k, generator=gen) * 0.25] if path == "w"
+            else [torch.randn(p, q, k // 2 + 1, generator=gen)
+                  for _ in range(2)])
+    cot = torch.randn(B, p * k, generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_(True) for t in [x, bias, *tabs]]
+        xs, bs, *ts = ins
+        if path == "w":
+            y = ops.block_circulant_matmul(xs, ts[0], bias=bs,
+                                           activation="gelu")
+        else:
+            y = ops.block_circulant_matmul(xs, None, bias=bs,
+                                           activation="gelu",
+                                           w_freq=tuple(ts), k=k)
+        n0 = dict(kernel.LAUNCHES)
+        grads[str(dev)] = torch.autograd.grad((y * cot.to(dev)).sum(), ins)
+        if dev != "cpu":
+            assert kernel.LAUNCHES["bc_matmul"] == n0["bc_matmul"] + 1
+            assert kernel.LAUNCHES["bc_dw"] == n0["bc_dw"] + 1
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert _rel(a, b) <= REL_TOL
+
+
+def test_card_loss_gives_every_circulant_leaf_a_grad(cuda):
+    """A kernel-path loss on the card differentiates through the kernels:
+    every circulant table gets a finite, non-zero grad (the forward alone
+    would leave them without one)."""
+    cfg = dataclasses.replace(tq.SMOKE, swm=SWMConfig(block_size=8,
+                                                      impl="pallas"))
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.specs(), 0, device=cuda)
+    tcfg = TrainConfig()
+    init_train_state(params, tcfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 9)).astype(np.int32)).to(cuda)
+    n0 = dict(kernel.LAUNCHES)
+    (loss, _), grads = value_and_grad(make_loss_fn(model, cfg, tcfg), params,
+                                      {"tokens": tokens}, has_aux=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    per_pass = 5 * cfg.n_layers
+    assert kernel.LAUNCHES["bc_matmul"] - n0["bc_matmul"] == 2 * per_pass
+    assert kernel.LAUNCHES["bc_dw"] - n0["bc_dw"] == per_pass
+    circ = [g for (p, g) in zip(tree_leaves(params), tree_leaves(grads))
+            if p.dim() == 3]
+    assert len(circ) == per_pass + 2 * cfg.n_layers     # q/k/v separate
+    for g in circ:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
