@@ -21,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and moved by the later steps;
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
-   launched and at B in {1, 4, 512}, with f32 and bf16 x; small ragged
-   shapes (k in {1, 7, 8, 16}) with bias and every activation; the int8
+   launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
+   twice (the two must agree bit for bit); ragged shapes (k in {1, 7, 8,
+   16, 64, 96, 128}: the dense-DFT path at 1, 7 and 96, the FFT path at
+   the powers of two) with bias and every activation; the int8
    tables bit for bit against the f32 launch on dequantized tables; the dx
    launches (``bc_matmul`` on the transposed shapes) and ``bc_dw`` in both
    epilogues at the train rows and 512, f32 and bf16, plus ragged shapes;
@@ -34,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``torch.matmul`` with the dense-equivalent matrix for ``bc_matmul``
    and the dense weight gradient ``g.T @ x`` for ``bc_dw``, both calls the
    port never makes), beside the least time the card could take for the
-   function (transforms counted at an FFT's operations), and the
-   wrapper's host time per call.
+   function (transforms counted at an FFT's operations), each shape's
+   launch geometry and transform path, and the wrapper's host time per
+   call.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -89,7 +92,10 @@ SLICE_SHAPES = [("qkv", 32, 8, 28), ("o", 8, 16, 28), ("wi_wu", 24, 8, 56),
                 ("wo", 8, 24, 28)]
 # dx = g @ W runs bc_matmul on the transposed block grid (q, p)
 DX_SHAPES = [(f"{name}.dx", q, p, n) for name, p, q, n in SLICE_SHAPES]
-RAGGED = [(37, 5, 3, 7), (9, 3, 11, 8), (13, 2, 2, 16), (3, 1, 1, 1)]
+# (B, p, q, k): dense path at k = 7, 1 and 96, FFT path at k = 8, 16, 64
+# and 128 (ragged B and p at full block size)
+RAGGED = [(37, 5, 3, 7), (9, 3, 11, 8), (13, 2, 2, 16), (3, 1, 1, 1),
+          (29, 3, 5, 64), (19, 3, 4, 96), (37, 5, 3, 128)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 4
 
 
@@ -123,11 +129,14 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
             x32 = torch.randn(B, q * K, generator=gen, device=dev)
             for x, tol in ((x32, FP32_TOL), (x32.bfloat16(), BF16_TOL)):
                 y = kernel.bc_matmul(x, wr, wi, k=K)
+                again = kernel.bc_matmul(x, wr, wi, k=K)
                 yp = kernel.bc_matmul_plain(x, wr, wi, k=K)
                 torch.cuda.synchronize()
                 e = rel_err(y, yp)
                 if not e <= tol:
                     fail(f"{name} B={B} {x.dtype}: rel err {e:.3g} > {tol}")
+                if not torch.equal(y, again):
+                    fail(f"{name} B={B} {x.dtype}: two launches differ")
                 if x.dtype == torch.float32:
                     worst_abs = max(worst_abs,
                                     float((y - yp).abs().max()))
@@ -149,6 +158,7 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
         for act in kernel.ACTIVATIONS:
             for x, tol in ((x32, FP32_TOL), (x32.bfloat16(), BF16_TOL)):
                 y = kernel.bc_matmul(x, wr, wi, bias, k=k, activation=act)
+                again = kernel.bc_matmul(x, wr, wi, bias, k=k, activation=act)
                 yp = kernel.bc_matmul_plain(x, wr, wi, bias, k=k,
                                             activation=act)
                 torch.cuda.synchronize()
@@ -156,6 +166,9 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
                 if not e <= tol:
                     fail(f"ragged B={B} p={p} q={q} k={k} {act} {x.dtype}: "
                          f"rel err {e:.3g} > {tol}")
+                if not torch.equal(y, again):
+                    fail(f"ragged B={B} p={p} q={q} k={k} {act}: two "
+                         f"launches differ")
                 n_checks += 1
         s = quant.symmetric_scales(wr, wi)
         qr, qi = quant.quantize_symmetric(wr, s), quant.quantize_symmetric(
@@ -167,10 +180,13 @@ def phase_kernels(torch, kernel, quant, dev, row_counts):
         if not torch.equal(y8, yd):
             fail(f"ragged k={k}: int8 launch differs from dequantized f32")
         n_checks += 1
+    paths = sorted({("fft" if kernel._mm_fft(k) else "dense") + f" k={k}"
+                    for _, _, _, k in RAGGED + [(0, 0, 0, K)]})
     print(f"bc_matmul checks: {n_checks} passed at forward and dx shapes, "
-          f"rows {list(row_counts)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
-          f"{BF16_TOL:.3g}, int8 bit-identical); max abs err at the slice "
-          f"shapes (f32) = {worst_abs!r}")
+          f"rows {list(row_counts)} and ragged shapes ({', '.join(paths)}) "
+          f"(f32 rel <= {FP32_TOL}, bf16 rel <= {BF16_TOL:.3g}, int8 "
+          f"bit-identical, repeat launches bit-identical); max abs err at "
+          f"the slice shapes (f32) = {worst_abs!r}")
     return worst_abs
 
 
@@ -496,9 +512,11 @@ def phase_times(torch, kernel, dev, cases):
     rows = []
     print("bc_matmul device times (bf16 x, f32 tables, no bias; median of "
           "30 runs, CUDA events; bound = max(bytes / 3.35 TB/s, flops / "
-          "67 TFLOP/s), flops with FFT-counted transforms; 'dense-DFT' = "
-          "the kernel's own flops / 67 TFLOP/s; torch.matmul = the "
-          "dense-equivalent product, a yardstick):")
+          "67 TFLOP/s), flops with FFT-counted transforms; 'own' = the "
+          "kernel's own flops / 67 TFLOP/s (x transformed once per block "
+          "column); torch.matmul = the dense-equivalent product, a "
+          "yardstick; geometry = grid, rows x output blocks per block, q "
+          "chunk, q groups, transform path):")
     for name, p, q, per, B in cases:
         w = torch.randn(p, q, K, generator=gen, device=dev) * (q * K) ** -0.5
         wr, wi = freq_weights(w)
@@ -511,19 +529,28 @@ def phase_times(torch, kernel, dev, cases):
         # least work: q forward and p inverse real transforms per row at
         # an FFT's 2.5·k·log2(k), plus the per-bin complex products
         flops = B * (2.5 * K * math.log2(K) * (q + p) + 8 * p * q * Kf)
-        # this kernel's own count: transforms as dense DFT matmuls
-        kernel_flops = B * (4 * q * K * Kf + 8 * p * q * Kf + 4 * p * Kf * K)
+        # this kernel's own count: each x row is transformed once per
+        # column of blocks (grid[1] times)
+        g = kernel._mm_geometry(B, p, q, K)
+        kernel_flops = B * (2.5 * K * math.log2(K) * (q * g.grid[1] + p)
+                            + 8 * p * q * Kf)
         b_ms, b_by = bound(nbytes, flops)
+        geometry = (f"grid {g.grid[0]}x{g.grid[1]} = "
+                    f"{g.grid[0] * g.grid[1]} blocks, {g.rows} rows x "
+                    f"{g.p_group} out blocks, q chunk {g.q_chunk}, "
+                    f"{g.q_groups} q groups, "
+                    f"{'fft' if g.fft else 'dense'}")
         row = dict(shape=name, B=B, p=p, q=q, k=K, launches=per, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes, flops=flops,
                    kernel_flops=kernel_flops,
-                   kernel_flops_ms=kernel_flops / F32_FLOP_PER_S * 1e3)
+                   kernel_flops_ms=kernel_flops / F32_FLOP_PER_S * 1e3,
+                   geometry=geometry, smem_bytes=g.smem_bytes)
         rows.append(row)
         print(f"  {name:9s} p={p:2d} q={q:2d} B={B:4d}: kernel {ms!r} ms, "
               f"plain {plain!r} ms, torch.matmul {lib!r} ms, bound "
-              f"{b_ms!r} ms ({b_by}), dense-DFT {row['kernel_flops_ms']!r} "
-              f"ms, {per} launches")
+              f"{b_ms!r} ms ({b_by}), own {row['kernel_flops_ms']!r} "
+              f"ms, {per} launches; {geometry}, {g.smem_bytes} B smem")
     return rows
 
 

@@ -13,6 +13,13 @@ runs its plain version (:func:`bc_matmul_plain`, :func:`bc_dw_plain`), the
 same DFT-as-matmul math in plain PyTorch. There is no fallback between the
 two: a CUDA tensor a kernel cannot take raises.
 
+``bc_matmul``'s launch geometry comes from the shapes alone
+(:func:`_mm_geometry`): rows per block, output blocks per block, the
+q chunk held in shared memory and the split of the q sum among a block's
+threads. For a power-of-two k the kernel transforms with four-step real
+FFTs in shared memory, whose twiddles come from :func:`fft_twiddles`; any
+other k runs dense DFT loops over ``dft_bases`` staged in shared memory.
+
 :func:`build` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``
 (one process per source, all started together) into the ``build/``
 directory beside this file, keyed by each source's hash; the libraries are
@@ -28,15 +35,17 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.circulant import dft_bases, dft_bases_adjoint
 from repro_torch.core.quant import dequantize_symmetric
 
 __all__ = ["ACTIVATIONS", "apply_activation", "bc_dw", "bc_dw_plain",
-           "bc_matmul", "bc_matmul_plain", "build", "LAUNCHES", "SOURCES"]
+           "bc_matmul", "bc_matmul_plain", "build", "fft_twiddles",
+           "LAUNCHES", "SOURCES"]
 
 # Epilogue activations fused into the writeback. Keys are the only legal
 # ``activation=`` values; the index is the kernel's activation code.
@@ -47,6 +56,17 @@ SOURCES = {p.stem: p for p in sorted(
     Path(__file__).with_name("csrc").glob("*.cu"))}
 _BUILD_DIR = Path(__file__).with_name("build")
 _MAX_K = 128   # kMaxK in both sources; the C entry points reject larger k
+# bc_matmul.cu: threads per block, most rows per block (kMaxRows) and most
+# output blocks per thread per pass (kMaxJ)
+_MM_THREADS = 256
+_MM_MAX_ROWS = 8
+_MM_MAX_J = 2
+# bc_matmul spreads output blocks across blocks until at least this many
+# are in flight (one per SM of the H100's 132), and no further
+_MM_MIN_BLOCKS = 132
+# shared memory a bc_matmul block may take, so two fit on one SM (228 KB,
+# 1 KB of it reserved per block)
+_MM_SMEM_BUDGET = 110 * 1024
 _DW_ROWS = 4   # kRows in bc_dw.cu: rows per staged chunk
 # bc_dw splits the rows across blocks until about this many are in flight
 # (two per SM of the H100's 132)
@@ -175,7 +195,7 @@ def build() -> Dict[str, Tuple[Path, str]]:
 # ctypes signatures of the C entry points: (pointer args, int args); every
 # entry point takes the stream last and returns a CUDA error code
 _ENTRY_POINTS = {
-    "bc_matmul": ("bc_matmul_forward", 10, 7),
+    "bc_matmul": ("bc_matmul_forward", 11, 14),
     "bc_dw": ("bc_dw_launch", 11, 9),
 }
 
@@ -189,6 +209,118 @@ def _entry(name: str):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _mm_fft(k: int) -> bool:
+    """Whether bc_matmul transforms by real FFT (k a power of two >= 2)
+    rather than by dense DFT loops."""
+    return 2 <= k <= _MAX_K and k & (k - 1) == 0
+
+
+@functools.lru_cache(maxsize=64)
+def fft_twiddles(k: int, device="cpu") -> torch.Tensor:
+    """Twiddles of bc_matmul's FFT path: ``(k, 2)`` f32 rows
+    ``(cos, -sin)(2πj/k)`` = e^{-2πij/k} for j < k, built in float64. The
+    real-FFT split step uses rows j < k/2, the k/2-point FFT's inner
+    twiddles the even rows. Cached per (k, device); callers never write
+    to it."""
+    ang = 2.0 * np.pi * np.arange(k) / k
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(tw).to(device).contiguous()
+
+
+def _fft_split(N: int) -> Tuple[int, int]:
+    """(N1, N2) of the kernel's four-step N-point FFT (``Fft<N>`` in
+    bc_matmul.cu): N1-point DFTs over stride-N2 elements, then N2-point
+    DFTs; N <= 8 in one step."""
+    n1 = 8 if N >= 32 else 4 if N == 16 else N
+    return n1, N // n1
+
+
+def _fft_row(N: int) -> int:
+    """Padded shared-memory row of an N-point FFT, in complex: one pad
+    after every N2 slots (after the row when N2 = 1)."""
+    n2 = _fft_split(N)[1]
+    return N + N // (n2 if n2 > 1 else N)
+
+
+class MMGeometry(NamedTuple):
+    """Launch geometry of one bc_matmul call (see :func:`_mm_geometry`)."""
+    fft: bool          # real-FFT transforms (else dense DFT loops)
+    slots: int         # frequency slots per transformed row
+    rows: int          # batch rows per block
+    p_group: int       # output blocks per block
+    q_chunk: int       # input blocks staged in shared memory at once
+    q_groups: int      # thread groups that split a block's q sum
+    p_inner: int       # thread groups over output blocks
+    p_per_thread: int  # output blocks per thread per pass
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+    @property
+    def p_pass(self) -> int:
+        """Output blocks one pass over the q sum produces."""
+        return self.p_inner * self.p_per_thread
+
+
+def _mm_smem_bytes(k: int, rows: int, q_chunk: int, q_groups: int,
+                   p_pass: int) -> int:
+    """Dynamic shared memory of a bc_matmul block in bytes, in the source's
+    layout (``Layout`` in bc_matmul.cu, which rejects a launch whose size
+    differs from its own). FFT path: the staged x chunk (transformed in
+    place) and the q-group partials in padded rows, then the twiddles.
+    Dense path: the x chunk, the partials, the x̂ chunk, the staged bases.
+    Both: the table tile of a pass and chunk and its scales."""
+    K = k // 2 + 1
+    if _mm_fft(k):
+        row = _fft_row(k // 2)
+        floats = (2 * rows * q_chunk * row
+                  + 2 * q_groups * rows * p_pass * row + 2 * k)
+    else:
+        floats = (-(-rows * q_chunk * k // 4) * 4
+                  + 2 * q_groups * rows * p_pass * K + 2 * rows * q_chunk * K
+                  + 2 * k * K)
+    return 4 * (floats + 2 * p_pass * q_chunk * K + p_pass * q_chunk)
+
+
+@functools.lru_cache(maxsize=1024)
+def _mm_geometry(B: int, P: int, Q: int, k: int) -> MMGeometry:
+    """bc_matmul's launch geometry, from the shapes alone (so a launch is
+    reproducible). Blocks of ``rows`` batch rows and ``p_group`` output
+    blocks; each block transforms its x rows once, so the fewer columns of
+    blocks, the fewer transforms. Output blocks are spread across columns
+    only until ``_MM_MIN_BLOCKS`` blocks are in flight: a decode launch
+    (B <= 8) runs one block per output block, a launch at B = 2048 one
+    column. A block's threads take (bin, output block, q group): where a
+    block holds fewer output blocks than its threads have groups, the
+    groups split the q sum and add their partials in a fixed order; where
+    it holds more, it makes several passes. The q range is cut into the
+    fewest equal chunks that fit ``_MM_SMEM_BUDGET``."""
+    fft = _mm_fft(k)
+    slots = k // 2 if fft else k // 2 + 1
+    groups = _MM_THREADS // slots
+    rows = min(_MM_MAX_ROWS, B)
+    tiles = -(-B // rows)
+    n_pg = min(P, -(-_MM_MIN_BLOCKS // tiles))
+    while True:
+        p_group = -(-P // n_pg)
+        p_inner = min(groups, p_group)
+        q_groups = groups // p_inner
+        p_inner = groups // q_groups
+        p_per_thread = min(_MM_MAX_J, -(-p_group // p_inner))
+        p_pass = p_inner * p_per_thread
+        p_group = -(-p_group // p_pass) * p_pass  # whole passes per block
+        cols = -(-P // p_group)
+        if tiles * cols >= _MM_MIN_BLOCKS or n_pg >= P:
+            break
+        n_pg += 1
+    fixed = _mm_smem_bytes(k, rows, 0, q_groups, p_pass)
+    per_q = _mm_smem_bytes(k, rows, 1, q_groups, p_pass) - fixed
+    fit = max(1, min(Q, (_MM_SMEM_BUDGET - fixed) // per_q))
+    q_chunk = -(-Q // -(-Q // fit))            # equal chunks
+    return MMGeometry(fft, slots, rows, p_group, q_chunk, q_groups, p_inner,
+                      p_per_thread, (tiles, cols),
+                      _mm_smem_bytes(k, rows, q_chunk, q_groups, p_pass))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -256,14 +388,17 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     if B == 0:
         return y
     launch = _entry("bc_matmul")
-    C, S, Ci, Si = dft_bases(k, device=x2d.device)
+    g = _mm_geometry(B, p, q, k)
+    tw, bases = ((fft_twiddles(k, device=x2d.device), (None,) * 4) if g.fft
+                 else (None, dft_bases(k, device=x2d.device)))
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = launch(
             _ptr(x2d), _ptr(wr), _ptr(wi), _ptr(w_scale), _ptr(bias),
-            _ptr(C), _ptr(S), _ptr(Ci), _ptr(Si), _ptr(y), B, p, q, k,
+            _ptr(tw), *map(_ptr, bases), _ptr(y), B, p, q, k,
             int(x2d.dtype == torch.bfloat16), int(wr.dtype == torch.int8),
-            ACTIVATIONS.index(activation), stream)
+            ACTIVATIONS.index(activation), g.rows, g.p_group, g.q_chunk,
+            g.q_groups, g.p_inner, g.p_per_thread, g.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"bc_matmul kernel launch failed: CUDA error {rc}")
     LAUNCHES["bc_matmul"] += 1

@@ -49,8 +49,13 @@ def _tables(p, q, k, gen, dev):
             torch.randn(p, q, K, generator=gen).to(dev))
 
 
-@pytest.mark.parametrize("B,p,q,k", [(1, 32, 8, 128), (37, 5, 3, 7),
-                                     (9, 3, 11, 8), (13, 2, 2, 16)])
+@pytest.mark.parametrize("B,p,q,k", [
+    (1, 32, 8, 128), (37, 5, 3, 7), (9, 3, 11, 8), (13, 2, 2, 16),
+    # full width (qwen3-0.6b, k = 128): decode, prefill and train rows
+    (4, 32, 8, 128), (4, 8, 24, 128), (512, 32, 8, 128), (512, 8, 16, 128),
+    (2048, 8, 32, 128), (2048, 24, 8, 128),
+    # FFT path at k = 32 and 64, dense path at k = 96
+    (37, 3, 5, 32), (37, 4, 6, 64), (19, 3, 4, 96)])
 @pytest.mark.parametrize("act", ["none", "gelu"])
 def test_kernel_matches_plain(cuda, B, p, q, k, act):
     gen = torch.Generator().manual_seed(B * 1000 + k)
@@ -63,6 +68,37 @@ def test_kernel_matches_plain(cuda, B, p, q, k, act):
     assert kernel.LAUNCHES["bc_matmul"] == n0 + 1
     yp = kernel.bc_matmul_plain(x, wr, wi, bias, k=k, activation=act)
     assert _rel(y, yp) <= REL_TOL
+
+
+@pytest.mark.parametrize("B,p,q,k", [(4, 8, 24, 128), (512, 32, 8, 128),
+                                     (2048, 8, 32, 128), (37, 3, 5, 96)])
+def test_kernel_repeat_launch_bit_identical(cuda, B, p, q, k):
+    """The q sum never leaves a block and its groups add in a fixed order,
+    so two launches on the same inputs agree bit for bit."""
+    gen = torch.Generator().manual_seed(B + p + q + k)
+    wr, wi = _tables(p, q, k, gen, cuda)
+    x = torch.randn(B, q * k, generator=gen).to(cuda, torch.bfloat16)
+    y = kernel.bc_matmul(x, wr, wi, k=k)
+    again = kernel.bc_matmul(x, wr, wi, k=k)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("B,p,q,k", [(4, 32, 8, 128), (2048, 8, 32, 128),
+                                     (19, 3, 4, 96)])
+def test_kernel_rejects_smem_other_than_its_layout(cuda, monkeypatch, B, p,
+                                                   q, k):
+    """The geometry is chosen on ``_mm_smem_bytes``, the host's mirror of
+    the kernel's shared-memory layout; a launch whose size differs from the
+    layout's is refused, so every launch checks that mirror."""
+    gen = torch.Generator().manual_seed(B + k)
+    wr, wi = _tables(p, q, k, gen, cuda)
+    x = torch.randn(B, q * k, generator=gen).to(cuda)
+    kernel.bc_matmul(x, wr, wi, k=k)                  # the mirror's size
+    geometry = kernel._mm_geometry
+    monkeypatch.setattr(kernel, "_mm_geometry", lambda *a: geometry(
+        *a)._replace(smem_bytes=geometry(*a).smem_bytes + 16))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.bc_matmul(x, wr, wi, k=k)
 
 
 def test_kernel_int8_bit_identical(cuda):
