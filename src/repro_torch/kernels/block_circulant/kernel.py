@@ -13,18 +13,21 @@ runs its plain version (:func:`bc_matmul_plain`, :func:`bc_dw_plain`), the
 same DFT-as-matmul math in plain PyTorch. There is no fallback between the
 two: a CUDA tensor a kernel cannot take raises.
 
-``bc_matmul``'s launch geometry comes from the shapes alone
-(:func:`_mm_geometry`): rows per block, output blocks per block, the
-q chunk held in shared memory and the split of the q sum among a block's
-threads. For a power-of-two k the kernel transforms with four-step real
-FFTs in shared memory, whose twiddles come from :func:`fft_twiddles`; any
-other k runs dense DFT loops over ``dft_bases`` staged in shared memory.
+Each kernel's launch geometry comes from the shapes alone.
+``bc_matmul``'s (:func:`_mm_geometry`): rows per block, output blocks per
+block, the q chunk held in shared memory and the split of the q sum among
+a block's threads. ``bc_dw``'s (:func:`_dw_geometry`): the (p, q) tile of
+a block and its threads, the row splits across blocks and the rows staged
+per chunk. For a power-of-two k both kernels transform with the four-step
+real FFT of ``csrc/bc_fft.cuh`` in shared memory, whose twiddles come from
+:func:`fft_twiddles`; any other k runs dense DFT loops over ``dft_bases``
+staged in shared memory.
 
 :func:`build` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``
 (one process per source, all started together) into the ``build/``
-directory beside this file, keyed by each source's hash; the libraries are
-bound with ``ctypes`` at first use. ``LAUNCHES`` counts kernel launches
-per wrapper.
+directory beside this file, keyed by the hash of each source and the
+headers beside it (:func:`_source_key`); the libraries are bound with
+``ctypes`` at first use. ``LAUNCHES`` counts kernel launches per wrapper.
 """
 
 from __future__ import annotations
@@ -67,10 +70,19 @@ _MM_MIN_BLOCKS = 132
 # shared memory a bc_matmul block may take, so two fit on one SM (228 KB,
 # 1 KB of it reserved per block)
 _MM_SMEM_BUDGET = 110 * 1024
-_DW_ROWS = 4   # kRows in bc_dw.cu: rows per staged chunk
-# bc_dw splits the rows across blocks until about this many are in flight
-# (two per SM of the H100's 132)
-_DW_TARGET_BLOCKS = 264
+# bc_dw.cu: threads of a bc_dw_partial block, most p and q blocks a thread
+# sums (kMaxPt, kMaxQt)
+_DW_THREADS = 512
+_DW_MAX_PT = 8
+_DW_MAX_QT = 4
+# bc_dw cuts the rows into near-equal splits until its blocks fill one wave
+# of the H100's 132 SMs (a bc_dw_partial block is alone on its SM), each
+# split at least _DW_MIN_ROWS rows where B allows
+_DW_WAVE = 132
+_DW_MIN_ROWS = 8
+# shared memory a bc_dw_partial block may take: 512 threads at up to 128
+# registers fill an SM's register file, so the block is alone on its SM
+_DW_SMEM_BUDGET = 227 * 1024
 
 # Kernel launches per wrapper since the last reset (chip_smoke reads and
 # resets them).
@@ -148,14 +160,24 @@ def bc_dw_plain(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int,
 # ---------------------------------------------------------------------------
 
 
+def _source_key(src: Path) -> str:
+    """Build key of one kernel source: the hash of the source and of every
+    header beside it (``*.cuh``), so an edit to a shared header rebuilds
+    every library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build() -> Dict[str, Tuple[Path, str]]:
     """Compile every ``csrc/*.cu`` for ``sm_90a`` into ``build/`` unless a
-    library for that exact source already exists, one ``nvcc`` per source,
-    all started together. Returns ``{name: (library path, compiler
-    output)}``; the output (ptxas resource usage) is empty for a library
-    that was already built."""
-    libs = {name: _BUILD_DIR / f"{name}-"
-            f"{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    library for that exact source and headers already exists, one ``nvcc``
+    per source, all started together. Returns ``{name: (library path,
+    compiler output)}``; the output (ptxas resource usage) is empty for a
+    library that was already built."""
+    libs = {name: _BUILD_DIR / f"{name}-{_source_key(src)}.so"
             for name, src in SOURCES.items()}
     out = {name: (lib, "") for name, lib in libs.items() if lib.exists()}
     todo = [name for name in libs if name not in out]
@@ -196,7 +218,7 @@ def build() -> Dict[str, Tuple[Path, str]]:
 # entry point takes the stream last and returns a CUDA error code
 _ENTRY_POINTS = {
     "bc_matmul": ("bc_matmul_forward", 11, 14),
-    "bc_dw": ("bc_dw_launch", 11, 9),
+    "bc_dw": ("bc_dw_launch", 8, 14),
 }
 
 
@@ -405,15 +427,91 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     return y
 
 
-def _dw_split(B: int, P: int, Q: int) -> Tuple[int, int]:
-    """(splits, rows per split) of bc_dw's row ranges: enough ranges that
-    about ``_DW_TARGET_BLOCKS`` blocks run, each a whole number of staged
-    chunks. Depends on the shapes alone, so a launch is reproducible."""
-    tiles = -(-P // 8) * -(-Q // 8)
-    splits = max(1, min(-(-B // _DW_ROWS), -(-_DW_TARGET_BLOCKS // tiles)))
-    rows = -(-B // splits)
-    rows = -(-rows // _DW_ROWS) * _DW_ROWS
-    return -(-B // rows), rows
+class DWGeometry(NamedTuple):
+    """Launch geometry of one bc_dw call (see :func:`_dw_geometry`)."""
+    fft: bool            # real-FFT transforms (else dense DFT loops)
+    slots: int           # frequency slots per transformed row
+    rows: int            # batch rows staged and transformed per chunk
+    p_groups: int        # thread groups over a tile's p blocks
+    q_groups: int        # thread groups over a tile's q blocks
+    p_per_thread: int    # p blocks a thread sums
+    q_per_thread: int    # q blocks a thread sums
+    tiles: Tuple[int, int]   # (p tiles, q tiles)
+    splits: int          # row ranges [s·B/splits, (s+1)·B/splits)
+    rows_per_split: int  # the most rows a split takes
+    smem_bytes: int
+
+    @property
+    def p_tile(self) -> int:
+        return self.p_groups * self.p_per_thread
+
+    @property
+    def q_tile(self) -> int:
+        return self.q_groups * self.q_per_thread
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.tiles[0] * self.tiles[1], self.splits
+
+
+def _dw_smem_bytes(k: int, rows: int, staged: int) -> int:
+    """Dynamic shared memory of a bc_dw_partial block in bytes, for
+    ``rows`` batch rows of ``staged`` transformed rows each (the q tile's x
+    blocks and the p tile's g blocks), in the source's layout (``Layout``
+    in bc_dw.cu, which rejects a launch whose size differs from its own).
+    FFT path: the padded complex rows, then the twiddles. Dense path: the
+    transformed rows, the raw rows (rounded up to 4 floats), the bases C
+    and S."""
+    K = k // 2 + 1
+    n = rows * staged
+    if _mm_fft(k):
+        floats = 2 * n * _fft_row(k // 2) + 2 * k
+    else:
+        floats = 2 * n * K + -(-n * k // 4) * 4 + 2 * k * K
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_geometry(B: int, P: int, Q: int, k: int) -> DWGeometry:
+    """bc_dw's launch geometry, from the shapes alone (so a launch is
+    reproducible). A block's threads take (slot, p group, q group) and each
+    sums up to ``_DW_MAX_PT`` x ``_DW_MAX_QT`` (p, q) blocks of one slot,
+    so a block holds at most ``_DW_THREADS`` // slots groups. The groups
+    are chosen for the fewest (p, q) tiles, then the fewest transforms
+    (each x row is transformed once per p tile, each g row once per q
+    tile), then the fewest sums and loads per thread: where all of P and Q
+    fit, one tile, and every row is transformed once per launch. The rows
+    are then cut into ``splits`` near-equal ranges, as many as fill one
+    wave of ``_DW_WAVE`` blocks (at least ``_DW_MIN_ROWS`` rows a range
+    where B allows), and each range into the fewest equal chunks whose
+    staged rows fit ``_DW_SMEM_BUDGET``."""
+    fft = _mm_fft(k)
+    slots = k // 2 if fft else k // 2 + 1
+    groups = _DW_THREADS // slots
+    best = None
+    for gp in range(1, min(groups, P) + 1):
+        for gq in range(1, min(groups // gp, Q) + 1):
+            pt = min(_DW_MAX_PT, -(-P // gp))
+            qt = min(_DW_MAX_QT, -(-Q // gq))
+            tp, tq = -(-P // (gp * pt)), -(-Q // (gq * qt))
+            # equal tiles: the fewest blocks per thread for these counts
+            p_tile, q_tile = -(-P // tp), -(-Q // tq)
+            pt, qt = -(-p_tile // gp), -(-q_tile // gq)
+            key = (tp * tq, Q * tp + P * tq, pt * qt, pt + qt, gp * gq)
+            if best is None or key < best[0]:
+                best = key, (gp, gq, pt, qt, tp, tq)
+    gp, gq, pt, qt, tp, tq = best[1]
+    splits = max(1, min(_DW_WAVE // (tp * tq), -(-B // _DW_MIN_ROWS)))
+    rows_per_split = -(-B // splits)
+    staged = gp * pt + gq * qt
+    fit = 1
+    while (fit < rows_per_split
+           and _dw_smem_bytes(k, fit + 1, staged) <= _DW_SMEM_BUDGET):
+        fit += 1
+    rows = -(-rows_per_split // -(-rows_per_split // fit))   # equal chunks
+    return DWGeometry(fft, slots, rows, gp, gq, pt, qt,
+                      (tp, tq), splits, rows_per_split,
+                      _dw_smem_bytes(k, rows, staged))
 
 
 def _check_dw_args(x2d, g2d, P, Q, k):
@@ -440,8 +538,9 @@ def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
     ``freq_out``.
 
     CPU tensors take :func:`bc_dw_plain`; CUDA tensors launch the kernel
-    (``csrc/bc_dw.cu``: partial sums over row ranges, then a fixed-order
-    reduction and the epilogue) on the current stream or raise.
+    (``csrc/bc_dw.cu``: partial sums over row ranges in an f32 workspace,
+    then a fixed-order reduction and the epilogue) on the current stream or
+    raise.
     """
     if x2d.device.type == "cpu":
         return bc_dw_plain(x2d, g2d, P=P, Q=Q, k=k, freq_out=freq_out)
@@ -461,16 +560,19 @@ def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
                 t.zero_()
         return outs if freq_out else outs[0]
     launch = _entry("bc_dw")
-    splits, rows = _dw_split(B, P, Q)
-    part = torch.empty((2, splits, P, Q, K), dtype=torch.float32, device=dev)
-    C, S, CiT, SiT, CT, ST = dft_bases_adjoint(k, device=dev)
+    geo = _dw_geometry(B, P, Q, k)
+    part = torch.empty((geo.splits, P, Q, geo.slots, 2), dtype=torch.float32,
+                       device=dev)
+    tw, bases = ((fft_twiddles(k, device=dev), (None, None)) if geo.fft
+                 else (None, dft_bases(k, device=dev)[:2]))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
-            _ptr(x2d), _ptr(g2d), _ptr(C), _ptr(S), _ptr(CiT), _ptr(SiT),
-            _ptr(CT), _ptr(ST), _ptr(part), _ptr(outs[0]), _ptr(outs[1]),
-            B, P, Q, k, int(x2d.dtype == torch.bfloat16),
-            int(g2d.dtype == torch.bfloat16), int(freq_out), splits, rows,
+            _ptr(x2d), _ptr(g2d), _ptr(tw), *map(_ptr, bases), _ptr(part),
+            _ptr(outs[0]), _ptr(outs[1]), B, P, Q, k,
+            int(x2d.dtype == torch.bfloat16), int(g2d.dtype == torch.bfloat16),
+            int(freq_out), geo.rows, geo.p_groups, geo.q_groups,
+            geo.p_per_thread, geo.q_per_thread, geo.splits, geo.smem_bytes,
             stream)
     if rc != 0:
         raise RuntimeError(f"bc_dw kernel launch failed: CUDA error {rc}")

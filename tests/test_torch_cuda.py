@@ -157,14 +157,38 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("B,P,Q,k", [(64, 32, 8, 128), (37, 5, 3, 7),
-                                     (9, 3, 11, 8), (13, 2, 2, 16),
-                                     (3, 1, 1, 1)])
+def _dw_tol(B):
+    """bc_dw sums B rows per element in another order than the plain
+    version (partials per row range, then the ranges in order). The
+    worst-case rounding error of an n-term f32 sum grows linearly in n, so
+    REL_TOL, which holds to 512 rows, scales with the row count beyond that
+    (``DW_TOL_ROWS`` in chip_smoke.py). bf16 inputs convert exactly to f32
+    on both sides, so they are held to the same limit."""
+    return REL_TOL * max(1.0, B / 512)
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (B, P, Q, k, dtype): small grids on both paths; the slice's weight
+# adjoints at k = 128 with one row, a row count below the row splits'
+# target and the training rows; the FFT path at k = 32 and 64, the dense
+# path at k = 96, and grids too large for one tile (p tiled, q tiled)
+_DW_CASES = ([(64, 32, 8, 128, _F32), (37, 5, 3, 7, _F32),
+              (9, 3, 11, 8, _F32), (13, 2, 2, 16, _F32), (3, 1, 1, 1, _F32)]
+             + [(B, P, Q, 128, dt) for B in (1, 5, 2048)
+                for P, Q in ((32, 8), (8, 16), (24, 8), (8, 24))
+                for dt in (_F32, _BF16)]
+             + [(B, P, Q, k, dt) for B, P, Q, k in
+                ((37, 3, 5, 32), (29, 4, 6, 64), (19, 3, 4, 96),
+                 (300, 8, 16, 64), (64, 64, 8, 128), (40, 2, 300, 128))
+                for dt in (_F32, _BF16)])
+
+
+@pytest.mark.parametrize("B,P,Q,k,dtype", _DW_CASES)
 @pytest.mark.parametrize("freq_out", [False, True])
-def test_dw_kernel_matches_plain(cuda, B, P, Q, k, freq_out):
+def test_dw_kernel_matches_plain(cuda, B, P, Q, k, dtype, freq_out):
     gen = torch.Generator().manual_seed(B * 100 + k)
-    x = torch.randn(B, Q * k, generator=gen).to(cuda)
-    g = torch.randn(B, P * k, generator=gen).to(cuda)
+    x = torch.randn(B, Q * k, generator=gen).to(cuda, dtype)
+    g = torch.randn(B, P * k, generator=gen).to(cuda, dtype)
     n0 = kernel.LAUNCHES["bc_dw"]
     got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
     torch.cuda.synchronize()
@@ -172,11 +196,29 @@ def test_dw_kernel_matches_plain(cuda, B, P, Q, k, freq_out):
     ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
     for a, b in zip(got if freq_out else [got], ref if freq_out else [ref]):
         assert a.shape == b.shape and a.dtype == torch.float32
-        assert _rel(a, b) <= REL_TOL
+        assert _rel(a, b) <= _dw_tol(B)
     again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
     for a, b in zip(got if freq_out else [got],
                     again if freq_out else [again]):
         assert torch.equal(a, b)         # fixed-order reduction
+
+
+@pytest.mark.parametrize("B,P,Q,k", [(2048, 32, 8, 128), (5, 8, 24, 128),
+                                     (19, 3, 4, 96)])
+def test_dw_kernel_rejects_smem_other_than_its_layout(cuda, monkeypatch, B,
+                                                      P, Q, k):
+    """The geometry is chosen on ``_dw_smem_bytes``, the host's mirror of
+    bc_dw_partial's shared-memory layout; a launch whose size differs from
+    the layout's is refused."""
+    gen = torch.Generator().manual_seed(B + k)
+    x = torch.randn(B, Q * k, generator=gen).to(cuda)
+    g = torch.randn(B, P * k, generator=gen).to(cuda)
+    kernel.bc_dw(x, g, P=P, Q=Q, k=k)                 # the mirror's size
+    geometry = kernel._dw_geometry
+    monkeypatch.setattr(kernel, "_dw_geometry", lambda *a: geometry(
+        *a)._replace(smem_bytes=geometry(*a).smem_bytes + 16))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.bc_dw(x, g, P=P, Q=Q, k=k)
 
 
 @pytest.mark.parametrize("path", ["w", "w_freq"])
