@@ -40,7 +40,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    function (transforms counted at an FFT's operations), each shape's
    launch geometry and transform path (``bc_dw``: its tile, row splits and
    chunk, beside the first version's time), and the wrapper's host time
-   per call.
+   per call;
+8. the paper's own models (``paper`` phase), built on the card from seeded
+   generators at the paper benchmarks' widths and batches:
+   ``SWMMLP((784, 512, 512, 10), 64, quant_bits=12, impl="pallas")`` at
+   B = 64, the ASIC net ``SWMMLP((512, 512, 512, 64, 10), 64, 12,
+   impl="pallas")`` at B = 256, ``SWMCNN()`` at B = 8 (conv1 always runs the
+   kernel), ``SWMLSTMASR``'s two cells with ``impl="pallas"`` at k = 16 and
+   8 (B = 4, T = 32) and ``SWMLSTMASR`` itself (its default impl, no
+   kernel): each against the same params on the CPU unfrozen, f32-frozen
+   and (models with quant_bits = 0) int8-frozen, with exact launch counts
+   per forward, then images/s or frames/s; one ``SWMCNN`` train step at
+   batch 128 (launches (2, 1)) on the card against the CPU, then counted
+   steps; both kernels against their plain versions at every new shape
+   (``bc_dw`` at P = 8, Q = 100, k = 8 over 8192 rows) and their times.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -673,6 +686,416 @@ def phase_profile(torch, engine, reqs, step_ms):
     report_profile(torch, prof, n, step_ms, "decode step at 4 active slots")
 
 
+# ---------------------------------------------------------------------------
+# The paper's own models (the fifth slice's path)
+# ---------------------------------------------------------------------------
+
+# bc_matmul's launches at the paper models' widths, (name, B, p, q, k):
+# SWMMLP((784, 512, 512, 10), 64, 12) at B = 64 (fc0's k is
+# valid_block_size(64, 784, 512) = 16); the ASIC net's 512-wide layers at
+# B = 256; SWMCNN's conv1 im2col table (p = 8, r²·q = 25·4 = 100, k = 8) at
+# B·8·8 rows (B = 8 forward, 128 in the train step) and its dx on the
+# transposed grid; the SWMLSTM cells' fused gates and Wym at B = 4 with
+# SWMLSTMASR's geometry (153 features padded to 160, 1024 cells, 512
+# projection) at k = 16 and 8
+PAPER_SHAPES = [
+    ("mlp.fc0", 64, 32, 49, 16), ("mlp.fc1", 64, 8, 8, 64),
+    ("asic.fc0", 256, 8, 8, 64), ("asic.fc2", 256, 1, 8, 64),
+    ("cnn.conv1", 512, 8, 100, 8), ("cnn.conv1.train", 8192, 8, 100, 8),
+    ("cnn.conv1.dx", 8192, 100, 8, 8),
+    ("lstm16.gates0", 4, 256, 42, 16), ("lstm16.gates1", 4, 256, 64, 16),
+    ("lstm16.Wym", 4, 32, 64, 16), ("lstm8.gates0", 4, 512, 84, 8),
+    ("lstm8.gates1", 4, 512, 128, 8), ("lstm8.Wym", 4, 64, 128, 8)]
+# int8 tables are checked at the shapes of the models with quant_bits = 0
+PAPER_INT8 = ("cnn.", "lstm")
+# bc_dw in the CNN train step: conv1's weight adjoint, P = 8, Q = 100, k = 8
+PAPER_DW = (128 * 8 * 8, 8, 100, 8)
+PAPER_LSTM_T = 32
+PAPER_REPS = 10                 # timed forwards (or train steps) per model
+# card vs CPU for the f32 paper models: the per-launch limit FP32_TOL times
+# the launches and plain ops an output passes through in sequence. MLP and
+# ASIC use QUANT_TOL instead. CNN: conv0 (dense), conv1 (kernel), fc0 (FFT),
+# fc1 (dense) = 4
+CNN_TOL = 4 * FP32_TOL
+# LSTM: 2 layers x 32 steps x 2 launches; each launch adds at most FP32_TOL
+# to what the next step reads, and the cell carries it at most linearly
+# (sigmoid' <= 1/4, tanh' <= 1, the forget gate < 1), so the errors add
+LSTM_TOL = 2 * PAPER_LSTM_T * 2 * FP32_TOL
+# quant_bits = 12 (SWMMLP, ASIC net): fixed_point rounds every activation
+# to a 1/256 grid; a 1e-7 difference between card and CPU can move one
+# value across a rounding boundary and change it by a whole quantum
+# (0.0039), which the next layer spreads over its outputs. Held to 1% of
+# the largest |logit|
+QUANT_TOL = 1e-2
+
+
+class _LSTMStack:
+    """SWMLSTMASR's two cells at its geometry with ``impl="pallas"`` (the
+    model itself takes the default impl, which has no kernel), as one
+    module keyed like its tree (``lstm0``, ``lstm1``)."""
+
+    def __init__(self, k):
+        from torch import nn
+        from repro_torch.configs.base import SWMConfig
+        from repro_torch.core.lstm import SWMLSTM
+        from repro_torch.models.paper_models import SWMLSTMASR
+
+        asr = SWMLSTMASR(block_size=k)
+        swm = SWMConfig(block_size=k, impl="pallas", targets=("lstm",))
+        self.pad = asr.d_in_padded - asr.d_in
+        self.module = nn.ModuleDict({
+            f"lstm{i}": SWMLSTM(asr.d_in_padded if i == 0 else asr.d_proj,
+                                asr.d_cell, asr.d_proj, swm=swm)
+            for i in range(asr.n_layers)})
+
+    def specs(self):
+        return {n: c.specs() for n, c in self.module.items()}
+
+    def __call__(self, xs):
+        import torch
+        h = torch.nn.functional.pad(xs, (0, self.pad))
+        for cell in self.module.values():
+            h, _ = cell(h)
+        return h
+
+
+def paper_models(torch, dev):
+    """The paper phase's models: (name, card model, CPU model, input on
+    the card, launches per forward, tolerance, unit, check int8)."""
+    from repro_torch.data.pipeline import synthetic_images, synthetic_speech
+    from repro_torch.models.paper_models import SWMCNN, SWMLSTMASR, SWMMLP
+
+    img64 = torch.from_numpy(synthetic_images(64, 0)[0].reshape(64, -1))
+    x_asic = torch.randn(256, 512,
+                         generator=torch.Generator().manual_seed(12))
+    img8 = torch.from_numpy(synthetic_images(8, 0)[0])
+    speech = torch.from_numpy(synthetic_speech(4, PAPER_LSTM_T, 153, 0)[0])
+
+    def mlp():
+        return SWMMLP((784, 512, 512, 10), 64, 12, impl="pallas")
+
+    def asic():
+        return SWMMLP((512, 512, 512, 64, 10), 64, 12, impl="pallas")
+
+    out = [("mlp", mlp, img64, 2, QUANT_TOL, "images", False),
+           ("asic", asic, x_asic, 3, QUANT_TOL, "images", False),
+           ("cnn", SWMCNN, img8, 1, CNN_TOL, "images", True)]
+    for k in (16, 8):
+        out.append((f"lstm{k}", lambda k=k: _LSTMStack(k),
+                    speech, 2 * 2 * PAPER_LSTM_T, LSTM_TOL, "frames", True))
+    out.append(("lstm_asr", SWMLSTMASR, speech, 0, LSTM_TOL, "frames",
+                False))
+    return [(name, make(), make(), x.to(dev), per, tol, unit, int8)
+            for name, make, x, per, tol, unit, int8 in out]
+
+
+def _load(model, tree):
+    from repro_torch.nn.module import load_tree
+    load_tree(getattr(model, "module", model), tree)
+
+
+def phase_paper(torch, kernel, dev):
+    """Each paper model on the card against the same params on the CPU,
+    unfrozen, f32-frozen and (quant_bits = 0 models) int8-frozen, with
+    exact bc_matmul launch counts per forward; then images/s or frames/s
+    on the f32-frozen (serving) path, counted launches read. Returns (rows,
+    launches of the counted runs)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.block_circulant.plan import freeze_params
+    from repro_torch.nn.module import init_params
+
+    rows, launched = [], 0
+    print("paper models, card vs cpu (same seeded params; tolerance "
+          "beside each; launches = bc_matmul per forward):")
+    for i, (name, card, cpu, x, per, tol, unit, int8) in enumerate(
+            paper_models(torch, dev)):
+        specs = card.specs()
+        params = init_params(specs, seed=100 + i, device=dev)
+        modes = ("unfrozen", "off") + (("int8",) if int8 else ())
+        errs = {}
+        for mode in modes:
+            tree = (params if mode == "unfrozen"
+                    else freeze_params(specs, params, mode))
+            _load(card, tree)
+            _load(cpu, to_device(tree, "cpu"))
+            with torch.no_grad():
+                kernel.LAUNCHES["bc_matmul"] = 0
+                y = card(x)
+                torch.cuda.synchronize()
+                n = kernel.LAUNCHES["bc_matmul"]
+                ref = cpu(x.cpu())
+            if n != per:
+                fail(f"paper {name} {mode}: {n} bc_matmul launches per "
+                     f"forward, expected {per}")
+            y = y.float().cpu()
+            if y.shape != ref.shape or not bool(torch.isfinite(y).all()):
+                fail(f"paper {name} {mode}: output {tuple(y.shape)} vs "
+                     f"{tuple(ref.shape)} or not finite")
+            errs[mode] = rel_err(y, ref)
+            if not errs[mode] <= tol:
+                fail(f"paper {name} {mode}: card vs cpu rel err "
+                     f"{errs[mode]:.3g} > {tol}")
+        # throughput on the f32-frozen path
+        _load(card, freeze_params(specs, params))
+        with torch.no_grad():
+            for _ in range(2):
+                card(x)
+            torch.cuda.synchronize()
+            kernel.LAUNCHES["bc_matmul"] = 0
+            t = time.perf_counter()
+            for _ in range(PAPER_REPS):
+                card(x)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) / PAPER_REPS
+            n = kernel.LAUNCHES["bc_matmul"]
+        if n != per * PAPER_REPS:
+            fail(f"paper {name}: {n} launches in {PAPER_REPS} forwards")
+        launched += n
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            card(x)
+            torch.cuda.synchronize()
+        report_profile(torch, prof, 1, dt * 1e3, f"paper {name} forward "
+                       f"(f32-frozen, input {tuple(x.shape)})")
+        items = x.shape[0] * (x.shape[1] if unit == "frames" else 1)
+        rows.append(dict(model=name, batch=tuple(x.shape), ms=dt * 1e3,
+                         per_s=items / dt, unit=unit, launches=per,
+                         rel_err=errs, tol=tol))
+        print(f"  {name:8s} input {tuple(x.shape)}: rel err "
+              + ", ".join(f"{m} {e:.3g}" for m, e in errs.items())
+              + f" (tolerance {tol:.3g}); {per} launches/forward; "
+              f"{dt * 1e3:.3f} ms/forward = {items / dt:.1f} {unit}/s "
+              f"(f32-frozen)")
+    return rows, launched
+
+
+def _cnn_loss(model, params, batch):
+    from repro_torch.nn.module import load_tree
+    import torch
+
+    load_tree(model, params)
+    lp = torch.log_softmax(model(batch["x"]), -1)
+    return -lp.gather(1, batch["y"][:, None].long()).mean()
+
+
+def phase_paper_train(torch, kernel, dev):
+    """One SWMCNN train step at batch 128 (the examples' log-softmax
+    cross-entropy, grads by ``torch.autograd.grad``, the port's AdamW) on
+    the card against the CPU from the same params: loss, grad norm and the
+    updated params; the step's (bc_matmul, bc_dw) launches must be (2, 1).
+    Then PAPER_REPS counted steps on the card. Returns (row, launches)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import synthetic_images
+    from repro_torch.models.paper_models import SWMCNN
+    from repro_torch.nn.module import init_params, tree_leaves, tree_map
+    from repro_torch.optim.optimizers import adamw_update, global_norm
+    from repro_torch.train.loop import init_train_state, value_and_grad
+
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=10, total_steps=200,
+                       weight_decay=0.0)
+    B = PAPER_DW[0] // 64
+    x, y = synthetic_images(B, 1)
+    params = init_params(SWMCNN().specs(), seed=200, device=dev)
+    copies = {"card": tree_map(lambda v: v.detach().clone(), params),
+              "cpu": to_device(params, "cpu")}
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        model = SWMCNN()
+        state = init_train_state(copies[name], tcfg)
+        batch = {"x": torch.from_numpy(x).to(d),
+                 "y": torch.from_numpy(y).to(d)}
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        loss, grads = value_and_grad(
+            lambda p, b, m=model: _cnn_loss(m, p, b), state["params"], batch)
+        adamw_update(state["params"], grads, state["opt"], 1, tcfg)
+        if d == dev:
+            torch.cuda.synchronize()
+            launches = (kernel.LAUNCHES["bc_matmul"], kernel.LAUNCHES["bc_dw"])
+            if launches != (2, 1):
+                fail(f"SWMCNN train step launches {launches} != (2, 1) "
+                     f"(conv1 forward and dx; conv1 dw)")
+        out[name] = (float(loss), float(global_norm(grads)),
+                     [p.detach().cpu() for p in tree_leaves(state["params"])])
+        if not all(math.isfinite(v) for v in out[name][:2]):
+            fail(f"SWMCNN train step on {name}: non-finite loss or norm")
+    (lc, nc, pc), (lp, npu, pp) = out["card"], out["cpu"]
+    el, en = abs(lc - lp) / abs(lp), abs(nc - npu) / abs(npu)
+    ep = max(rel_err(a, b) for a, b in zip(pc, pp))
+    # loss: the forward's CNN_TOL; the grad norm also passes the backward
+    # (dx and dw adjoints, each a launch): twice that; params after one
+    # AdamW step at lr 3e-4 move by ~lr per element, far less than either
+    print(f"paper SWMCNN train step (batch {B}, card vs cpu): loss {lc!r} vs "
+          f"{lp!r} (rel {el:.3g}, tolerance {CNN_TOL:.3g}), grad norm {nc!r} "
+          f"vs {npu!r} (rel {en:.3g}, tolerance {2 * CNN_TOL:.3g}), updated "
+          f"params rel {ep:.3g}; launches (bc_matmul, bc_dw) = (2, 1)")
+    if not (el <= CNN_TOL and en <= 2 * CNN_TOL and ep <= 2 * CNN_TOL):
+        fail("SWMCNN train step: card vs cpu beyond the tolerance")
+
+    # counted steps on the card
+    model = SWMCNN()
+    state = init_train_state(params, tcfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                zip(("x", "y"), synthetic_images(B, i))}
+               for i in range(2, 3 + PAPER_REPS)]
+
+    def step(i, b):
+        loss, grads = value_and_grad(
+            lambda p, bb: _cnn_loss(model, p, bb), state["params"], b)
+        adamw_update(state["params"], grads, state["opt"], i, tcfg)
+        return loss
+
+    step(2, batches[0])
+    torch.cuda.synchronize()
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    t = time.perf_counter()
+    losses = [float(step(i, b)) for i, b in enumerate(batches[1:], 3)]
+    dt = (time.perf_counter() - t) / PAPER_REPS
+    launches = dict(kernel.LAUNCHES)
+    if launches != {"bc_matmul": 2 * PAPER_REPS, "bc_dw": PAPER_REPS}:
+        fail(f"SWMCNN train launches {launches} in {PAPER_REPS} steps")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"SWMCNN train losses {losses}")
+    print(f"paper SWMCNN train: {PAPER_REPS} steps at batch {B}, "
+          f"{dt * 1e3:.3f} ms/step = {B / dt:.1f} images/s; losses "
+          f"{losses[0]!r} ... {losses[-1]!r}; launches {launches}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(3 + PAPER_REPS, batches[-1])
+        torch.cuda.synchronize()
+    report_profile(torch, prof, 1, dt * 1e3,
+                   f"paper SWMCNN train step (batch {B})")
+    return (dict(model="cnn.train", batch=B, ms=dt * 1e3, per_s=B / dt,
+                 unit="images", loss_rel=el, grad_norm_rel=en),
+            launches)
+
+
+def phase_paper_kernels(torch, kernel, quant, dev):
+    """bc_matmul against its plain version at every paper shape (f32 x;
+    repeat launches bit-identical; int8 tables bit for bit against the f32
+    launch on dequantized tables at the CNN and LSTM shapes) and bc_dw at
+    the CNN train shape in both epilogues. Returns the max abs errors."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mm_abs, n_checks = 0.0, 0
+    for name, B, p, q, k in PAPER_SHAPES:
+        wr, wi = tables(p, q, k, gen, dev)
+        bias = torch.randn(p * k, generator=gen, device=dev)
+        x = torch.randn(B, q * k, generator=gen, device=dev)
+        y = kernel.bc_matmul(x, wr, wi, bias, k=k)
+        again = kernel.bc_matmul(x, wr, wi, bias, k=k)
+        yp = kernel.bc_matmul_plain(x, wr, wi, bias, k=k)
+        torch.cuda.synchronize()
+        e = rel_err(y, yp)
+        if not e <= FP32_TOL:
+            fail(f"paper {name} B={B} p={p} q={q} k={k}: rel err {e:.3g}")
+        if not torch.equal(y, again):
+            fail(f"paper {name}: two launches differ")
+        mm_abs = max(mm_abs, float((y - yp).abs().max()))
+        n_checks += 1
+        if name.startswith(PAPER_INT8):
+            s = quant.symmetric_scales(wr, wi)
+            qr, qi = (quant.quantize_symmetric(wr, s),
+                      quant.quantize_symmetric(wi, s))
+            y8 = kernel.bc_matmul(x, qr, qi, bias, s, k=k)
+            yd = kernel.bc_matmul(x, quant.dequantize_symmetric(qr, s),
+                                  quant.dequantize_symmetric(qi, s), bias,
+                                  k=k)
+            if not torch.equal(y8, yd):
+                fail(f"paper {name}: int8 launch differs from dequantized")
+            n_checks += 1
+    B, P, Q, k = PAPER_DW
+    x = torch.randn(B, Q * k, generator=gen, device=dev)
+    g = torch.randn(B, P * k, generator=gen, device=dev)
+    dw_abs = 0.0
+    for freq_out in (False, True):
+        got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+        again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+        ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+        torch.cuda.synchronize()
+        got, again, ref = ((t,) if not freq_out else t
+                           for t in (got, again, ref))
+        for a, a2, r in zip(got, again, ref):
+            e = rel_err(a, r)
+            if not e <= dw_tol(B):
+                fail(f"paper bc_dw P={P} Q={Q} k={k} B={B} freq_out="
+                     f"{freq_out}: rel err {e:.3g} > {dw_tol(B):.3g}")
+            if not torch.equal(a, a2):
+                fail("paper bc_dw: two launches differ")
+            dw_abs = max(dw_abs, float((a - r).abs().max()))
+        n_checks += 1
+    print(f"paper kernel checks: {n_checks} passed at {len(PAPER_SHAPES)} "
+          f"bc_matmul shapes (f32 rel <= {FP32_TOL}, int8 bit-identical at "
+          f"the CNN and LSTM shapes, repeat launches bit-identical) and "
+          f"bc_dw at P={P} Q={Q} k={k} over {B} rows, both epilogues (rel "
+          f"<= {dw_tol(B):.3g}); max abs err bc_matmul {mm_abs!r}, bc_dw "
+          f"{dw_abs!r}")
+    return mm_abs, dw_abs
+
+
+def phase_paper_times(torch, kernel, dev):
+    """Device times at the paper shapes: bc_matmul with f32 x (the paper
+    models are f32) beside its plain version, ``torch.matmul`` on the f32
+    dense-equivalent matrix and the bound; bc_dw at the CNN train shape."""
+    from repro_torch.core.circulant import blocks_to_dense
+    from repro_torch.kernels.block_circulant.ops import freq_weights
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    print("paper bc_matmul device times (f32 x, f32 tables, no bias; "
+          "median of 30 runs, CUDA events; bound and yardstick as above):")
+    for name, B, p, q, k in PAPER_SHAPES:
+        w = torch.randn(p, q, k, generator=gen, device=dev) * (q * k) ** -0.5
+        wr, wi = freq_weights(w)
+        dense_t = blocks_to_dense(w).T.contiguous()
+        x = torch.randn(B, q * k, generator=gen, device=dev)
+        ms = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=k))
+        plain = time_ms(torch, lambda: kernel.bc_matmul_plain(x, wr, wi,
+                                                              k=k))
+        lib = time_ms(torch, lambda: torch.matmul(x, dense_t))
+        nbytes = x.nbytes + wr.nbytes + wi.nbytes + B * p * k * 4
+        flops = B * (2.5 * k * math.log2(k) * (q + p)
+                     + 8 * p * q * (k // 2 + 1))
+        b_ms, b_by = bound(nbytes, flops)
+        g = kernel._mm_geometry(B, p, q, k)
+        geometry = (f"grid {g.grid[0]}x{g.grid[1]} = "
+                    f"{g.grid[0] * g.grid[1]} blocks, {g.rows} rows x "
+                    f"{g.p_group} out blocks, q chunk {g.q_chunk}, "
+                    f"{g.q_groups} q groups, {g.p_inner} p groups")
+        rows.append(dict(shape=name, path="paper", B=B, p=p, q=q, k=k,
+                         ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         flops=flops, geometry=geometry,
+                         smem_bytes=g.smem_bytes))
+        print(f"  {name:16s} p={p:3d} q={q:3d} k={k:2d} B={B:4d}: kernel "
+              f"{ms!r} ms, plain {plain!r} ms, torch.matmul {lib!r} ms, "
+              f"bound {b_ms!r} ms ({b_by}); {geometry}, {g.smem_bytes} B "
+              f"smem")
+    B, P, Q, k = PAPER_DW
+    x = torch.randn(B, Q * k, generator=gen, device=dev)
+    g = torch.randn(B, P * k, generator=gen, device=dev)
+    ms = time_ms(torch, lambda: kernel.bc_dw(x, g, P=P, Q=Q, k=k))
+    plain = time_ms(torch, lambda: kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k))
+    dense = time_ms(torch, lambda: torch.matmul(g.T, x))
+    nbytes = x.nbytes + g.nbytes + P * Q * k * 4
+    flops = B * (2.5 * k * math.log2(k) * (P + Q) + 8 * P * Q * (k // 2 + 1))
+    b_ms, b_by = bound(nbytes, flops)
+    geo = kernel._dw_geometry(B, P, Q, k)
+    geometry = (f"grid {geo.grid[0]}x{geo.grid[1]}, tile {geo.p_tile} x "
+                f"{geo.q_tile} ({geo.tiles[0]}x{geo.tiles[1]} tiles), thread "
+                f"{geo.p_per_thread} x {geo.q_per_thread}, "
+                f"{geo.rows_per_split} rows per split, {geo.rows} per chunk")
+    dw_row = dict(shape="cnn.conv1.dw", path="paper", B=B, P=P, Q=Q, k=k,
+                  launches=1, ms=ms, plain_ms=plain, library_ms=None,
+                  dense_dw_matmul_ms=dense, bound_ms=b_ms, bound_by=b_by,
+                  bytes=nbytes, flops=flops, geometry=geometry,
+                  smem_bytes=geo.smem_bytes)
+    print(f"paper bc_dw device time (f32 x and g, B={B}): P={P} Q={Q} k={k}: "
+          f"kernel {ms!r} ms, plain {plain!r} ms, g.T @ x {dense!r} ms, "
+          f"bound {b_ms!r} ms ({b_by}); {geometry}, {geo.smem_bytes} B smem")
+    return rows, dw_row
+
+
 def main() -> int:
     import torch
 
@@ -717,6 +1140,14 @@ def main() -> int:
         + [(n, p, q, per, train_rows) for n, p, q, per in DX_SHAPES])
     phase_host_time(torch, kernel, dev)
     dw_rows = phase_dw_times(torch, kernel, dev, train_rows)
+    paper_rows, paper_mm = phase_paper(torch, kernel, dev)
+    paper_train, paper_train_launches = phase_paper_train(torch, kernel, dev)
+    paper_mm_abs, paper_dw_abs = phase_paper_kernels(torch, kernel, quant,
+                                                     dev)
+    paper_times, paper_dw_row = phase_paper_times(torch, kernel, dev)
+    paper_launches = {"bc_matmul": paper_mm
+                      + paper_train_launches["bc_matmul"],
+                      "bc_dw": paper_train_launches["bc_dw"]}
 
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
@@ -725,10 +1156,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_matmul.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
-        "launches": serve_launches + train_launches["bc_matmul"],
+        "launches": (serve_launches + train_launches["bc_matmul"]
+                     + paper_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["bc_matmul"]},
-        "max_abs_err": max_abs,
+                             "train": train_launches["bc_matmul"],
+                             "paper": paper_launches["bc_matmul"]},
+        "max_abs_err": max(max_abs, paper_mm_abs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -736,14 +1169,16 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
-        "all_shapes": rows,
+        "all_shapes": rows + paper_times,
     }, {
         "name": "bc_dw",
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
-        "launches": train_launches["bc_dw"],
-        "max_abs_err": dw_abs,
+        "launches": train_launches["bc_dw"] + paper_launches["bc_dw"],
+        "launches_by_path": {"train": train_launches["bc_dw"],
+                             "paper": paper_launches["bc_dw"]},
+        "max_abs_err": max(dw_abs, paper_dw_abs),
         "ms": dw_row["ms"],
         "plain_ms": dw_row["plain_ms"],
         "bound_ms": dw_row["bound_ms"],
@@ -753,9 +1188,10 @@ def main() -> int:
         "shape": f"fused QKV weight adjoint in training: x ({train_rows}, "
                  f"1024) and g ({train_rows}, 4096) bf16, dw (32, 1024) "
                  f"f32, k=128",
-        "all_shapes": dw_rows,
+        "all_shapes": dw_rows + [paper_dw_row],
     }], "train": {"ms_per_step": train_ms,
-                  "tokens_per_s": train_rows / train_ms * 1e3}}
+                  "tokens_per_s": train_rows / train_ms * 1e3},
+        "paper": paper_rows + [paper_train]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ numpy arrays into the port's tensor tree (install it with
 ``nn.module.load_tree`` or pass it to ``ServeEngine``);
 :func:`to_reference` exports a port tree back to the reference layout as
 numpy arrays (bf16 leaves as exact float32 copies, since numpy has no
-bf16), so trees can be compared leaf by leaf.
+bf16), so trees can be compared leaf by leaf. The paper models keep flat
+trees (nested dicts, no stacked groups); :func:`tree_from_reference` and
+:func:`tree_to_reference` carry those across leaf by leaf.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.module import tree_map
 
-__all__ = ["from_reference", "to_reference"]
+__all__ = ["from_reference", "to_reference", "tree_from_reference",
+           "tree_to_reference"]
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -90,3 +93,17 @@ def to_reference(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
         out.setdefault(f"group{gi}", {})[lkey] = (stack(subs) if stacked
                                                   else subs[0])
     return out
+
+
+def tree_from_reference(tree: Dict[str, Any], device="cuda"
+                        ) -> Dict[str, Any]:
+    """A flat reference tree (nested dicts of numpy arrays, no stacked
+    groups, as the paper models keep) -> the same tree of tensors on
+    ``device`` (default ``"cuda"``), leaf by leaf."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
+
+
+def tree_to_reference(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's flat tensor tree -> nested dicts of numpy arrays."""
+    return tree_map(_to_numpy, tree)

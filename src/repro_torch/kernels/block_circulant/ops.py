@@ -211,23 +211,32 @@ def block_circulant_matmul(
     w_freq: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     w_scale: Optional[torch.Tensor] = None,
     k: Optional[int] = None,
+    q: Optional[int] = None,
 ) -> torch.Tensor:
     """Differentiable block-circulant matmul; arbitrary leading batch dims.
 
     ``bias`` (p·k,) and ``activation`` fuse into the kernel epilogue.
     ``w_freq=(wr, wi)`` (p, q, K) selects the frozen path; pass ``k`` with
     it when w is None (K alone is ambiguous for odd k). ``w_scale`` (p, q)
-    f32 marks int8 frozen tables.
+    f32 marks int8 frozen tables. ``q``, the number of input blocks, is
+    checked against the tables: the port stores them unpadded, so it must
+    equal their q (the reference also takes a smaller q for tile-padded
+    plan tables, which the port does not have).
     """
     if w_scale is not None and w_freq is None:
         raise ValueError("w_scale only applies to frozen w_freq tables")
     if w_freq is not None:
         wr, wi = w_freq
-        p, q = wr.shape[0], wr.shape[1]
+        p, tq = wr.shape[0], wr.shape[1]
         if k is None:
             k = 2 * (wr.shape[-1] - 1) if w is None else w.shape[-1]
     else:
-        p, q, k = w.shape
+        p, tq, k = w.shape
+    if q is not None and int(q) != tq:
+        raise ValueError(
+            f"q={q} but the tables hold {tq} input blocks: the port's "
+            f"tables are unpadded, so q must equal their q")
+    q = tq
     if x.shape[-1] != q * k:
         raise ValueError(
             f"x feature dim {x.shape[-1]} is incompatible with block "

@@ -6,7 +6,8 @@ only activations stream through FFT → ∘ → IFFT. ``freeze_params`` walks a
 ``wr`` / ``wi`` = rfft(w), so ``nn.Linear`` takes the frozen kernel path.
 It also pre-concatenates the known fused projection groups (attention
 Q/K/V along p; the LSTM's gate tables and biases) under ``"_fused"``, so
-the fused launch reads one resident table.
+the fused launch reads one resident table. Conv tap tables (tagged
+``conv_taps``) freeze into the (p, r²·q, K) im2col block-table layout.
 
 ``quantize="int8"`` stores the frozen tables int8 with one symmetric f32
 max-abs scale per (p, q) block (``w_scale``), dequantized in the kernel.
@@ -158,6 +159,15 @@ def freeze_params(specs, params, quantize: str = "off") -> Dict[str, Any]:
                 out["wr"], out["wi"] = wr, wi
             else:
                 wr, wi = bc_ops.freq_weights(sub_param)
+                if "conv_taps" in sub_spec.tags:
+                    # conv tap tables (r², p, q, K) freeze straight into
+                    # the (p, r²·q, K) im2col block-table layout the conv
+                    # forward launches, so it reshapes no weights
+                    t, p, q, K = wr.shape
+                    wr = wr.permute(1, 0, 2, 3).reshape(p, t * q, K)
+                    wi = wi.permute(1, 0, 2, 3).reshape(p, t * q, K)
+                # int8 quantizes after the reshape, so the (p, q) scale
+                # grid matches the stored table's block grid
                 if quantize == "int8":
                     wr, wi, out["w_scale"] = _quantize_pair(wr, wi)
                 out["wr"], out["wi"] = wr, wi

@@ -47,6 +47,12 @@ class Linear(nn.Module):
     def is_circulant(self) -> bool:
         return self.block_size > 1
 
+    @property
+    def n_params(self) -> int:
+        """Stored weights: in·out/k circulant, in·out dense."""
+        k = self.block_size
+        return self.in_dim * self.out_dim // k
+
     def specs(self):
         k = self.block_size
         # variance-preserving init: var(w) = 1/in_dim on both layouts
@@ -59,29 +65,34 @@ class Linear(nn.Module):
             w = ParamSpec((self.in_dim, self.out_dim), self.dtype, scale=std)
         return {"w": w}
 
-    def frozen_freq(self):
+    def frozen_freq(self, params=None):
         """(wr, wi) when frozen frequency weights are attached, else None."""
-        b = self._buffers
+        b = self._buffers if params is None else params
         if self.is_circulant and "wr" in b and "wi" in b:
             return (b["wr"], b["wi"])
         return None
 
-    def frozen_scale(self) -> Optional[torch.Tensor]:
+    def frozen_scale(self, params=None) -> Optional[torch.Tensor]:
         """Per-block int8 scales when the frozen tables are quantized."""
-        if self.is_circulant and "wr" in self._buffers:
-            return self._buffers.get("w_scale")
+        b = self._buffers if params is None else params
+        if self.is_circulant and "wr" in b:
+            return b.get("w_scale")
         return None
 
     def forward(self, x: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
-                activation: str = "none") -> torch.Tensor:
+                activation: str = "none", params=None) -> torch.Tensor:
         """Apply; ``bias``/``activation`` are the fused kernel epilogue on
-        the circulant path."""
+        the circulant path. ``params`` (a dict keyed like the buffers)
+        takes the place of the module's own tensors for this call, as the
+        reference's ``Linear(params, x)`` does (the paper models apply
+        fixed-point copies of their tables this way)."""
+        b = self._buffers if params is None else params
         if self.is_circulant:
             return circ.block_circulant_apply_fused(
-                x, self._buffers.get("w"), impl=self.swm.impl, bias=bias,
-                activation=activation, w_freq=self.frozen_freq(),
-                w_scale=self.frozen_scale(), k=self.block_size)
-        y = x @ self._buffers["w"].to(x.dtype)
+                x, b.get("w"), impl=self.swm.impl, bias=bias,
+                activation=activation, w_freq=self.frozen_freq(b),
+                w_scale=self.frozen_scale(b), k=self.block_size)
+        y = x @ b["w"].to(x.dtype)
         if bias is not None:
             y = y + bias.to(y.dtype)
         return apply_activation(y, activation)

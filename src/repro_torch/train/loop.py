@@ -8,10 +8,14 @@ into a tree keyed like the params and updates params and moments in place
 under ``torch.no_grad()``, so no step copies the model. ``step`` is a
 Python int (the host computes the learning rate from it).
 
+``tcfg.qat_bits > 0`` is quantization-aware training: every forward sees
+fixed-point copies of the params (``core.quant.quantize_tree``, biases and
+norm scales exempt), installed in the model for that forward, while the
+grads are taken with respect to, and the optimizer updates, the
+full-precision masters.
+
 Not in the port yet, and refused with ``NotImplementedError``: the
-structural audit (``audit_args``, which needs ``analysis/``) and
-quantization-aware training (``qat_bits > 0``, which needs
-``core.quant.quantize_tree``/``fixed_point``). The mesh, sharding and the
+structural audit (``audit_args``, which needs ``analysis/``). The mesh, sharding and the
 fault-tolerant restarts join with the port's ``dist``/``ft`` modules.
 """
 
@@ -22,6 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.quant import default_exempt, quantize_tree
 from repro_torch.nn.module import load_tree, tree_leaves, tree_map
 from repro_torch.optim.optimizers import (adafactor_init, adafactor_update,
                                           adamw_init, adamw_update,
@@ -77,16 +82,23 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
     """``loss_fn(params, batch) -> (loss, metrics)`` for ``batch =
     {"tokens": (B, S+1)}``: installs ``params`` in ``model`` (the same
     tensors, no copies), runs it to its final hidden states and takes the
-    chunked cross-entropy against the tied table."""
-    if int(tcfg.qat_bits or 0):
-        raise NotImplementedError(
-            "qat_bits > 0 needs quantize_tree/fixed_point (repro.core.quant "
-            "QAT), which are not ported yet")
+    chunked cross-entropy against the tied table. With ``tcfg.qat_bits``
+    it installs ``quantize_tree(params, qat_bits, qat_frac)`` instead
+    (``qat_frac_bits < 0`` means ``qat_bits - 4``): tensors computed from
+    the masters, so the gradient flows back to them through the clipped
+    straight-through estimator."""
     if cfg.family != "lm":
         raise NotImplementedError(
             f"{cfg.family!r} losses are not ported yet (lm only)")
+    qat_bits = int(tcfg.qat_bits or 0)
+    qat_frac = int(tcfg.qat_frac_bits)
+    if qat_frac < 0:
+        qat_frac = qat_bits - 4
 
     def loss_fn(params, batch):
+        if qat_bits:
+            params = quantize_tree(params, qat_bits, qat_frac,
+                                   exempt=default_exempt)
         load_tree(model, params)
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]

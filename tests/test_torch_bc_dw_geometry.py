@@ -248,3 +248,45 @@ def test_geometry_is_deterministic():
     again = [kernel._dw_geometry.__wrapped__(*c) for c in reversed(calls)]
     assert first == list(reversed(again))
     assert [kernel._dw_geometry(*c) for c in calls] == first
+
+
+def test_geometry_at_the_cnn_train_shape():
+    """SWMCNN's conv1 weight adjoint in a train step at batch 128: P = 8,
+    Q = r²·q = 100, k = 8 over 128·8·8 = 8192 rows. One tile (each x and g
+    row transformed once), 2 x 50 thread groups summing 4 x 2 blocks each
+    (the fewest sums per thread that fit), 132 row splits in one wave, and
+    a workspace of splits·P·Q·slots·2 f32 = 3.4 MB."""
+    B, P, Q, k = 8192, 8, 100, 8
+    geo = kernel._dw_geometry(B, P, Q, k)
+    rows, pq = _cover(geo, B, P, Q)
+    assert (rows == 1).all() and (pq == 1).all()
+    assert geo.fft and geo.slots == 4
+    assert geo.tiles == (1, 1)
+    assert (geo.p_groups, geo.q_groups) == (2, 50)
+    assert (geo.p_per_thread, geo.q_per_thread) == (4, 2)
+    assert geo.splits == 132 and geo.rows_per_split == 63
+    assert geo.smem_bytes <= kernel._DW_SMEM_BUDGET
+    assert geo.splits * P * Q * geo.slots * 2 * 4 == 3_379_200
+
+
+@pytest.mark.parametrize("freq_out", [False, True])
+def test_formulation_at_the_cnn_train_shape(freq_out):
+    """The kernel's FFT formulation at P = 8, Q = 100, k = 8, split as the
+    geometry cuts 8192 rows, against ``bc_dw_plain`` (and 512 rows of it
+    against the JAX package's Pallas dw in interpret mode). Sums of B rows:
+    the f32 limit scales by B/512, as on the card."""
+    P, Q, k = 8, 100, 8
+    for B, tol in ((8192, REL_TOL * 8192 / 512), (512, REL_TOL)):
+        x, g = _rand((B, Q * k), 31), _rand((B, P * k), 32)
+        got = _emulate_fft(torch.from_numpy(x), torch.from_numpy(g), P, Q,
+                           k, freq_out)
+        plain = kernel.bc_dw_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                   P=P, Q=Q, k=k, freq_out=freq_out)
+        got, plain = ((got, plain) if freq_out else ((got,), (plain,)))
+        for a, b in zip(got, plain):
+            assert _rel(a, b) <= tol
+    ref = jops._dw_via_kernel(jnp.asarray(x), jnp.asarray(g), P, Q, k,
+                              interpret=True, freq_out=freq_out)
+    ref = ref if freq_out else (ref.reshape(P, Q * k),)
+    for a, r in zip(got, ref):
+        assert _rel(a, torch.from_numpy(np.array(r))) <= REL_TOL

@@ -272,3 +272,47 @@ def test_kernel_order_emulation_matches_plain(B, p, q, k):
     got = _emulate(x, wr, wi, bias, k)
     want = kernel.bc_matmul_plain(x, wr, wi, bias, k=k)
     assert _rel(got, want) <= REL_TOL
+
+
+# The paper models' launches (B, p, q, k) on the card: SWMMLP fc0/fc1 at
+# B = 64; ASICNet's 512-wide layers at B = 256; SWMCNN's conv1 im2col table
+# (p = 8, r²·q = 25·4) at B·8·8 rows (B = 8 forward, B = 128 train) and
+# its dx on the transposed grid; SWMLSTM's fused gates and Wym at B = 4,
+# k = 16 and 8
+PAPER = [(64, 32, 49, 16), (64, 8, 8, 64), (256, 8, 8, 64), (256, 1, 8, 64),
+         (512, 8, 100, 8), (8192, 8, 100, 8), (8192, 100, 8, 8),
+         (4, 256, 42, 16), (4, 256, 64, 16), (4, 32, 64, 16),
+         (4, 512, 84, 8), (4, 512, 128, 8), (4, 64, 128, 8)]
+
+
+@pytest.mark.parametrize("B,P,Q,k", PAPER)
+def test_geometry_at_paper_shapes(B, P, Q, k):
+    """Every row, output block and q block once; the FFT path; shared
+    memory inside the budget; the q range in one chunk (each x row staged
+    and transformed once per block); enough blocks to fill the card where
+    the shape has that many output blocks."""
+    g = kernel._mm_geometry(B, P, Q, k)
+    rows, outs, qs = _cover(g, B, P, Q)
+    assert (rows == 1).all() and (outs == 1).all() and (qs == 1).all()
+    assert g.fft and g.slots == k // 2
+    assert g.p_inner * g.q_groups * g.slots <= kernel._MM_THREADS
+    assert g.smem_bytes <= kernel._MM_SMEM_BUDGET
+    assert g.q_chunk == Q
+    assert g.grid[0] * g.grid[1] >= min(132, -(-B // g.rows) * P)
+
+
+@pytest.mark.parametrize("B,p,q,k", [(64, 32, 49, 16), (512, 8, 100, 8),
+                                     (8192, 100, 8, 8), (4, 512, 128, 8),
+                                     (4, 256, 42, 16)])
+def test_kernel_order_emulation_at_paper_shapes(B, p, q, k):
+    """The FFT path in the kernel's slot order and q-group order at the
+    paper models' shapes (the 8 x 100 conv table at k = 8 and its dx, the
+    LSTM's 512-block gate table) against ``bc_matmul_plain``."""
+    rng = np.random.default_rng(B + p + q + k)
+    K = k // 2 + 1
+    t = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         for s in ((B, q * k), (p, q, K), (p, q, K), (p * k,))]
+    x, wr, wi, bias = t
+    got = _emulate(x, wr, wi, bias, k)
+    want = kernel.bc_matmul_plain(x, wr, wi, bias, k=k)
+    assert _rel(got, want) <= REL_TOL

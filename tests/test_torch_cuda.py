@@ -278,3 +278,77 @@ def test_card_loss_gives_every_circulant_leaf_a_grad(cuda):
     assert len(circ) == per_pass + 2 * cfg.n_layers     # q/k/v separate
     for g in circ:
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+# The paper models' launches (B, p, q, k): SWMMLP at B = 64, ASICNet at
+# B = 256, SWMCNN's conv1 im2col table (p = 8, r²·q = 100, k = 8) at B·64
+# rows and its dx, the SWMLSTM fused gates and Wym at B = 4 (k = 16, 8)
+_PAPER = [(64, 32, 49, 16), (64, 8, 8, 64), (256, 8, 8, 64),
+          (256, 1, 8, 64), (512, 8, 100, 8), (8192, 8, 100, 8),
+          (8192, 100, 8, 8), (4, 256, 42, 16), (4, 256, 64, 16),
+          (4, 32, 64, 16), (4, 512, 84, 8), (4, 512, 128, 8),
+          (4, 64, 128, 8)]
+
+
+@pytest.mark.parametrize("B,p,q,k", _PAPER)
+def test_kernel_matches_plain_at_paper_shapes(cuda, B, p, q, k):
+    """f32 x and tables against the plain version; int8 tables bit for
+    bit against the f32 launch on the dequantized tables."""
+    gen = torch.Generator().manual_seed(B + p + q + k)
+    wr, wi = _tables(p, q, k, gen, cuda)
+    x = torch.randn(B, q * k, generator=gen).to(cuda)
+    bias = torch.randn(p * k, generator=gen).to(cuda)
+    y = kernel.bc_matmul(x, wr, wi, bias, k=k)
+    yp = kernel.bc_matmul_plain(x, wr, wi, bias, k=k)
+    assert _rel(y, yp) <= REL_TOL
+    s = symmetric_scales(wr, wi)
+    qr, qi = quantize_symmetric(wr, s), quantize_symmetric(wi, s)
+    y8 = kernel.bc_matmul(x, qr, qi, bias, s, k=k)
+    yd = kernel.bc_matmul(x, dequantize_symmetric(qr, s),
+                          dequantize_symmetric(qi, s), bias, k=k)
+    assert torch.equal(y8, yd)
+
+
+@pytest.mark.parametrize("freq_out", [False, True])
+def test_dw_kernel_at_the_cnn_train_shape(cuda, freq_out):
+    """SWMCNN's conv1 weight adjoint at batch 128: P = 8, Q = 100, k = 8,
+    8192 rows, f32."""
+    B, P, Q, k = 8192, 8, 100, 8
+    gen = torch.Generator().manual_seed(81)
+    x = torch.randn(B, Q * k, generator=gen).to(cuda)
+    g = torch.randn(B, P * k, generator=gen).to(cuda)
+    got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    for a, b in zip(got if freq_out else [got], ref if freq_out else [ref]):
+        assert _rel(a, b) <= _dw_tol(B)
+
+
+def test_paper_models_on_card_match_cpu(cuda):
+    """Each paper model's forward (narrow widths) on the card against the
+    CPU from the same params, unfrozen and frozen; every conv with k > 1
+    and every ``impl="pallas"`` layer launches ``bc_matmul``."""
+    from repro_torch.kernels.block_circulant.plan import freeze_params
+    from repro_torch.models.paper_models import SWMCNN, SWMLSTMASR, SWMMLP
+    from repro_torch.nn.module import load_tree
+
+    cases = [(lambda: SWMMLP((64, 32, 32, 10), 16, impl="pallas"), (4, 64),
+              2),
+             (lambda: SWMCNN(), (2, 28, 28, 1), 1),
+             (lambda: SWMLSTMASR(20, 32, 16, 2, 5, 8), (2, 3, 20), 0)]
+    for make, shape, launches in cases:
+        cpu_model, card_model = make(), make()
+        params = init_params(cpu_model.specs(), 0, device="cpu")
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+        for mode in ("unfrozen", "off"):
+            tree = (params if mode == "unfrozen" else
+                    freeze_params(cpu_model.specs(), params, mode))
+            load_tree(cpu_model, tree)
+            load_tree(card_model, _to(tree, cuda))
+            n0 = kernel.LAUNCHES["bc_matmul"]
+            with torch.no_grad():
+                y = card_model(x.to(cuda))
+                torch.cuda.synchronize()
+                assert kernel.LAUNCHES["bc_matmul"] - n0 == launches
+                # several f32 launches in sequence (the LSTM: 2 layers x
+                # 3 steps), each within REL_TOL: 5x REL_TOL
+                assert _rel(y, cpu_model(x)) <= 5 * REL_TOL

@@ -302,8 +302,6 @@ def test_grad_step_matches_reference():
 def test_unported_features_raise(smoke):
     _, tcfg, _, _, _ = smoke
     model = build_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="quantize_tree"):
-        make_loss_fn(model, tcfg, TTrain(qat_bits=8))
     with pytest.raises(NotImplementedError, match="analysis"):
         make_train_step(model, tcfg, TTrain(), audit_args=({}, {}))
     with pytest.raises(NotImplementedError, match="analysis"):
