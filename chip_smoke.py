@@ -53,7 +53,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per forward, then images/s or frames/s; one ``SWMCNN`` train step at
    batch 128 (launches (2, 1)) on the card against the CPU, then counted
    steps; both kernels against their plain versions at every new shape
-   (``bc_dw`` at P = 8, Q = 100, k = 8 over 8192 rows) and their times.
+   (``bc_dw`` at P = 8, Q = 100, k = 8 over 8192 rows) and their times;
+9. the recurrent hybrids (``hybrid`` and ``rwkv`` paths): full-width
+   jamba-v0.1-52b (Mamba + attention + MoE) and rwkv6-7b with
+   ``impl="pallas"`` and seeded random params, each served like phase 2
+   (8 greedy requests x 16 tokens, ``batch=4, cache_len=128``) through
+   ``make_runner`` -> ``RecurrentRunner``, ``bc_matmul``'s launches held to
+   160 and 256 per forward (the MoE's experts: one grouped launch per
+   expert projection), a decode-step profile, the first request's prefill
+   logits twice on the card (bit-identical) and against the CPU; then
+   ``bc_matmul`` against its plain version at every new shape and row
+   count, the grouped launch (16 experts) group by group against single
+   launches (f32 and int8, bit for bit), and the times of every new shape
+   beside ``torch.bmm``/``torch.matmul`` on the dense equivalent and the
+   bound.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -646,7 +659,8 @@ def phase_dw_times(torch, kernel, dev, B):
 
 
 def report_profile(torch, prof, n, wall_ms, what):
-    """Device busy time per step and the top kernels of a profile."""
+    """Device busy time per step and the top kernels of a profile; returns
+    the busy ms per step (None when the profiler saw no device time)."""
     # kernel (device-side) rows only: CPU op rows carry the device time of
     # the kernels they launch, which would count it twice
     kernels = [e for e in prof.key_averages()
@@ -655,7 +669,7 @@ def report_profile(torch, prof, n, wall_ms, what):
     if busy_ms == 0:
         print(f"profile, {what}: the profiler saw no device time "
               f"(not measured)")
-        return
+        return None
     print(f"profile, {what}: device busy {busy_ms:.3f} ms/step of "
           f"{wall_ms:.2f} ms/step unprofiled (device idle share "
           f"{1 - busy_ms / wall_ms:.3f}); "
@@ -667,10 +681,12 @@ def report_profile(torch, prof, n, wall_ms, what):
         if i < 6 or "bc_matmul" in e.key or "bc_dw" in e.key:
             print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
                   f"{e.count // n:5d} launches/step  {e.key[:70]}")
+    return busy_ms
 
 
 def phase_profile(torch, engine, reqs, step_ms):
-    """Device time of decode steps with 4 active slots (torch.profiler)."""
+    """Device time of decode steps with 4 active slots (torch.profiler);
+    returns the busy ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     rids = [engine.submit(r) for r in reqs[:4]]
@@ -683,7 +699,8 @@ def phase_profile(torch, engine, reqs, step_ms):
             engine.step()
         torch.cuda.synchronize()
     engine.drain(rids)
-    report_profile(torch, prof, n, step_ms, "decode step at 4 active slots")
+    return report_profile(torch, prof, n, step_ms,
+                          "decode step at 4 active slots")
 
 
 # ---------------------------------------------------------------------------
@@ -1096,6 +1113,291 @@ def phase_paper_times(torch, kernel, dev):
     return rows, dw_row
 
 
+# ---------------------------------------------------------------------------
+# The recurrent hybrids (the sixth slice's path)
+# ---------------------------------------------------------------------------
+
+# bc_matmul launches per forward, pinned: jamba's 4 attention layers (fused
+# QKV, o), 28 Mamba layers (in_proj, out_proj: family "ffn", so circulant)
+# and 32 FFNs (16 dense SwiGLU, 16 MoE with one grouped launch per expert
+# projection) = 8 + 56 + 96; rwkv6's 32 layers of time mix (r, k, v, g, o)
+# and channel mix (wk, wr, wv) = 32 x 8. ``hybrid_launches`` derives the
+# same counts from the built model
+HYBRID_LAUNCHES = {"jamba-v0.1-52b": 160, "rwkv6-7b": 256}
+# (name, groups, p, q, launches per forward) of every bc_matmul shape the
+# two serve paths add at k = 128: jamba's attention, Mamba and FFN/expert
+# projections (d_ff 14336: p or q = 112), rwkv6's time mix (r, k, v, g, o)
+# and channel mix (wr shares their shape); groups 16 = the MoE's grouped
+# launches over its experts. Each model's launches sum to HYBRID_LAUNCHES
+HYBRID_SHAPES = [("jamba.qkv", 1, 48, 32, 4), ("jamba.o", 1, 32, 32, 4),
+                 ("jamba.in_proj", 1, 128, 32, 28),
+                 ("jamba.out_proj", 1, 32, 64, 28),
+                 ("jamba.wi_wu", 1, 112, 32, 32), ("jamba.wo", 1, 32, 112, 16),
+                 ("jamba.expert.wi_wu", 16, 112, 32, 32),
+                 ("jamba.expert.wo", 16, 32, 112, 16),
+                 ("rwkv.rkvgo_wr", 1, 32, 32, 192), ("rwkv.wk", 1, 112, 32, 32),
+                 ("rwkv.wv", 1, 32, 112, 32)]
+# rows of the timed launches: decode at 4 active slots, and the prefill
+# bucket of 4 prompts x 8 tokens (an expert launch's rows are its capacity,
+# the forward's tokens)
+HYBRID_TIME_ROWS = (4, 32)
+
+
+def hybrid_launches(model):
+    """bc_matmul launches of one forward, read off the built model: 2 per
+    attention or Mamba mixer (fused QKV + o; in_proj + out_proj), 5 per
+    RWKV time mix, 3 per dense FFN or RWKV channel mix, 3 grouped per MoE
+    (wi, wu, wo over all experts at once)."""
+    n = 0
+    for layer in model._modules["layers"]:
+        n += {"attn": 2, "mamba": 2, "rwkv": 5}[layer.mixer_kind]
+        n += 3 * sum(name in layer._modules
+                     for name in ("ffn_dense", "ffn_moe"))
+    return n
+
+
+def phase_hybrid(torch, kernel, dev, arch):
+    """Full-width ``arch`` (jamba-v0.1-52b or rwkv6-7b) served through
+    ``make_runner`` -> ``RecurrentRunner``: 8 greedy requests x 16 tokens
+    with the bc_matmul count set to 0 just before and read just after and
+    held to the pinned launches per forward; a profile of decode steps; the
+    first request's prefill logits on the card against the CPU, and twice
+    on the card (bit-identical: the MoE dispatch's atomic scatter-add sums
+    one value per slot). Returns (report row, row counts launched)."""
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.runner import RecurrentRunner
+    import numpy as np
+
+    cfg = dataclasses.replace(get_config(arch), swm=SWMConfig(
+        block_size=128, impl="pallas"))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    engine = ServeEngine(model, cfg, params, batch=4, cache_len=128)
+    del params
+    torch.cuda.synchronize()
+    per_forward = hybrid_launches(model)
+    if per_forward != HYBRID_LAUNCHES[arch]:
+        fail(f"{arch}: the model has {per_forward} bc_matmul launches per "
+             f"forward, expected {HYBRID_LAUNCHES[arch]}")
+    if not isinstance(engine.runner, RecurrentRunner):
+        fail(f"{arch}: served by {type(engine.runner).__name__}")
+    print(f"{arch} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.compute_dtype}, impl={cfg.swm.impl}): built, initialized "
+          f"and frozen in {time.perf_counter() - t0:.2f}s; frozen table "
+          f"bytes {engine.frozen_table_bytes()}; device memory allocated "
+          f"{torch.cuda.memory_allocated(dev)}; runner "
+          f"{type(engine.runner).__name__}")
+    engine.generate([Request(np.arange(4, dtype=np.int32), max_new=2)])
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
+                                 ).astype(np.int32), max_new=16)
+            for _ in range(8)]
+    s = engine.stats
+    f0 = s.prefill_calls + s.decode_steps
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t_start = time.perf_counter()
+    rids = [engine.submit(r) for r in reqs]
+    decode_ms = []
+    while True:
+        p0 = s.prefill_calls
+        t = time.perf_counter()
+        more = engine.step()
+        torch.cuda.synchronize()
+        if s.prefill_calls == p0:
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+        if not more:
+            break
+    outs = engine.drain(rids)
+    dt = time.perf_counter() - t_start
+    launches = kernel.LAUNCHES["bc_matmul"]
+    forwards = s.prefill_calls + s.decode_steps - f0
+    if [len(outs[r]) for r in rids] != [16] * 8:
+        fail(f"{arch}: token counts {[len(outs[r]) for r in rids]}")
+    if launches != per_forward * forwards:
+        fail(f"{arch}: bc_matmul launches {launches} != {per_forward} x "
+             f"{forwards} forwards")
+    n_tok = sum(len(o) for o in outs.values())
+    step_ms = statistics.median(decode_ms)
+    print(f"{arch} serve: {len(reqs)} requests x 16 tokens = {n_tok} tokens "
+          f"in {dt:.3f}s = {n_tok / dt:.1f} tok/s; {forwards} forwards "
+          f"({len(decode_ms)} decode-only steps, median {step_ms:.2f} "
+          f"ms/step); bc_matmul launches {launches} = {per_forward} x "
+          f"{forwards}; all logits finite; prefill shapes "
+          f"{sorted(s.prefill_shapes)} decode {sorted(s.decode_shapes)}")
+    busy = phase_profile(torch, engine, reqs, step_ms)
+
+    # the first request's prefill: twice on the card, then on the CPU
+    toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long)[None]
+    with torch.no_grad():
+        card = engine.runner.model.forward(toks.to(dev), logits_mode="last",
+                                           moe_no_drop=True)[0]
+        again = engine.runner.model.forward(toks.to(dev), logits_mode="last",
+                                            moe_no_drop=True)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(card, again):
+        fail(f"{arch}: two prefills of one prompt on the card differ")
+    frozen = engine.params
+    del engine, model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cpu_model = build_model(cfg, device="cpu")
+    from repro_torch.nn.module import load_tree
+    load_tree(cpu_model, to_device(frozen, "cpu"))
+    del frozen
+    with torch.no_grad():
+        cpu = cpu_model.forward(toks, logits_mode="last",
+                                moe_no_drop=True)[0]
+    card = card.float().cpu()
+    if not (torch.isfinite(card).all() and torch.isfinite(cpu).all()):
+        fail(f"{arch}: non-finite prefill logits")
+    e = rel_err(card, cpu)
+    print(f"{arch} card vs cpu prefill logits (full width, "
+          f"{toks.shape[1]} tokens, MoE no-drop): rel err {e:.3g} (tolerance "
+          f"{FULL_WIDTH_TOL}), argmax equal: "
+          f"{int(card.argmax()) == int(cpu.argmax())}; two card prefills "
+          f"bit-identical; cpu pass {time.perf_counter() - t:.1f}s")
+    if not e <= FULL_WIDTH_TOL:
+        fail(f"{arch}: card vs cpu logits rel err {e:.3g} > "
+             f"{FULL_WIDTH_TOL}")
+    del cpu_model
+    rows = {b * t for b, t in s.prefill_shapes} | set(s.decode_shapes)
+    return (dict(model=arch, requests=len(reqs), tokens=n_tok, seconds=dt,
+                 tokens_per_s=n_tok / dt, decode_ms_per_step=step_ms,
+                 device_busy_ms_per_step=busy,
+                 device_idle_share=(None if busy is None
+                                    else 1 - busy / step_ms),
+                 launches=launches, launches_per_forward=per_forward,
+                 forwards=forwards, cpu_vs_card_rel_err=e,
+                 prefill_shapes=sorted(s.prefill_shapes),
+                 decode_shapes=sorted(s.decode_shapes)),
+            rows)
+
+
+def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts):
+    """bc_matmul against its plain version at every HYBRID_SHAPES shape and
+    every row count the two serve paths launched (an expert launch's rows
+    are its capacity, the tokens of the forward), f32 and bf16 x, each
+    launched twice (bit-identical). Grouped shapes also: every group of
+    the grouped launch bit for bit against its own single launch, f32 and
+    int8 tables, and the int8 grouped launch bit for bit against the f32
+    grouped launch on dequantized tables. Returns the max abs error of the
+    f32 checks."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst_abs, n_checks = 0.0, 0
+    for name, G, p, q, _ in HYBRID_SHAPES:
+        lead = (G,) if G > 1 else ()
+        wr = torch.randn(*lead, p, q, K // 2 + 1, generator=gen, device=dev)
+        wi = torch.randn(*lead, p, q, K // 2 + 1, generator=gen, device=dev)
+        for B in row_counts:
+            shape = (G, B, q * K) if G > 1 else (B, q * K)
+            x32 = torch.randn(*shape, generator=gen, device=dev)
+            for x, tol in ((x32, FP32_TOL), (x32.bfloat16(), BF16_TOL)):
+                y = kernel.bc_matmul(x, wr, wi, k=K)
+                again = kernel.bc_matmul(x, wr, wi, k=K)
+                yp = kernel.bc_matmul_plain(x, wr, wi, k=K)
+                torch.cuda.synchronize()
+                e = rel_err(y, yp)
+                if not e <= tol:
+                    fail(f"{name} B={B} {x.dtype}: rel err {e:.3g} > {tol}")
+                if not torch.equal(y, again):
+                    fail(f"{name} B={B} {x.dtype}: two launches differ")
+                if G > 1:
+                    for g in range(G):
+                        if not torch.equal(y[g], kernel.bc_matmul(
+                                x[g], wr[g], wi[g], k=K)):
+                            fail(f"{name} B={B} {x.dtype}: group {g} differs "
+                                 f"from its single launch")
+                if x.dtype == torch.float32:
+                    worst_abs = max(worst_abs, float((y - yp).abs().max()))
+                n_checks += 1
+        if G > 1:
+            sc = quant.symmetric_scales(wr, wi)
+            qr, qi = (quant.quantize_symmetric(wr, sc),
+                      quant.quantize_symmetric(wi, sc))
+            x = torch.randn(G, 4, q * K, generator=gen, device=dev).bfloat16()
+            y8 = kernel.bc_matmul(x, qr, qi, None, sc, k=K)
+            yd = kernel.bc_matmul(x, quant.dequantize_symmetric(qr, sc),
+                                  quant.dequantize_symmetric(qi, sc), k=K)
+            if not torch.equal(y8, yd):
+                fail(f"{name}: int8 grouped launch differs from the f32 "
+                     f"grouped launch on dequantized tables")
+            for g in range(G):
+                if not torch.equal(y8[g], kernel.bc_matmul(
+                        x[g], qr[g], qi[g], None, sc[g], k=K)):
+                    fail(f"{name}: int8 group {g} differs from its single "
+                         f"launch")
+            n_checks += 1
+    print(f"hybrid bc_matmul checks: {n_checks} passed at "
+          f"{len(HYBRID_SHAPES)} shapes (grouped G=16 at the expert shapes) "
+          f"x rows {sorted(row_counts)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
+          f"{BF16_TOL:.3g}; repeat launches bit-identical; every group of a "
+          f"grouped launch bit-identical to its single launch, f32 and int8; "
+          f"int8 bit-identical to dequantized f32); max abs err (f32) = "
+          f"{worst_abs!r}")
+    return worst_abs
+
+
+def phase_hybrid_times(torch, kernel, dev, cases):
+    """Device times at ``cases`` = [(name, groups, p, q, launches per
+    forward, B)], bf16 x and f32 tables: the kernel, its plain version, the
+    dense-equivalent product (``torch.bmm`` over the experts' stack for a
+    grouped launch, ``torch.matmul`` otherwise; yardsticks the port never
+    calls) and the bound (every group's bytes and operations)."""
+    from repro_torch.core.circulant import blocks_to_dense
+    from repro_torch.kernels.block_circulant.ops import freq_weights
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    Kf = K // 2 + 1
+    rows = []
+    print("hybrid bc_matmul device times (bf16 x, f32 tables; median of 30 "
+          "runs, CUDA events; bound as above over all groups; yardstick = "
+          "torch.bmm on the (G, q*k, p*k) dense-equivalent stack for a "
+          "grouped launch, torch.matmul otherwise):")
+    for name, G, p, q, per, B in cases:
+        w = torch.randn(G, p, q, K, generator=gen, device=dev) * (
+            q * K) ** -0.5
+        wr, wi = freq_weights(w)
+        dense = torch.stack([blocks_to_dense(w[g]).T.bfloat16()
+                             for g in range(G)])
+        x = torch.randn(G, B, q * K, generator=gen, device=dev).bfloat16()
+        if G == 1:
+            wr, wi, dense, x = wr[0], wi[0], dense[0], x[0]
+            lib_fn = lambda: torch.matmul(x, dense)
+        else:
+            lib_fn = lambda: torch.bmm(x, dense)
+        ms = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=K))
+        plain = time_ms(torch, lambda: kernel.bc_matmul_plain(x, wr, wi, k=K))
+        lib = time_ms(torch, lib_fn)
+        nbytes = x.nbytes + wr.nbytes + wi.nbytes + G * B * p * K * 2
+        flops = G * B * (2.5 * K * math.log2(K) * (q + p) + 8 * p * q * Kf)
+        b_ms, b_by = bound(nbytes, flops)
+        g = kernel._mm_geometry(B, p, q, K)
+        geometry = (f"grid {g.grid[0]}x{g.grid[1]}x{G} = "
+                    f"{g.grid[0] * g.grid[1] * G} blocks, {g.rows} rows x "
+                    f"{g.p_group} out blocks, q chunk {g.q_chunk}, "
+                    f"{g.q_groups} q groups")
+        rows.append(dict(shape=name, path="hybrid", groups=G, B=B, p=p, q=q,
+                         k=K, launches=per, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes, flops=flops, geometry=geometry,
+                         smem_bytes=g.smem_bytes))
+        print(f"  {name:19s} G={G:2d} p={p:3d} q={q:3d} B={B:3d}: kernel "
+              f"{ms!r} ms, plain {plain!r} ms, "
+              f"{'torch.bmm' if G > 1 else 'torch.matmul'} {lib!r} ms, bound "
+              f"{b_ms!r} ms ({b_by}), {per} launches/forward; {geometry}, "
+              f"{g.smem_bytes} B smem")
+        del dense
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1149,6 +1451,24 @@ def main() -> int:
                       + paper_train_launches["bc_matmul"],
                       "bc_dw": paper_train_launches["bc_dw"]}
 
+    for arch, prefix in (("jamba-v0.1-52b", "jamba."), ("rwkv6-7b", "rwkv.")):
+        if sum(c[4] for c in HYBRID_SHAPES
+               if c[0].startswith(prefix)) != HYBRID_LAUNCHES[arch]:
+            fail(f"HYBRID_SHAPES' launches do not sum to {arch}'s "
+                 f"{HYBRID_LAUNCHES[arch]}")
+    hybrid_rows, hybrid_counts = [], {1}
+    for arch in HYBRID_LAUNCHES:
+        row, counts = phase_hybrid(torch, kernel, dev, arch)
+        hybrid_rows.append(row)
+        hybrid_counts |= counts
+    hybrid_abs = phase_hybrid_kernels(torch, kernel, quant, dev,
+                                      sorted(hybrid_counts))
+    hybrid_times = phase_hybrid_times(
+        torch, kernel, dev, [(n, G, p, q, per, B)
+                             for n, G, p, q, per in HYBRID_SHAPES
+                             for B in HYBRID_TIME_ROWS])
+    hybrid_launches = {r["model"]: r["launches"] for r in hybrid_rows}
+
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
     report = {"kernels": [{
@@ -1157,11 +1477,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_matmul.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
         "launches": (serve_launches + train_launches["bc_matmul"]
-                     + paper_launches["bc_matmul"]),
+                     + paper_launches["bc_matmul"]
+                     + sum(hybrid_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["bc_matmul"],
-                             "paper": paper_launches["bc_matmul"]},
-        "max_abs_err": max(max_abs, paper_mm_abs),
+                             "paper": paper_launches["bc_matmul"],
+                             "hybrid": hybrid_launches["jamba-v0.1-52b"],
+                             "rwkv": hybrid_launches["rwkv6-7b"]},
+        "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1169,7 +1492,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
-        "all_shapes": rows + paper_times,
+        "all_shapes": rows + paper_times + hybrid_times,
     }, {
         "name": "bc_dw",
         "route": "cuda",
@@ -1191,7 +1514,7 @@ def main() -> int:
         "all_shapes": dw_rows + [paper_dw_row],
     }], "train": {"ms_per_step": train_ms,
                   "tokens_per_s": train_rows / train_ms * 1e3},
-        "paper": paper_rows + [paper_train]}
+        "paper": paper_rows + [paper_train], "hybrid": hybrid_rows}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

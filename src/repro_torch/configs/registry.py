@@ -1,5 +1,6 @@
 """--model registry: id -> (CONFIG, SMOKE). Only the archs the port
-serves so far are listed; the others join with their model families."""
+serves so far are listed, under the reference's names; the others join
+with their model families."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ __all__ = ["ARCHS", "get_config", "get_smoke"]
 
 ARCHS: Dict[str, str] = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 
 

@@ -4,7 +4,12 @@ The reference keeps a decoder's params as ``group{g}/l{i}/...`` with every
 leaf of a repeated group stacked on a leading ``repeat`` axis; the port
 keeps one module per layer under ``layers/<n>/...`` in execution order.
 Leaf keys are the same in both (``w``, ``wr``, ``wi``, ``w_scale``,
-``_fused``, ``scale``, ``table``, ...).
+``_fused``, ``scale``, ``table``, ``A_log``, ``mu``, ...). Groups of any
+period carry across (jamba's 32 layers are a 6-layer group repeated once
+and a 2-layer one at smoke size, an 8-layer group repeated 4 times at full
+size); a MoE layer's expert axis stays inside its leaves (``(E, p, q, k)``
+tables, ``(E, p, q)`` scales); top-level trees such as an untied
+``lm_head`` carry over as they are.
 
 :func:`from_reference` turns a reference tree given as nested dicts of
 numpy arrays into the port's tensor tree (install it with

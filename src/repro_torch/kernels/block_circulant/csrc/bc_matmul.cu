@@ -76,6 +76,12 @@
 //  * Tensor cores are not used: the per-bin product contracts only q terms
 //    per bin, and the f32 tolerance (2e-5 relative) rules out TF32. A
 //    3xTF32 split on mma.sync is a later option.
+//  * Groups: G independent products of one shape (a MoE layer's experts,
+//    the reference's `_bc_kernel` under `jax.vmap`) run as one launch with
+//    grid z = G. Block z offsets x, the tables, their scales, the bias and
+//    y by its group's stride and then runs the single-product code above
+//    unchanged; each group's geometry is the one product's. G = 1 is the
+//    single launch (z = 0, no offset).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -230,6 +236,14 @@ bc_matmul_kernel(const XT* __restrict__ x, const WT* __restrict__ wr,
   using F = Fft<kFFT ? kN : 1>;
   const int k = kFFT ? 2 * kN : k_rt;
   const int K = k / 2 + 1;
+  // this block's group: every per-group operand moves by its group stride
+  const long grp_z = blockIdx.z;
+  x += grp_z * B * Q * k;
+  wr += grp_z * P * Q * K;
+  wi += grp_z * P * Q * K;
+  if (scale != nullptr) scale += grp_z * P * Q;
+  if (bias != nullptr) bias += grp_z * P * k;
+  y += grp_z * B * P * k;
   const int S = kFFT ? kN : K;                // slots per transformed row
   const int RS = kFFT ? F::kRow : K;          // row stride, in complex
   const int tid = threadIdx.x;
@@ -492,8 +506,8 @@ template <typename XT, typename WT, int kN>
 int launch(const void* x, const void* wr, const void* wi, const void* scale,
            const void* bias, const void* tw, const void* C, const void* S,
            const void* Ci, const void* Si, void* y, int B, int P, int Q, int k,
-           int act, int R, int PG, int QC, int QG, int PI, int J, int smem,
-           cudaStream_t stream) {
+           int G, int act, int R, int PG, int QC, int QG, int PI, int J,
+           int smem, cudaStream_t stream) {
   // the caller's size (`_mm_smem_bytes`) must be this layout's, so the
   // geometry was chosen on the bytes the kernel really takes
   const Layout L(kN, Fft<(kN > 0 ? kN : 1)>::kRow, k, R, QC, QG, PI * J);
@@ -506,7 +520,7 @@ int launch(const void* x, const void* wr, const void* wi, const void* scale,
       bc_matmul_kernel<XT, WT, kN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + R - 1) / R, (P + PG - 1) / PG);
+  const dim3 grid((B + R - 1) / R, (P + PG - 1) / PG, G);
   bc_matmul_kernel<XT, WT, kN><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const WT*>(wr),
       static_cast<const WT*>(wi), static_cast<const float*>(scale),
@@ -523,11 +537,11 @@ template <typename XT, typename WT>
 int launch_k(const void* x, const void* wr, const void* wi, const void* sc,
              const void* bias, const void* tw, const void* C, const void* S,
              const void* Ci, const void* Si, void* y, int B, int P, int Q,
-             int k, int act, int R, int PG, int QC, int QG, int PI, int J,
-             int smem, cudaStream_t s) {
+             int k, int G, int act, int R, int PG, int QC, int QG, int PI,
+             int J, int smem, cudaStream_t s) {
 #define BC_LAUNCH(N)                                                        \
   launch<XT, WT, N>(x, wr, wi, sc, bias, tw, C, S, Ci, Si, y, B, P, Q, k,  \
-                    act, R, PG, QC, QG, PI, J, smem, s)
+                    G, act, R, PG, QC, QG, PI, J, smem, s)
   switch (k) {
     case 2: return BC_LAUNCH(1);
     case 4: return BC_LAUNCH(2);
@@ -543,11 +557,14 @@ int launch_k(const void* x, const void* wr, const void* wi, const void* sc,
 
 }  // namespace
 
-// Plain C entry point for ctypes. x_bf16: x and y are bf16 (else f32);
-// w_int8: wr/wi are int8 and `scale` (P, Q) f32 is required (else f32 and
-// `scale` must be null). `bias` may be null. Power-of-two k >= 2 takes the
-// FFT path and needs `tw` (k complex twiddles, `fft_twiddles`); any other
-// k takes the dense path and needs the bases C, S (k, K) and Ci, Si (K, k).
+// Plain C entry point for ctypes. `groups` G >= 1 products of one shape
+// run as one launch: x (G, B, Q·k), wr/wi (G, P, Q, K), scale (G, P, Q),
+// bias (G, P·k), y (G, B, P·k), each contiguous; G = 1 is one product.
+// x_bf16: x and y are bf16 (else f32); w_int8: wr/wi are int8 and `scale`
+// (G, P, Q) f32 is required (else f32 and `scale` must be null). `bias` may
+// be null. Power-of-two k >= 2 takes the FFT path and needs `tw` (k complex
+// twiddles, `fft_twiddles`), shared by the groups; any other k takes the
+// dense path and needs the bases C, S (k, K) and Ci, Si (K, k).
 // The geometry (rows, p_group, q_chunk, q_groups, p_inner, p_per_thread)
 // and the block's dynamic shared memory in bytes (`smem_bytes`, which must
 // equal `Layout`'s) come from `_mm_geometry`. Returns a CUDA error code (0
@@ -556,14 +573,15 @@ extern "C" int bc_matmul_forward(const void* x, const void* wr, const void* wi,
                                  const void* scale, const void* bias,
                                  const void* tw, const void* C, const void* S,
                                  const void* Ci, const void* Si, void* y,
-                                 int B, int P, int Q, int k, int x_bf16,
-                                 int w_int8, int act, int rows, int p_group,
-                                 int q_chunk, int q_groups, int p_inner,
-                                 int p_per_thread, int smem_bytes,
-                                 void* stream) {
+                                 int B, int P, int Q, int k, int groups,
+                                 int x_bf16, int w_int8, int act, int rows,
+                                 int p_group, int q_chunk, int q_groups,
+                                 int p_inner, int p_per_thread,
+                                 int smem_bytes, void* stream) {
   const bool fft = k >= 2 && (k & (k - 1)) == 0;
   const int slots = fft ? k / 2 : k / 2 + 1;
   if (B < 1 || P < 1 || Q < 1 || k < 1 || k > kMaxK || act < 0 || act > 4 ||
+      groups < 1 || groups > 65535 ||
       (w_int8 != 0) != (scale != nullptr) || rows < 1 || rows > kMaxRows ||
       p_group < 1 || q_chunk < 1 || q_chunk > Q || q_groups < 1 ||
       p_inner < 1 || p_per_thread < 1 || p_per_thread > kMaxJ ||
@@ -574,21 +592,16 @@ extern "C" int bc_matmul_forward(const void* x, const void* wr, const void* wi,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (w_int8)
-      return launch_k<__nv_bfloat16, int8_t>(
-          x, wr, wi, scale, bias, tw, C, S, Ci, Si, y, B, P, Q, k, act, rows,
-          p_group, q_chunk, q_groups, p_inner, p_per_thread, smem_bytes, s);
-    return launch_k<__nv_bfloat16, float>(
-        x, wr, wi, scale, bias, tw, C, S, Ci, Si, y, B, P, Q, k, act, rows,
-        p_group, q_chunk, q_groups, p_inner, p_per_thread, smem_bytes, s);
-  }
-  if (w_int8)
-    return launch_k<float, int8_t>(
-        x, wr, wi, scale, bias, tw, C, S, Ci, Si, y, B, P, Q, k, act, rows,
-        p_group, q_chunk, q_groups, p_inner, p_per_thread, smem_bytes, s);
-  return launch_k<float, float>(x, wr, wi, scale, bias, tw, C, S, Ci, Si, y,
-                                B, P, Q, k, act, rows, p_group, q_chunk,
-                                q_groups, p_inner, p_per_thread, smem_bytes,
-                                s);
+#define BC_ARGS                                                              \
+  x, wr, wi, scale, bias, tw, C, S, Ci, Si, y, B, P, Q, k, groups, act, rows, \
+      p_group, q_chunk, q_groups, p_inner, p_per_thread, smem_bytes, s
+  int rc;
+  if (x_bf16)
+    rc = w_int8 ? launch_k<__nv_bfloat16, int8_t>(BC_ARGS)
+                : launch_k<__nv_bfloat16, float>(BC_ARGS);
+  else
+    rc = w_int8 ? launch_k<float, int8_t>(BC_ARGS)
+                : launch_k<float, float>(BC_ARGS);
+#undef BC_ARGS
+  return rc;
 }

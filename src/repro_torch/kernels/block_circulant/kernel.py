@@ -16,7 +16,9 @@ two: a CUDA tensor a kernel cannot take raises.
 Each kernel's launch geometry comes from the shapes alone.
 ``bc_matmul``'s (:func:`_mm_geometry`): rows per block, output blocks per
 block, the q chunk held in shared memory and the split of the q sum among
-a block's threads. ``bc_dw``'s (:func:`_dw_geometry`): the (p, q) tile of
+a block's threads; a grouped launch (a leading axis of G products of one
+shape, a MoE layer's experts) runs G copies of that geometry, one per grid
+z index. ``bc_dw``'s (:func:`_dw_geometry`): the (p, q) tile of
 a block and its threads, the row splits across blocks and the rows staged
 per chunk. For a power-of-two k both kernels transform with the four-step
 real FFT of ``csrc/bc_fft.cuh`` in shared memory, whose twiddles come from
@@ -112,7 +114,17 @@ def bc_matmul_plain(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     """Plain PyTorch version of the kernel: rDFT of x as a matmul with
     C/S, per-bin complex GEMM over q in f32, inverse through Ci/Si, bias,
     activation, cast to x's dtype. int8 tables (``w_scale``) dequantize
-    with :func:`dequantize_symmetric` first."""
+    with :func:`dequantize_symmetric` first. Grouped (4-D tables ``(G, p,
+    q, K)``, x ``(G, B, q·k)``, scales ``(G, p, q)``, bias ``(G, p·k)``):
+    one call per group, stacked."""
+    if wr.dim() == 4:
+        def pick(t, g):
+            return None if t is None else t[g]
+
+        return torch.stack([
+            bc_matmul_plain(x2d[g], wr[g], wi[g], pick(bias, g),
+                            pick(w_scale, g), k=k, activation=activation)
+            for g in range(wr.shape[0])])
     B = x2d.shape[0]
     p, q, K = wr.shape
     C, S, Ci, Si = dft_bases(k, device=x2d.device)
@@ -217,7 +229,7 @@ def build() -> Dict[str, Tuple[Path, str]]:
 # ctypes signatures of the C entry points: (pointer args, int args); every
 # entry point takes the stream last and returns a CUDA error code
 _ENTRY_POINTS = {
-    "bc_matmul": ("bc_matmul_forward", 11, 14),
+    "bc_matmul": ("bc_matmul_forward", 11, 15),
     "bc_dw": ("bc_dw_launch", 8, 14),
 }
 
@@ -349,30 +361,47 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# most groups of one launch: the grid's z dimension
+_MAX_GROUPS = 65535
+
+
 def _check_cuda_args(x2d, wr, wi, bias, w_scale, k):
-    if x2d.dim() != 2 or x2d.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be 2-D f32 or bf16, got {tuple(x2d.shape)} "
-                         f"{x2d.dtype}")
-    if wr.dim() != 3 or wr.shape != wi.shape or wr.dtype != wi.dtype:
-        raise ValueError(f"wr/wi must share one (p, q, K) shape and dtype, "
-                         f"got {tuple(wr.shape)} {wr.dtype} / "
-                         f"{tuple(wi.shape)} {wi.dtype}")
-    p, q, K = wr.shape
+    """Shapes, types, devices and layout of a launch; returns its group
+    count G (1 for 2-D x and 3-D tables; the leading axis of 3-D x and
+    4-D tables)."""
+    grouped = wr.dim() == 4
+    lead = wr.shape[:1] if grouped else ()
+    if x2d.dim() != 2 + grouped or x2d.dtype not in (torch.float32,
+                                                     torch.bfloat16):
+        raise ValueError(f"x must be {2 + grouped}-D f32 or bf16, got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    if (wr.dim() not in (3, 4) or wr.shape != wi.shape
+            or wr.dtype != wi.dtype):
+        raise ValueError(f"wr/wi must share one (p, q, K) or (G, p, q, K) "
+                         f"shape and dtype, got {tuple(wr.shape)} {wr.dtype} "
+                         f"/ {tuple(wi.shape)} {wi.dtype}")
+    p, q, K = wr.shape[-3:]
+    G = wr.shape[0] if grouped else 1
+    if not 1 <= G <= _MAX_GROUPS or x2d.shape[:-2] != lead:
+        raise ValueError(f"groups: x {tuple(x2d.shape)} against tables "
+                         f"{tuple(wr.shape)}; the kernel takes 1 <= G <= "
+                         f"{_MAX_GROUPS} groups, one per table")
     if not 1 <= k <= _MAX_K or K != k // 2 + 1:
         raise ValueError(f"block size k={k} with K={K}: the kernel takes "
                          f"1 <= k <= {_MAX_K} and K = k//2+1")
-    if x2d.shape[1] != q * k:
-        raise ValueError(f"x width {x2d.shape[1]} != q*k = {q * k}")
+    if x2d.shape[-1] != q * k:
+        raise ValueError(f"x width {x2d.shape[-1]} != q*k = {q * k}")
     if wr.dtype == torch.int8:
-        if w_scale is None or w_scale.shape != (p, q) \
+        if w_scale is None or w_scale.shape != lead + (p, q) \
                 or w_scale.dtype != torch.float32:
-            raise ValueError("int8 tables need a (p, q) f32 w_scale")
+            raise ValueError(f"int8 tables need a {lead + (p, q)} f32 "
+                             f"w_scale")
     elif wr.dtype != torch.float32 or w_scale is not None:
         raise ValueError(f"tables must be f32 (no w_scale) or int8 "
                          f"(with w_scale), got {wr.dtype}")
-    if bias is not None and (bias.shape != (p * k,)
+    if bias is not None and (bias.shape != lead + (p * k,)
                              or bias.dtype != torch.float32):
-        raise ValueError(f"bias must be ({p * k},) f32, got "
+        raise ValueError(f"bias must be {lead + (p * k,)} f32, got "
                          f"{tuple(bias.shape)} {bias.dtype}")
     for name, t in (("x", x2d), ("wr", wr), ("wi", wi), ("bias", bias),
                     ("w_scale", w_scale)):
@@ -382,6 +411,7 @@ def _check_cuda_args(x2d, wr, wi, bias, w_scale, k):
             raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return G
 
 
 def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
@@ -392,8 +422,11 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
     ``bias`` (p·k,) f32 and ``activation`` run in the kernel's epilogue;
     ``w_scale`` (p, q) f32 marks wr/wi as int8 tables dequantized in the
-    kernel. CPU tensors take :func:`bc_matmul_plain`; CUDA tensors launch
-    the kernel on the current stream or raise.
+    kernel. Grouped: x (G, B, q·k), tables (G, p, q, K), ``w_scale`` (G, p,
+    q), ``bias`` (G, p·k) -> y (G, B, p·k), G products in ONE launch (the
+    reference's ``_bc_kernel`` under ``jax.vmap``). CPU tensors take
+    :func:`bc_matmul_plain`; CUDA tensors launch the kernel on the current
+    stream or raise.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(
@@ -403,10 +436,11 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                                activation=activation)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"bc_matmul runs on cuda or cpu, not {x2d.device}")
-    _check_cuda_args(x2d, wr, wi, bias, w_scale, k)
-    B = x2d.shape[0]
-    p, q, _ = wr.shape
-    y = torch.empty((B, p * k), dtype=x2d.dtype, device=x2d.device)
+    G = _check_cuda_args(x2d, wr, wi, bias, w_scale, k)
+    B = x2d.shape[-2]
+    p, q, _ = wr.shape[-3:]
+    y = torch.empty(x2d.shape[:-1] + (p * k,), dtype=x2d.dtype,
+                    device=x2d.device)
     if B == 0:
         return y
     launch = _entry("bc_matmul")
@@ -417,7 +451,7 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = launch(
             _ptr(x2d), _ptr(wr), _ptr(wi), _ptr(w_scale), _ptr(bias),
-            _ptr(tw), *map(_ptr, bases), _ptr(y), B, p, q, k,
+            _ptr(tw), *map(_ptr, bases), _ptr(y), B, p, q, k, G,
             int(x2d.dtype == torch.bfloat16), int(wr.dtype == torch.int8),
             ACTIVATIONS.index(activation), g.rows, g.p_group, g.q_chunk,
             g.q_groups, g.p_inner, g.p_per_thread, g.smem_bytes, stream)

@@ -9,6 +9,12 @@ the per-call ``rfft(w)`` — the paper's resident FFT(w) inference path.
 ``block_circulant_matmul_multi`` stacks several projections that share one
 input (attention QKV, LSTM gates) along p and runs them as one launch.
 
+Stacked tables (a leading group axis: a MoE layer's experts, ``(G, p, q,
+k)`` or frozen ``(G, p, q, K)``) take x ``(G, ..., q·k)`` and run all G
+products in one grouped kernel launch, the reference's kernel under
+``jax.vmap``. That path is for serving: it refuses gradients (training the
+MoE families is a later slice).
+
 Gradients are the reference's closed-form circulant adjoints
 (``repro/kernels/block_circulant/ops.py``), as ``torch.autograd.Function``s
 whose backward launches the kernels on the card and runs their plain
@@ -221,17 +227,19 @@ def block_circulant_matmul(
     f32 marks int8 frozen tables. ``q``, the number of input blocks, is
     checked against the tables: the port stores them unpadded, so it must
     equal their q (the reference also takes a smaller q for tile-padded
-    plan tables, which the port does not have).
+    plan tables, which the port does not have). Stacked tables (G, p, q,
+    ·) with ``w_scale`` (G, p, q) and ``bias`` (G, p·k) take x (G, ...,
+    q·k): one grouped launch, no gradient (:func:`_grouped_matmul`).
     """
     if w_scale is not None and w_freq is None:
         raise ValueError("w_scale only applies to frozen w_freq tables")
     if w_freq is not None:
         wr, wi = w_freq
-        p, tq = wr.shape[0], wr.shape[1]
+        p, tq = wr.shape[-3], wr.shape[-2]
         if k is None:
             k = 2 * (wr.shape[-1] - 1) if w is None else w.shape[-1]
     else:
-        p, tq, k = w.shape
+        p, tq, k = w.shape[-3:]
     if q is not None and int(q) != tq:
         raise ValueError(
             f"q={q} but the tables hold {tq} input blocks: the port's "
@@ -242,6 +250,8 @@ def block_circulant_matmul(
             f"x feature dim {x.shape[-1]} is incompatible with block "
             f"tables (q={q}, k={k}): expected exactly q*k={q * k}")
     k = int(k)
+    if (w_freq[0] if w_freq is not None else w).dim() == 4:
+        return _grouped_matmul(x, w, bias, activation, w_freq, w_scale, k)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     b = None if bias is None else bias.reshape(-1).float().contiguous()
@@ -256,6 +266,26 @@ def block_circulant_matmul(
              else _BCFreq2d.apply(x2d, wr, wi, b, k))
         y = apply_activation(z, activation).to(x.dtype)
     return y.reshape(*lead, p * k)
+
+
+def _grouped_matmul(x, w, bias, activation, w_freq, w_scale, k):
+    """G stacked products, x (G, ..., q·k) -> (G, ..., p·k), in one grouped
+    ``bc_matmul`` launch (its plain version on the CPU)."""
+    if _records_grad(x, w, bias, w_scale, *(w_freq or ())):
+        raise NotImplementedError(
+            "stacked (expert) block-circulant tables run the grouped "
+            "serving launch, which carries no gradient; training the MoE "
+            "families is not ported yet (run under torch.no_grad)")
+    G = (w_freq[0] if w_freq is not None else w).shape[0]
+    if x.dim() < 2 or x.shape[0] != G:
+        raise ValueError(f"x {tuple(x.shape)} must lead with the tables' "
+                         f"{G} groups")
+    wr, wi = w_freq if w_freq is not None else freq_weights(w)
+    p = wr.shape[-3]
+    b = None if bias is None else bias.reshape(G, -1).float().contiguous()
+    y = bc_matmul(x.reshape(G, -1, x.shape[-1]).contiguous(), wr, wi, b,
+                  w_scale, k=k, activation=activation)
+    return y.reshape(*x.shape[:-1], p * k)
 
 
 def block_circulant_matmul_multi(

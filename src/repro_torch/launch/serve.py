@@ -4,6 +4,9 @@ serves batched requests through the continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --model qwen3-0.6b \
         --batch 4 --cache-len 128
 
+``--model`` takes every id in ``configs/registry.ARCHS``: qwen3-0.6b and
+the recurrent hybrids jamba-v0.1-52b and rwkv6-7b, which the engine serves
+through ``RecurrentRunner`` (``serve/runner.make_runner``).
 The circulant implementation (``impl``) comes from the config. The engine
 freezes the frequency tables once at load, rounds prefill launches to
 (batch-bucket, prompt-bucket) shapes and compacts decode launches to the

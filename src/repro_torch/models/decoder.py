@@ -1,15 +1,22 @@
-"""HybridDecoderLM — the decoder-only backbone (attention mixers, dense FFN).
+"""HybridDecoderLM — the decoder-only backbone for the LM-family archs.
+
+Covers dense transformers (qwen3), Mamba + attention hybrids with MoE
+every other layer (jamba) and attention-free RWKV-6 (rwkv6): the mixers
+``attn``, ``mamba`` and ``rwkv``, the FFNs ``dense``, ``moe`` and
+``dense+moe`` (rwkv layers take the RWKV channel mix), tied or untied
+logits heads.
 
 The reference stacks each layer group's params on a leading ``repeat``
 axis and runs the group with ``lax.scan``; the port keeps one
 :class:`DecoderLayer` module per layer (``layers.<i>``, in execution order)
-and runs them in a Python loop. Caches are a list with one
-``{"k", "v", "pos"}`` dict per layer, slot axis 0. Under autograd with
+and runs them in a Python loop. Caches are a list with one dict per layer,
+slot axis 0: ``{"k", "v", "pos"}`` for attention, ``{"conv", "ssm"}`` for
+Mamba, ``{"shift_att", "shift_ffn", "wkv"}`` for RWKV. Under autograd with
 ``cfg.remat != "none"`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), as the reference's per-layer
 ``jax.checkpoint``: only the residual stream between layers stays live.
-Other mixers (mamba, rwkv, local attention), MoE FFNs and untied logits
-heads raise until their slices are ported.
+Local (sliding-window) and prefix-LM attention raise until their slices
+are ported.
 """
 
 from __future__ import annotations
@@ -25,121 +32,212 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.attention import Attention, init_kv_cache
 from repro_torch.nn.ffn import SwiGLU
 from repro_torch.nn.layers import Embedding, RMSNorm
+from repro_torch.nn.linear import Linear
+from repro_torch.nn.moe import MoE
+from repro_torch.nn.rwkv import (RWKV6ChannelMix, RWKV6TimeMix,
+                                 init_rwkv_cache)
+from repro_torch.nn.ssm import Mamba, init_mamba_cache
 
 __all__ = ["HybridDecoderLM", "DecoderLayer"]
 
+RECURRENT_MIXERS = ("mamba", "rwkv")
+
+
+def _mixer(cfg: ModelConfig, kind: str) -> nn.Module:
+    if kind == "attn":
+        return Attention(cfg)
+    if kind == "mamba":
+        return Mamba(cfg)
+    if kind == "rwkv":
+        return RWKV6TimeMix(cfg)
+    if kind == "attn_local":
+        raise NotImplementedError("local (sliding-window) attention is not "
+                                  "ported yet")
+    raise ValueError(f"unknown mixer {kind!r}")
+
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: ``x += mixer(ln1(x)); x += ffn(ln2(x))``."""
+    """Pre-norm block: ``x += mixer(ln1(x)); x += ffn(ln2(x))``, the FFN
+    being the dense FFN, the MoE or their sum (``dense+moe``)."""
 
     def __init__(self, cfg: ModelConfig, lspec: LayerSpec):
         super().__init__()
-        if lspec.mixer != "attn":
-            raise NotImplementedError(
-                f"mixer {lspec.mixer!r} is not ported yet (attn only)")
-        if lspec.ffn != "dense":
-            raise NotImplementedError(
-                f"ffn {lspec.ffn!r} is not ported yet (dense only)")
+        self.mixer_kind = lspec.mixer
         self.add_module("ln1", RMSNorm(cfg.d_model))
-        self.add_module("mixer", Attention(cfg))
+        self.add_module("mixer", _mixer(cfg, lspec.mixer))
         self.add_module("ln2", RMSNorm(cfg.d_model))
-        self.add_module("ffn_dense", SwiGLU(cfg.d_model, cfg.d_ff,
-                                            swm=cfg.swm,
-                                            dtype=cfg.param_dtype))
+        if lspec.mixer == "rwkv":
+            self.add_module("ffn_dense", RWKV6ChannelMix(cfg))
+            return
+        if lspec.ffn not in ("dense", "moe", "dense+moe"):
+            raise ValueError(f"unknown ffn {lspec.ffn!r}")
+        if lspec.ffn in ("dense", "dense+moe"):
+            self.add_module("ffn_dense", SwiGLU(cfg.d_model, cfg.d_ff,
+                                                swm=cfg.swm,
+                                                dtype=cfg.param_dtype))
+        if lspec.ffn in ("moe", "dense+moe"):
+            self.add_module("ffn_moe", MoE(
+                cfg.d_model, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts,
+                cfg.n_experts_per_token, cfg.capacity_factor, swm=cfg.swm,
+                dtype=cfg.param_dtype))
 
     def specs(self):
-        return {n: self._modules[n].specs()
-                for n in ("ln1", "mixer", "ln2", "ffn_dense")}
+        return {n: mod.specs() for n, mod in self._modules.items()}
 
-    def forward(self, x, positions, cache=None):
+    def init_cache(self, cfg: ModelConfig, batch: int, cache_len: int,
+                   device) -> dict:
+        kind = self.mixer_kind
+        if kind == "attn":
+            return init_kv_cache(batch, cache_len, cfg.n_kv_heads,
+                                 cfg.head_dim, cfg.dtype, device)
+        if kind == "mamba":
+            m = self._modules["mixer"]
+            return init_mamba_cache(batch, m.d_inner, cfg.mamba_d_state,
+                                    cfg.mamba_d_conv, cfg.dtype, device)
+        return init_rwkv_cache(batch, cfg.d_model,
+                               cfg.d_model // cfg.rwkv_head_dim,
+                               cfg.rwkv_head_dim, cfg.dtype, device)
+
+    def forward(self, x, positions, cache=None, mask=None,
+                moe_no_drop: bool = False):
+        """(x, cache, aux): the cache, when given, is updated in place;
+        ``aux`` is the MoE load-balance loss (0 without MoE). ``mask``
+        (the validity of each position) goes to the recurrent mixers and
+        the RWKV channel mix only: attention masks pads through negative
+        positions."""
         m = self._modules
-        mo, cache = m["mixer"](m["ln1"](x), positions, cache=cache)
+        h = m["ln1"](x)
+        if self.mixer_kind == "attn":
+            mo, _ = m["mixer"](h, positions, cache=cache)
+        else:
+            mo, _ = m["mixer"](h, cache=cache, mask=mask)
         x = x + mo
-        x = x + m["ffn_dense"](m["ln2"](x))
-        return x, cache
+        h = m["ln2"](x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        out = None
+        if "ffn_dense" in m:
+            if self.mixer_kind == "rwkv":
+                out, _ = m["ffn_dense"](h, cache=cache, mask=mask)
+            else:
+                out = m["ffn_dense"](h)
+        if "ffn_moe" in m:
+            fo, a = m["ffn_moe"](h, no_drop=moe_no_drop)
+            out = fo if out is None else out + fo
+            aux = aux + a
+        return x + out, cache, aux
 
 
 def _layer_out(layer: DecoderLayer, x, positions):
-    return layer(x, positions)[0]
+    x, _, aux = layer(x, positions)
+    return x, aux
 
 
 class HybridDecoderLM(nn.Module):
-    """Embedding, per-layer blocks, final norm, tied logits head.
+    """Embedding, per-layer blocks, final norm, tied or untied logits head.
     Tensors are installed with ``nn.module.load_tree``; ``device`` is where
     caches are allocated (default ``"cuda"``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied logits heads are not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.add_module("embed", Embedding(cfg.vocab, cfg.d_model,
                                            dtype=cfg.param_dtype))
         self.add_module("final_norm", RMSNorm(cfg.d_model))
+        if not cfg.tie_embeddings:
+            # family "head" is not a circulant target: a dense (d, V) table
+            self.add_module("lm_head", Linear(cfg.d_model, cfg.vocab,
+                                              family="head", swm=cfg.swm,
+                                              dtype=cfg.param_dtype))
         self.add_module("layers", nn.ModuleList(
             DecoderLayer(cfg, lspec) for lspec in cfg.layer_specs()))
 
     def specs(self):
-        return {
-            "embed": self._modules["embed"].specs(),
-            "final_norm": self._modules["final_norm"].specs(),
-            "layers": {str(i): layer.specs()
-                       for i, layer in enumerate(self._modules["layers"])},
-        }
+        out = {n: self._modules[n].specs()
+               for n in ("embed", "final_norm", "lm_head")
+               if n in self._modules}
+        out["layers"] = {str(i): layer.specs()
+                         for i, layer in enumerate(self._modules["layers"])}
+        return out
+
+    def has_recurrent(self) -> bool:
+        """True when any layer carries recurrent (mamba/rwkv) state."""
+        return any(layer.mixer_kind in RECURRENT_MIXERS
+                   for layer in self._modules["layers"])
 
     def init_cache(self, batch: int, cache_len: int) -> List[dict]:
-        cfg = self.cfg
-        return [init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
-                              cfg.dtype, self.device)
-                for _ in self._modules["layers"]]
+        return [layer.init_cache(self.cfg, batch, cache_len, self.device)
+                for layer in self._modules["layers"]]
 
-    def forward(self, tokens: torch.Tensor, *,
-                positions: Optional[torch.Tensor] = None,
-                cache: Optional[List[dict]] = None,
-                logits_mode: str = "all"):
-        """tokens (B, S) -> (logits, cache). ``positions`` (B, S) default
-        to ``0..S-1``; negative positions (left-pad lanes) are masked out
-        of attention. ``logits_mode`` 'all' | 'last' (only the final
-        position goes through the head) | 'none' (the final hidden states
-        instead of logits, for the chunked training loss). The cache, when
-        given, is updated in place."""
-        if logits_mode not in ("all", "last", "none"):
-            raise ValueError(f"logits_mode {logits_mode!r}: all | last | none")
+    def _trunk(self, tokens, positions, cache, moe_no_drop):
+        """Embedding, every layer and the final norm: (hidden, aux)."""
         x = self._modules["embed"].encode(tokens)
         B, S, _ = x.shape
+        # the serve engine's left-pad lanes carry negative positions; the
+        # recurrent mixers take their validity as a mask
+        mask = (positions >= 0 if positions is not None
+                and self.has_recurrent() else None)
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
         remat = (self.cfg.remat != "none" and cache is None
                  and torch.is_grad_enabled())
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self._modules["layers"]):
             if remat:
-                x = checkpoint(_layer_out, layer, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(_layer_out, layer, x, positions,
+                                  use_reentrant=False)
             else:
-                x, _ = layer(x, positions,
-                             None if cache is None else cache[i])
-        x = self._modules["final_norm"](x)
+                x, _, a = layer(x, positions,
+                                None if cache is None else cache[i], mask,
+                                moe_no_drop)
+            aux = aux + a
+        return self._modules["final_norm"](x), aux
+
+    def forward(self, tokens: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[List[dict]] = None,
+                logits_mode: str = "all", moe_no_drop: bool = False):
+        """tokens (B, S) -> (logits, cache). ``positions`` (B, S) default
+        to ``0..S-1``; negative positions (left-pad lanes) are masked out
+        of attention, and when given on a model with recurrent mixers their
+        validity ``positions >= 0`` keeps pad lanes out of every recurrent
+        state. ``logits_mode`` 'all' | 'last' (only the final position
+        goes through the head) | 'none' (the final hidden states instead
+        of logits, for the chunked training loss). ``moe_no_drop=True`` is
+        the serving MoE dispatch. The cache, when given, is updated in
+        place."""
+        if logits_mode not in ("all", "last", "none"):
+            raise ValueError(f"logits_mode {logits_mode!r}: all | last | none")
+        x, _ = self._trunk(tokens, positions, cache, moe_no_drop)
         if logits_mode == "none":
             return x, cache
         if logits_mode == "last":
             x = x[:, -1:]
-        return self._modules["embed"].decode(x), cache
+        return self._logits(x), cache
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits: the tied embedding, or the untied head in f32."""
+        if self.cfg.tie_embeddings:
+            return self._modules["embed"].decode(x)
+        return x.float() @ self._modules["lm_head"]._buffers["w"].float()
 
     def forward_hidden(self, tokens: torch.Tensor):
         """Final hidden states for chunked-loss training: (hidden (B, S,
-        D), aux), aux being the MoE auxiliary loss (0: no MoE layers)."""
-        h, _ = self.forward(tokens, logits_mode="none")
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        D), aux), aux being the summed MoE auxiliary loss (0 without
+        MoE)."""
+        return self._trunk(tokens, None, None, False)
 
     def output_table(self) -> torch.Tensor:
-        """(V, D) matrix the chunked loss uses: the tied embedding."""
-        return self._modules["embed"]._buffers["table"]
+        """(V, D) matrix the chunked loss uses: the tied embedding or the
+        untied head's transpose."""
+        if self.cfg.tie_embeddings:
+            return self._modules["embed"]._buffers["table"]
+        return self._modules["lm_head"]._buffers["w"].T
 
-    def decode_step(self, tokens, cache, pos):
+    def decode_step(self, tokens, cache, pos, moe_no_drop: bool = False):
         """One-token decode: tokens (B, 1), pos (B,) -> (logits (B, V),
         cache)."""
         logits, cache = self.forward(tokens, positions=pos[:, None].to(
-            torch.int32), cache=cache)
+            torch.int32), cache=cache, moe_no_drop=moe_no_drop)
         return logits[:, -1], cache

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -14,13 +14,18 @@ __all__ = ["SwiGLU", "MLP"]
 
 
 class SwiGLU(nn.Module):
-    """wo( silu(wi(x)) * wu(x) ) — llama/gemma/qwen FFN."""
+    """wo( silu(wi(x)) * wu(x) ) — llama/gemma/qwen FFN.
+
+    ``expert_dims=(E,)`` holds E experts' tables stacked (a MoE layer's
+    ``experts``): x (E, C, d) -> (E, C, d), expert e on rows x[e], as
+    three grouped launches (wi, wu, wo) on the kernel impl."""
 
     def __init__(self, d_model: int, d_ff: int,
                  swm: Optional[SWMConfig] = None, family: str = "ffn",
-                 dtype: str = "bfloat16"):
+                 dtype: str = "bfloat16", expert_dims: Tuple[int, ...] = ()):
         super().__init__()
-        kw = dict(family=family, swm=swm, dtype=dtype)
+        kw = dict(family=family, swm=swm, dtype=dtype,
+                  expert_dims=expert_dims)
         self.add_module("wi", Linear(d_model, d_ff, **kw))
         self.add_module("wu", Linear(d_model, d_ff, **kw))
         self.add_module("wo", Linear(d_ff, d_model, **kw))

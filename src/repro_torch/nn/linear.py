@@ -5,11 +5,17 @@ size > 1, the parameter is the (p, q, k) circulant block table ``w``
 instead of the (in, out) dense kernel. After ``plan.freeze_params`` the
 module holds the frozen frequency tables ``wr``/``wi`` (and int8
 ``w_scale``) instead, and takes the no-rfft path.
+
+``expert_dims=(E,)`` stacks E projections of one shape (a MoE layer's
+experts): every table gains a leading ``E`` axis and the forward maps x
+``(E, ..., in)`` to ``(E, ..., out)``, expert e through table e. On the
+kernel impl that is one grouped launch; other impls and dense experts run
+the same per-expert math the reference's ``jax.vmap`` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,16 +31,22 @@ __all__ = ["Linear"]
 class Linear(nn.Module):
     """A projection ``(..., in_dim) -> (..., out_dim)``.
 
-    family: 'attn' | 'ffn' | ... — decides SWM applicability.
+    family: 'attn' | 'ffn' | 'expert' | 'router' | 'head' | ... — decides
+    SWM applicability. expert_dims: leading expert axes, () or (E,).
     """
 
     def __init__(self, in_dim: int, out_dim: int, *, family: str = "ffn",
-                 swm: Optional[SWMConfig] = None, dtype: str = "bfloat16"):
+                 swm: Optional[SWMConfig] = None, dtype: str = "bfloat16",
+                 expert_dims: Tuple[int, ...] = ()):
         super().__init__()
         self.in_dim, self.out_dim = int(in_dim), int(out_dim)
         self.family = family
         self.swm = swm if swm is not None else SWMConfig()
         self.dtype = dtype
+        self.expert_dims = tuple(int(e) for e in expert_dims)
+        if len(self.expert_dims) > 1:
+            raise ValueError(f"expert_dims {expert_dims}: one expert axis "
+                             f"at most")
 
     @property
     def block_size(self) -> int:
@@ -49,20 +61,26 @@ class Linear(nn.Module):
 
     @property
     def n_params(self) -> int:
-        """Stored weights: in·out/k circulant, in·out dense."""
+        """Stored weights: in·out/k circulant, in·out dense (per expert,
+        times the experts)."""
         k = self.block_size
-        return self.in_dim * self.out_dim // k
+        n = self.in_dim * self.out_dim // k
+        for e in self.expert_dims:
+            n *= e
+        return n
 
     def specs(self):
         k = self.block_size
+        lead = self.expert_dims
         # variance-preserving init: var(w) = 1/in_dim on both layouts
         std = self.in_dim ** -0.5
         if k > 1:
             p, q = self.out_dim // k, self.in_dim // k
-            w = ParamSpec((p, q, k), self.dtype, scale=std,
+            w = ParamSpec(lead + (p, q, k), self.dtype, scale=std,
                           tags=("circulant",))
         else:
-            w = ParamSpec((self.in_dim, self.out_dim), self.dtype, scale=std)
+            w = ParamSpec(lead + (self.in_dim, self.out_dim), self.dtype,
+                          scale=std)
         return {"w": w}
 
     def frozen_freq(self, params=None):
@@ -88,11 +106,31 @@ class Linear(nn.Module):
         fixed-point copies of their tables this way)."""
         b = self._buffers if params is None else params
         if self.is_circulant:
+            if self.expert_dims and self.swm.impl != "pallas":
+                return self._per_expert(x, b, bias, activation)
             return circ.block_circulant_apply_fused(
                 x, b.get("w"), impl=self.swm.impl, bias=bias,
                 activation=activation, w_freq=self.frozen_freq(b),
                 w_scale=self.frozen_scale(b), k=self.block_size)
-        y = x @ b["w"].to(x.dtype)
+        w = b["w"].to(x.dtype)
+        if self.expert_dims:       # x (E, ..., in) @ w (E, in, out)
+            w = w.reshape(w.shape[:1] + (1,) * (x.dim() - 3) + w.shape[1:])
+        y = x @ w
         if bias is not None:
             y = y + bias.to(y.dtype)
         return apply_activation(y, activation)
+
+    def _per_expert(self, x, b, bias, activation):
+        """Stacked circulant tables on an impl without a grouped launch:
+        expert e's slice through the single-projection path, stacked."""
+        def pick(t, e):
+            return None if t is None else t[e]
+
+        wf, sc = self.frozen_freq(b), self.frozen_scale(b)
+        return torch.stack([
+            circ.block_circulant_apply_fused(
+                x[e], pick(b.get("w"), e), impl=self.swm.impl,
+                bias=pick(bias, e), activation=activation,
+                w_freq=None if wf is None else (wf[0][e], wf[1][e]),
+                w_scale=pick(sc, e), k=self.block_size)
+            for e in range(self.expert_dims[0])])

@@ -40,7 +40,11 @@ class ParamSpec:
     """Declaration of a single parameter tensor.
 
     shape: full shape. dtype: storage dtype. init: "normal" | "zeros" |
-    "ones". scale: std of "normal". tags: markers read by tooling
+    "ones" | "uniform" | "mamba_a_log". scale: std of "normal", bound of
+    "uniform" (values in [-scale, scale)). "mamba_a_log" is Mamba's S4D-real
+    rule, ``log(1..d_state)`` broadcast over the shape's last axis (the
+    reference's ``A_log`` initializer); it takes no randomness, and a random
+    ``A_log`` lets the state diverge. tags: markers read by tooling
     ("circulant" lets ``plan.freeze_params`` find SWM tables).
     """
 
@@ -64,6 +68,14 @@ class ParamSpec:
             x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
                             device=device)
             return (x * self.scale).to(self.dtype)
+        if self.init == "uniform":
+            x = torch.rand(self.shape, generator=gen, dtype=torch.float32,
+                           device=device)
+            return ((2.0 * x - 1.0) * self.scale).to(self.dtype)
+        if self.init == "mamba_a_log":
+            a = torch.arange(1, self.shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            return torch.log(a).expand(self.shape).to(self.dtype).clone()
         raise ValueError(f"unknown init {self.init!r}")
 
 

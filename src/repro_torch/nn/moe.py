@@ -1,0 +1,119 @@
+"""Mixture-of-Experts with scatter-based capacity dispatch (GShard-style).
+
+The reference's ``repro.nn.moe.MoE``, line for line: an f32 softmax router
+(a dense GEMM, never circulant), top-k with renormalised gates, each
+(token, slot)'s position in its expert's capacity from a stable sort, a
+scatter into an ``(E, C, d)`` buffer, the experts as one stacked
+:class:`SwiGLU` (three grouped ``bc_matmul`` launches on the kernel impl,
+where the reference ``jax.vmap``s one expert), then a gather and the
+gate-weighted combine, and the Switch load-balance aux loss.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import SWMConfig
+from repro_torch.nn.ffn import SwiGLU
+from repro_torch.nn.linear import Linear
+
+__all__ = ["MoE", "top_k_lower_index"]
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row and their indices, exact ties
+    broken toward the lower index as ``lax.top_k`` breaks them (a stable
+    descending sort keeps tied entries in index order; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoE(nn.Module):
+    """x (B, S, d) -> (y (B, S, d), aux scalar f32). Children ``router``
+    (dense f32 ``(d, E)``) and ``experts`` (SwiGLU stacked over E)."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25,
+                 swm: Optional[SWMConfig] = None, dtype: str = "bfloat16"):
+        super().__init__()
+        self.d_model, self.d_ff = int(d_model), int(d_ff)
+        self.n_experts, self.top_k = int(n_experts), int(top_k)
+        self.capacity_factor = float(capacity_factor)
+        self.add_module("router", Linear(d_model, n_experts, family="router",
+                                         swm=swm, dtype="float32"))
+        self.add_module("experts", SwiGLU(d_model, d_ff, swm=swm,
+                                          family="expert", dtype=dtype,
+                                          expert_dims=(n_experts,)))
+
+    def specs(self):
+        return {n: self._modules[n].specs() for n in ("router", "experts")}
+
+    def capacity(self, n_tokens: int, no_drop: bool) -> int:
+        """Slots per expert: N under ``no_drop`` (a token's top-k experts
+        are distinct, so no expert receives more than N), else the
+        capacity-factor share, at least 1 and at most N."""
+        if no_drop:
+            return n_tokens
+        c = max(1, int(n_tokens * self.top_k / self.n_experts
+                       * self.capacity_factor))
+        return min(c, n_tokens)
+
+    def forward(self, x: torch.Tensor, no_drop: bool = False):
+        """``no_drop=True`` is the serving dispatch: nothing is dropped, so
+        each token's output depends on its own row only, whatever the batch
+        composition and bucket padding. Training keeps the capacity drop
+        path, which the aux loss is tuned against."""
+        B, S, d = x.shape
+        E, T = self.n_experts, self.top_k
+        N = B * S
+        xt = x.reshape(N, d)
+
+        logits = self._modules["router"](xt).float()              # (N, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate, expert_idx = top_k_lower_index(probs, T)              # (N, T)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        C = self.capacity(N, no_drop)
+
+        # position of each (token, slot) within its expert's capacity:
+        # stable sort by expert, rank inside the expert's segment
+        flat_e = expert_idx.reshape(-1)                            # (N·T,)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        seg_start = torch.searchsorted(
+            sorted_e, torch.arange(E, device=x.device))            # (E,)
+        pos_sorted = (torch.arange(N * T, device=x.device)
+                      - seg_start[sorted_e])
+        pos = torch.zeros(N * T, dtype=torch.long, device=x.device)
+        pos[order] = pos_sorted
+        pos = pos.reshape(N, T)
+        keep = pos < C
+        pos = torch.where(keep, pos, torch.zeros_like(pos))
+
+        # dispatch: scatter-add tokens into (E, C, d). On CUDA the
+        # accumulate is atomic, so its order is not fixed; the sum does not
+        # depend on it: a kept (token, slot) owns its (expert, pos) slot
+        # alone (positions are ranks within the expert), and a dropped one
+        # adds an exact zero to slot 0, so every slot sums one value and
+        # zeros
+        disp = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
+        contrib = xt[:, None, :] * keep[..., None].to(x.dtype)      # (N,T,d)
+        disp.index_put_((expert_idx, pos), contrib, accumulate=True)
+
+        y_exp = self._modules["experts"](disp)                     # (E, C, d)
+
+        # combine: each token's expert outputs, gate-weighted
+        y_tok = y_exp[expert_idx, pos]                             # (N, T, d)
+        w = (gate * keep.to(gate.dtype))[..., None].to(x.dtype)
+        y = (y_tok * w).sum(dim=1).reshape(B, S, d)
+
+        # load-balance aux loss (Switch): E · Σ_e f_e · P_e
+        f = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+            0, flat_e, torch.ones(N * T, dtype=torch.float32,
+                                  device=x.device)) / (N * T)
+        P = probs.mean(dim=0)
+        aux = E * torch.sum(f * P)
+        return y, aux

@@ -24,8 +24,10 @@ FFT → ∘ → IFFT. The engine applies that split at three levels:
   ``generate(list)`` is a thin wrapper over that loop.
 
 Padding: bucketed prefill left-pads prompts and numbers the pad positions
-negatively, so attention masks them and greedy outputs are the same at
-every bucket shape. Decode compaction is a pure permutation of slot rows.
+negatively, so attention masks them (and recurrent mixers skip them) and
+greedy outputs are the same at every bucket shape. Decode compaction is a
+pure permutation of slot rows, over every state leaf the runner holds (KV
+caches, Mamba's conv and SSM states, RWKV's shift and WKV states).
 
 Everything model-shaped sits behind a :mod:`repro_torch.serve.runner`
 runner. The reference engine's prefix cache, deadlines/cancel/shedding,
@@ -47,7 +49,7 @@ from repro_torch.kernels.block_circulant.plan import (_check_quantize,
                                                       freeze_params,
                                                       frozen_table_bytes)
 from repro_torch.nn.module import load_tree
-from repro_torch.serve.runner import DecoderRunner
+from repro_torch.serve.runner import make_runner
 
 __all__ = ["SamplingParams", "Request", "RequestState", "Scheduler",
            "EngineStats", "ServeEngine", "pow2_buckets", "pick_bucket",
@@ -293,7 +295,7 @@ class ServeEngine:
                 "quantize applies to frozen circulant tables; this config "
                 "has swm disabled")
         self.batch, self.cache_len = int(batch), int(cache_len)
-        self.runner = DecoderRunner(model, cfg, self.cache_len)
+        self.runner = make_runner(model, cfg, self.cache_len)
         if cfg.swm.enabled:
             params = freeze_params(self.runner.specs(), params,
                                    quantize=quantize)

@@ -19,25 +19,53 @@ indexed copy into them); gathered rows are fresh copies the model may
 write into.
 
 **Pad contract.** Prefill buckets are LEFT-padded: real tokens sit
-rightmost, pad lanes carry negative positions, and attention masks every
-key with ``kv_pos < 0`` — so the same request produces the same tokens at
-any bucket shape. The reference's prefix-cache seeding path is not ported.
+rightmost, pad lanes carry negative positions. Attention masks every key
+with ``kv_pos < 0``; recurrent mixers (mamba, rwkv) get the validity mask
+``positions >= 0`` from the model, so pads never enter a token shift, a
+conv window or a state update — the same request produces the same tokens
+at any bucket shape. Every forward dispatches MoE layers with
+``moe_no_drop=True`` (no capacity drops, so a token's output depends on
+its own row only).
+
+**Capability flags.** ``supports_prefix_cache`` records whether state rows
+are position-sliceable (a donor's rows for positions ``[0, m)`` could seed
+another request), with ``prefix_cache_unsupported_reason`` saying why not:
+full-length KV caches are, recurrent state is not. The engine's prefix
+cache itself is not ported yet; the flags mirror the reference's runners.
+
+:func:`make_runner` picks the runner for a config.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["ModelRunner", "DecoderRunner"]
+__all__ = ["ModelRunner", "DecoderRunner", "RecurrentRunner",
+           "make_runner", "recurrent_mixer_names"]
+
+
+def recurrent_mixer_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Sorted unique recurrent mixer kinds ('mamba'/'rwkv') in ``cfg`` —
+    empty for pure-attention decoder families."""
+    if cfg.family == "encdec":
+        return ()
+    names = {lspec.mixer for group in cfg.layer_groups()
+             for lspec in group.layers if lspec.mixer in ("mamba", "rwkv")}
+    return tuple(sorted(names))
 
 
 class ModelRunner:
-    """Base runner: holds the model/config; subclasses implement the
-    protocol above."""
+    """Base runner: holds the model/config and the capability flags;
+    subclasses implement the protocol above."""
+
+    #: whether state rows are position-sliceable (prefix-cache donors)
+    supports_prefix_cache: bool = False
+    #: why not, when they are not
+    prefix_cache_unsupported_reason: str = ""
 
     def __init__(self, model, cfg: ModelConfig, cache_len: int):
         self.model = model
@@ -65,7 +93,9 @@ class ModelRunner:
 
 class DecoderRunner(ModelRunner):
     """Runner over :class:`HybridDecoderLM`. State: the model's cache, a
-    list with one ``{"k", "v", "pos"}`` dict per layer, slot axis 0."""
+    list with one dict per layer, every leaf with the slot axis at 0."""
+
+    supports_prefix_cache = True
 
     def init_state(self, batch: int) -> List[dict]:
         return self.model.init_cache(batch, self.cache_len)
@@ -74,7 +104,8 @@ class DecoderRunner(ModelRunner):
     def prefill(self, tokens, positions, state, slot_idx):
         fresh = self.init_state(tokens.shape[0])
         logits, filled = self.model.forward(tokens, positions=positions,
-                                            cache=fresh, logits_mode="last")
+                                            cache=fresh, logits_mode="last",
+                                            moe_no_drop=True)
         last = logits[:, -1]
         ok = torch.isfinite(last).all(dim=-1)
         return last, ok, self.place_state(state, filled, slot_idx)
@@ -82,7 +113,8 @@ class DecoderRunner(ModelRunner):
     @torch.no_grad()
     def decode(self, tokens, state, pos, slot_idx):
         sub = self.gather_state(state, slot_idx)
-        logits, sub = self.model.decode_step(tokens, sub, pos)
+        logits, sub = self.model.decode_step(tokens, sub, pos,
+                                             moe_no_drop=True)
         ok = torch.isfinite(logits).all(dim=-1)
         return logits, ok, self.place_state(state, sub, slot_idx)
 
@@ -94,3 +126,34 @@ class DecoderRunner(ModelRunner):
             for n, t in dst.items():
                 t[idx] = src[n].to(t.dtype)
         return state
+
+
+class RecurrentRunner(DecoderRunner):
+    """Runner for decoder families with recurrent mixers (rwkv6, jamba's
+    mamba layers). The device path is :class:`DecoderRunner`'s: pad
+    invariance lives in the model, whose ``positions >= 0`` validity mask
+    keeps left-pad lanes out of token shifts, conv windows and state
+    updates. Recurrent state is not position-sliceable — one state per
+    slot encodes the whole prompt — so it can seed no prefix reuse."""
+
+    supports_prefix_cache = False
+
+    def __init__(self, model, cfg: ModelConfig, cache_len: int):
+        super().__init__(model, cfg, cache_len)
+        mix = recurrent_mixer_names(cfg)
+        self.prefix_cache_unsupported_reason = (
+            f"prefix reuse copies per-position donor rows, but "
+            f"{'/'.join(mix)} layers hold recurrent state with no "
+            f"per-position rows to slice — a donor's state encodes its "
+            f"entire prompt (serve this family with prefix_cache=False)")
+
+
+def make_runner(model, cfg: ModelConfig, cache_len: int) -> ModelRunner:
+    """The runner for a config: recurrent mixers present ->
+    :class:`RecurrentRunner`, else :class:`DecoderRunner`. The enc-dec
+    family (the reference's ``EncDecRunner``) is not ported yet."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("enc-dec serving is not ported yet")
+    if recurrent_mixer_names(cfg):
+        return RecurrentRunner(model, cfg, cache_len)
+    return DecoderRunner(model, cfg, cache_len)

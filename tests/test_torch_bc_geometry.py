@@ -316,3 +316,41 @@ def test_kernel_order_emulation_at_paper_shapes(B, p, q, k):
     got = _emulate(x, wr, wi, bias, k)
     want = kernel.bc_matmul_plain(x, wr, wi, bias, k=k)
     assert _rel(got, want) <= REL_TOL
+
+
+# The recurrent hybrids' launches (P, Q) at k = 128: jamba's fused QKV, o,
+# Mamba in_proj and out_proj, the FFN's and the experts' wi/wu and wo at
+# d_ff 14336 (p or q = 112); rwkv6's time mix shares o's shape, its
+# channel mix the FFN's. A grouped launch runs one product's geometry per
+# group, so these are its geometries too. Rows: decode 1..4 and the
+# prefill buckets' rows up to 4 x 128
+HYBRID = [(48, 32), (32, 32), (128, 32), (32, 64), (112, 32), (32, 112)]
+
+
+@pytest.mark.parametrize("P,Q", HYBRID)
+def test_geometry_at_hybrid_shapes(P, Q):
+    """Every row and output block once, and the host's shared-memory size
+    (the mirror of the kernel's ``Layout``, which a launch checks) within
+    the budget at p = 112, q = 112 and p = 128."""
+    for B in (1, 2, 3, 4, 8, 16, 32, 64, 128, 512):
+        g = kernel._mm_geometry(B, P, Q, 128)
+        rows, outs, qs = _cover(g, B, P, Q)
+        assert (rows == 1).all() and (outs == 1).all() and (qs == 1).all()
+        assert g.fft and g.smem_bytes <= kernel._MM_SMEM_BUDGET
+        assert g.smem_bytes == kernel._mm_smem_bytes(
+            128, g.rows, g.q_chunk, g.q_groups, g.p_pass)
+        assert g.p_inner * g.q_groups * g.slots <= kernel._MM_THREADS
+
+
+@pytest.mark.parametrize("B,p,q", [(4, 112, 32), (32, 32, 112), (1, 32, 112),
+                                   (8, 128, 32)])
+def test_kernel_order_emulation_at_hybrid_shapes(B, p, q):
+    """The FFT path in the kernel's slot and q-group order at the hybrid
+    shapes, against the plain version."""
+    rng = np.random.default_rng(B + p + q)
+    k, K = 128, 65
+    t = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         for s in ((B, q * k), (p, q, K), (p, q, K), (p * k,))]
+    x, wr, wi, bias = t
+    assert _rel(_emulate(x, wr, wi, bias, k),
+                kernel.bc_matmul_plain(x, wr, wi, bias, k=k)) <= REL_TOL

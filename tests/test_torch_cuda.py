@@ -352,3 +352,140 @@ def test_paper_models_on_card_match_cpu(cuda):
                 # several f32 launches in sequence (the LSTM: 2 layers x
                 # 3 steps), each within REL_TOL: 5x REL_TOL
                 assert _rel(y, cpu_model(x)) <= 5 * REL_TOL
+
+
+# Grouped launches (G, B, p, q, k): the jamba experts' wi/wu and wo at
+# full width (16 experts, d_ff 14336: p or q = 112) at decode and prefill
+# rows, and small ragged grids on both transform paths
+_GROUPED = [(16, 4, 112, 32, 128), (16, 32, 32, 112, 128),
+            (16, 1, 112, 32, 128), (3, 5, 3, 2, 8), (2, 7, 2, 3, 7),
+            (5, 9, 4, 3, 64)]
+
+
+@pytest.mark.parametrize("G,B,p,q,k", _GROUPED)
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_grouped_kernel_matches_plain_and_single_launches(cuda, G, B, p, q,
+                                                          k, dtype):
+    """One launch for all G groups (the count moves by one), within the
+    plain version's tolerance, every group bit for bit its own single
+    launch, and a repeat launch bit-identical."""
+    gen = torch.Generator().manual_seed(G * 100 + B + k)
+    K = k // 2 + 1
+    wr = torch.randn(G, p, q, K, generator=gen).to(cuda)
+    wi = torch.randn(G, p, q, K, generator=gen).to(cuda)
+    bias = torch.randn(G, p * k, generator=gen).to(cuda)
+    x = torch.randn(G, B, q * k, generator=gen).to(cuda, dtype)
+    n0 = kernel.LAUNCHES["bc_matmul"]
+    y = kernel.bc_matmul(x, wr, wi, bias, k=k, activation="gelu")
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["bc_matmul"] == n0 + 1
+    assert y.shape == (G, B, p * k) and y.dtype == dtype
+    yp = kernel.bc_matmul_plain(x, wr, wi, bias, k=k, activation="gelu")
+    tol = REL_TOL if dtype == _F32 else 2.0 ** -7 + REL_TOL
+    assert _rel(y, yp) <= tol
+    for g in range(G):
+        assert torch.equal(y[g], kernel.bc_matmul(x[g], wr[g], wi[g], bias[g],
+                                                  k=k, activation="gelu"))
+    assert torch.equal(y, kernel.bc_matmul(x, wr, wi, bias, k=k,
+                                           activation="gelu"))
+
+
+@pytest.mark.parametrize("G,B,p,q,k", _GROUPED[:2] + _GROUPED[3:5])
+def test_grouped_kernel_int8_bit_identical(cuda, G, B, p, q, k):
+    """int8 tables with (G, p, q) scales: bit for bit the f32 grouped
+    launch on the dequantized tables and each group's single int8
+    launch."""
+    gen = torch.Generator().manual_seed(G + B + p)
+    K = k // 2 + 1
+    wr = torch.randn(G, p, q, K, generator=gen).to(cuda)
+    wi = torch.randn(G, p, q, K, generator=gen).to(cuda)
+    x = torch.randn(G, B, q * k, generator=gen).to(cuda, _BF16)
+    s = symmetric_scales(wr, wi)
+    qr, qi = quantize_symmetric(wr, s), quantize_symmetric(wi, s)
+    y8 = kernel.bc_matmul(x, qr, qi, None, s, k=k)
+    yd = kernel.bc_matmul(x, dequantize_symmetric(qr, s),
+                          dequantize_symmetric(qi, s), k=k)
+    assert torch.equal(y8, yd)
+    for g in range(G):
+        assert torch.equal(y8[g], kernel.bc_matmul(x[g], qr[g], qi[g], None,
+                                                   s[g], k=k))
+
+
+def test_grouped_kernel_rejects_what_it_cannot_take(cuda):
+    K = 5
+    wr = torch.zeros(3, 2, 2, K, device=cuda)
+    with pytest.raises(ValueError, match="groups"):
+        kernel.bc_matmul(torch.zeros(2, 4, 16, device=cuda), wr, wr, k=8)
+    with pytest.raises(ValueError, match="w_scale"):
+        kernel.bc_matmul(torch.zeros(3, 4, 16, device=cuda),
+                         wr.to(torch.int8), wr.to(torch.int8),
+                         None, torch.ones(2, 2, device=cuda), k=8)
+    with pytest.raises(ValueError, match="bias"):
+        kernel.bc_matmul(torch.zeros(3, 4, 16, device=cuda), wr, wr,
+                         torch.zeros(16, device=cuda), k=8)
+
+
+def _moe_pair(cuda):
+    from repro_torch.configs import jamba_52b as tj
+    from repro_torch.nn.module import load_tree
+    from repro_torch.nn.moe import MoE
+
+    cfg = tj.SMOKE
+    swm = SWMConfig(block_size=8, impl="pallas")
+    mods = [MoE(cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                cfg.n_experts_per_token, swm=swm, dtype="float32")
+            for _ in range(2)]
+    params = init_params(mods[0].specs(), 0, device="cpu")
+    load_tree(mods[0], params)
+    load_tree(mods[1], _to(params, cuda))
+    return cfg, mods
+
+
+def test_moe_on_card_is_bit_identical_across_runs_and_matches_cpu(cuda):
+    """The dispatch's scatter-add is atomic on the card; under no-drop each
+    (expert, slot) receives one token, so two runs agree bit for bit. The
+    experts take 3 grouped launches per forward."""
+    cfg, (cpu, card) = _moe_pair(cuda)
+    x = torch.randn(3, 7, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        n0 = kernel.LAUNCHES["bc_matmul"]
+        y1, a1 = card(x.to(cuda), no_drop=True)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES["bc_matmul"] - n0 == 3
+        y2, a2 = card(x.to(cuda), no_drop=True)
+        yc, ac = cpu(x, no_drop=True)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    # three f32 projections in sequence, as tests/test_torch_moe.py
+    assert _rel(y1, yc) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["jamba", "rwkv6"])
+def test_hybrid_smoke_engine_on_card_matches_cpu(cuda, arch):
+    """The recurrent hybrids' smoke configs (f32, kernel impl) through
+    ServeEngine -> RecurrentRunner on the card emit the CPU engine's greedy
+    tokens, with the launches per forward the model's layers give."""
+    from repro_torch.configs import jamba_52b as tj, rwkv6_7b as tr
+
+    base = {"jamba": tj.SMOKE, "rwkv6": tr.SMOKE}[arch]
+    cfg = dataclasses.replace(base, swm=SWMConfig(block_size=8,
+                                                  impl="pallas"))
+    params = init_params(build_model(cfg, device="cpu").specs(), 0,
+                         device="cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(2, 9))
+                                 ).astype(np.int32), max_new=5)
+            for _ in range(6)]
+    per_forward = {"jamba": 40, "rwkv6": 24}[arch]
+    outs = {}
+    for dev in ("cpu", cuda):
+        tree = params if dev == "cpu" else _to(params, dev)
+        eng = ServeEngine(build_model(cfg, device=dev), cfg, tree, batch=4,
+                          cache_len=32)
+        n0 = kernel.LAUNCHES["bc_matmul"]
+        outs[str(dev)] = eng.generate(reqs)
+        forwards = eng.stats.prefill_calls + eng.stats.decode_steps
+        if dev != "cpu":
+            assert (kernel.LAUNCHES["bc_matmul"] - n0
+                    == per_forward * forwards)
+    assert outs["cpu"] == outs[str(cuda)]
