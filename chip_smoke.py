@@ -52,8 +52,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and (models with quant_bits = 0) int8-frozen, with exact launch counts
    per forward, then images/s or frames/s; one ``SWMCNN`` train step at
    batch 128 (launches (2, 1)) on the card against the CPU, then counted
-   steps; both kernels against their plain versions at every new shape
-   (``bc_dw`` at P = 8, Q = 100, k = 8 over 8192 rows) and their times;
+   steps; both kernels against their plain versions at every new shape,
+   the MNIST example's (phase 11) included (``bc_dw`` at P = 8, Q = 100,
+   k = 8 over 8192 rows and at P = 32, Q = 98 and 32, k = 8 over 128),
+   and their times;
 9. the recurrent hybrids (``hybrid`` and ``rwkv`` paths): full-width
    jamba-v0.1-52b (Mamba + attention + MoE) and rwkv6-7b with
    ``impl="pallas"`` and seeded random params, each served like phase 2
@@ -66,7 +68,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    count, the grouped launch (16 experts) group by group against single
    launches (f32 and int8, bit for bit), and the times of every new shape
    beside ``torch.bmm``/``torch.matmul`` on the dense equivalent and the
-   bound.
+   bound;
+10. the rest of the decoder family (``family`` paths), all with
+   ``impl="pallas"``, seeded random params and full width: gemma3-27b (62
+   layers, 52 sliding-window local and 10 global) served with
+   ``cache_len=2048`` to 6 short requests and prompts of 1015 and 1400
+   tokens (the rings wrap in decode and in prefill), then the 1400-token
+   request's prefill + 15 decode steps through the cache against a
+   no-cache forward (sound, then with a planted fault that must exceed the
+   limit), and a profile of its 1400-row prefill; paligemma-3b (18
+   layers, prefix-LM) served the short
+   traffic, plus one forward behind a seeded 256 x 2048 image prefix;
+   arctic-480b (35 layers, 128 experts + dense residual); qwen3-moe-235b-
+   a22b, deepseek-7b and internlm2-20b cut to 2 layers. Each through
+   ``DecoderRunner`` with bc_matmul held to its pinned launches per
+   forward (310, 90, 280; 10 at 2 layers), a decode profile, prefill twice
+   on the card (bit-identical) and card against CPU (gemma3 on one 6-layer
+   period, arctic on a 2-layer cut); then bc_matmul against its plain
+   version at every new shape and row count (128-expert grouped launches
+   group by group against single launches) and the times of every new
+   shape;
+11. the paper's two examples (``repro_torch.examples``): ``train_one`` at
+   block size 8 for 40 steps each on the card, losses finite and falling,
+   launches held to the pinned counts (the MNIST example's shapes are
+   checked in phase 8).
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -714,7 +739,9 @@ def phase_profile(torch, engine, reqs, step_ms):
 # B·8·8 rows (B = 8 forward, 128 in the train step) and its dx on the
 # transposed grid; the SWMLSTM cells' fused gates and Wym at B = 4 with
 # SWMLSTMASR's geometry (153 features padded to 160, 1024 cells, 512
-# projection) at k = 16 and 8
+# projection) at k = 16 and 8; the MNIST example's SWMMLP((784, 256, 256,
+# 10), 8, 12) at its batch of 128: fc0 (p = 32, q = 98) and fc1 (32 x 32,
+# also the shape of fc1's dx on the transposed grid; fc0 takes no dx)
 PAPER_SHAPES = [
     ("mlp.fc0", 64, 32, 49, 16), ("mlp.fc1", 64, 8, 8, 64),
     ("asic.fc0", 256, 8, 8, 64), ("asic.fc2", 256, 1, 8, 64),
@@ -722,11 +749,15 @@ PAPER_SHAPES = [
     ("cnn.conv1.dx", 8192, 100, 8, 8),
     ("lstm16.gates0", 4, 256, 42, 16), ("lstm16.gates1", 4, 256, 64, 16),
     ("lstm16.Wym", 4, 32, 64, 16), ("lstm8.gates0", 4, 512, 84, 8),
-    ("lstm8.gates1", 4, 512, 128, 8), ("lstm8.Wym", 4, 64, 128, 8)]
+    ("lstm8.gates1", 4, 512, 128, 8), ("lstm8.Wym", 4, 64, 128, 8),
+    ("mnist.fc0", 128, 32, 98, 8), ("mnist.fc1", 128, 32, 32, 8)]
 # int8 tables are checked at the shapes of the models with quant_bits = 0
 PAPER_INT8 = ("cnn.", "lstm")
-# bc_dw in the CNN train step: conv1's weight adjoint, P = 8, Q = 100, k = 8
-PAPER_DW = (128 * 8 * 8, 8, 100, 8)
+# (name, B, P, Q, k) of bc_dw in the CNN train step (conv1's weight
+# adjoint over 128 images x 8 x 8 positions) and in the MNIST example's
+# train step (fc0's and fc1's over its batch of 128)
+PAPER_DW = [("cnn.conv1.dw", 128 * 8 * 8, 8, 100, 8),
+            ("mnist.fc0.dw", 128, 32, 98, 8), ("mnist.fc1.dw", 128, 32, 32, 8)]
 PAPER_LSTM_T = 32
 PAPER_REPS = 10                 # timed forwards (or train steps) per model
 # card vs CPU for the f32 paper models: the per-launch limit FP32_TOL times
@@ -910,7 +941,7 @@ def phase_paper_train(torch, kernel, dev):
 
     tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=10, total_steps=200,
                        weight_decay=0.0)
-    B = PAPER_DW[0] // 64
+    B = PAPER_DW[0][1] // 64
     x, y = synthetic_images(B, 1)
     params = init_params(SWMCNN().specs(), seed=200, device=dev)
     copies = {"card": tree_map(lambda v: v.detach().clone(), params),
@@ -992,7 +1023,7 @@ def phase_paper_kernels(torch, kernel, quant, dev):
     """bc_matmul against its plain version at every paper shape (f32 x;
     repeat launches bit-identical; int8 tables bit for bit against the f32
     launch on dequantized tables at the CNN and LSTM shapes) and bc_dw at
-    the CNN train shape in both epilogues. Returns the max abs errors."""
+    every PAPER_DW shape in both epilogues. Returns the max abs errors."""
     gen = torch.Generator(device=dev).manual_seed(6)
     mm_abs, n_checks = 0.0, 0
     for name, B, p, q, k in PAPER_SHAPES:
@@ -1021,39 +1052,41 @@ def phase_paper_kernels(torch, kernel, quant, dev):
             if not torch.equal(y8, yd):
                 fail(f"paper {name}: int8 launch differs from dequantized")
             n_checks += 1
-    B, P, Q, k = PAPER_DW
-    x = torch.randn(B, Q * k, generator=gen, device=dev)
-    g = torch.randn(B, P * k, generator=gen, device=dev)
     dw_abs = 0.0
-    for freq_out in (False, True):
-        got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
-        again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
-        ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
-        torch.cuda.synchronize()
-        got, again, ref = ((t,) if not freq_out else t
-                           for t in (got, again, ref))
-        for a, a2, r in zip(got, again, ref):
-            e = rel_err(a, r)
-            if not e <= dw_tol(B):
-                fail(f"paper bc_dw P={P} Q={Q} k={k} B={B} freq_out="
-                     f"{freq_out}: rel err {e:.3g} > {dw_tol(B):.3g}")
-            if not torch.equal(a, a2):
-                fail("paper bc_dw: two launches differ")
-            dw_abs = max(dw_abs, float((a - r).abs().max()))
-        n_checks += 1
+    for name, B, P, Q, k in PAPER_DW:
+        x = torch.randn(B, Q * k, generator=gen, device=dev)
+        g = torch.randn(B, P * k, generator=gen, device=dev)
+        for freq_out in (False, True):
+            got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            torch.cuda.synchronize()
+            got, again, ref = ((t,) if not freq_out else t
+                               for t in (got, again, ref))
+            for a, a2, r in zip(got, again, ref):
+                e = rel_err(a, r)
+                if not e <= dw_tol(B):
+                    fail(f"paper bc_dw {name} P={P} Q={Q} k={k} B={B} "
+                         f"freq_out={freq_out}: rel err {e:.3g} > "
+                         f"{dw_tol(B):.3g}")
+                if not torch.equal(a, a2):
+                    fail(f"paper bc_dw {name}: two launches differ")
+                dw_abs = max(dw_abs, float((a - r).abs().max()))
+            n_checks += 1
+    dws = ", ".join(f"P={P} Q={Q} k={k} over {B} rows (rel <= "
+                    f"{dw_tol(B):.3g})" for _, B, P, Q, k in PAPER_DW)
     print(f"paper kernel checks: {n_checks} passed at {len(PAPER_SHAPES)} "
           f"bc_matmul shapes (f32 rel <= {FP32_TOL}, int8 bit-identical at "
           f"the CNN and LSTM shapes, repeat launches bit-identical) and "
-          f"bc_dw at P={P} Q={Q} k={k} over {B} rows, both epilogues (rel "
-          f"<= {dw_tol(B):.3g}); max abs err bc_matmul {mm_abs!r}, bc_dw "
-          f"{dw_abs!r}")
+          f"bc_dw, both epilogues, at {dws}; max abs err bc_matmul "
+          f"{mm_abs!r}, bc_dw {dw_abs!r}")
     return mm_abs, dw_abs
 
 
 def phase_paper_times(torch, kernel, dev):
     """Device times at the paper shapes: bc_matmul with f32 x (the paper
     models are f32) beside its plain version, ``torch.matmul`` on the f32
-    dense-equivalent matrix and the bound; bc_dw at the CNN train shape."""
+    dense-equivalent matrix and the bound; bc_dw at every PAPER_DW shape."""
     from repro_torch.core.circulant import blocks_to_dense
     from repro_torch.kernels.block_circulant.ops import freq_weights
 
@@ -1088,29 +1121,35 @@ def phase_paper_times(torch, kernel, dev):
               f"{ms!r} ms, plain {plain!r} ms, torch.matmul {lib!r} ms, "
               f"bound {b_ms!r} ms ({b_by}); {geometry}, {g.smem_bytes} B "
               f"smem")
-    B, P, Q, k = PAPER_DW
-    x = torch.randn(B, Q * k, generator=gen, device=dev)
-    g = torch.randn(B, P * k, generator=gen, device=dev)
-    ms = time_ms(torch, lambda: kernel.bc_dw(x, g, P=P, Q=Q, k=k))
-    plain = time_ms(torch, lambda: kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k))
-    dense = time_ms(torch, lambda: torch.matmul(g.T, x))
-    nbytes = x.nbytes + g.nbytes + P * Q * k * 4
-    flops = B * (2.5 * k * math.log2(k) * (P + Q) + 8 * P * Q * (k // 2 + 1))
-    b_ms, b_by = bound(nbytes, flops)
-    geo = kernel._dw_geometry(B, P, Q, k)
-    geometry = (f"grid {geo.grid[0]}x{geo.grid[1]}, tile {geo.p_tile} x "
-                f"{geo.q_tile} ({geo.tiles[0]}x{geo.tiles[1]} tiles), thread "
-                f"{geo.p_per_thread} x {geo.q_per_thread}, "
-                f"{geo.rows_per_split} rows per split, {geo.rows} per chunk")
-    dw_row = dict(shape="cnn.conv1.dw", path="paper", B=B, P=P, Q=Q, k=k,
-                  launches=1, ms=ms, plain_ms=plain, library_ms=None,
-                  dense_dw_matmul_ms=dense, bound_ms=b_ms, bound_by=b_by,
-                  bytes=nbytes, flops=flops, geometry=geometry,
-                  smem_bytes=geo.smem_bytes)
-    print(f"paper bc_dw device time (f32 x and g, B={B}): P={P} Q={Q} k={k}: "
-          f"kernel {ms!r} ms, plain {plain!r} ms, g.T @ x {dense!r} ms, "
-          f"bound {b_ms!r} ms ({b_by}); {geometry}, {geo.smem_bytes} B smem")
-    return rows, dw_row
+    dw_rows = []
+    for name, B, P, Q, k in PAPER_DW:
+        x = torch.randn(B, Q * k, generator=gen, device=dev)
+        g = torch.randn(B, P * k, generator=gen, device=dev)
+        ms = time_ms(torch, lambda: kernel.bc_dw(x, g, P=P, Q=Q, k=k))
+        plain = time_ms(torch, lambda: kernel.bc_dw_plain(x, g, P=P, Q=Q,
+                                                          k=k))
+        dense = time_ms(torch, lambda: torch.matmul(g.T, x))
+        nbytes = x.nbytes + g.nbytes + P * Q * k * 4
+        flops = B * (2.5 * k * math.log2(k) * (P + Q)
+                     + 8 * P * Q * (k // 2 + 1))
+        b_ms, b_by = bound(nbytes, flops)
+        geo = kernel._dw_geometry(B, P, Q, k)
+        geometry = (f"grid {geo.grid[0]}x{geo.grid[1]}, tile {geo.p_tile} "
+                    f"x {geo.q_tile} ({geo.tiles[0]}x{geo.tiles[1]} tiles), "
+                    f"thread {geo.p_per_thread} x {geo.q_per_thread}, "
+                    f"{geo.rows_per_split} rows per split, {geo.rows} per "
+                    f"chunk")
+        dw_rows.append(dict(shape=name, path="paper", B=B, P=P, Q=Q, k=k,
+                            launches=1, ms=ms, plain_ms=plain,
+                            library_ms=None, dense_dw_matmul_ms=dense,
+                            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                            flops=flops, geometry=geometry,
+                            smem_bytes=geo.smem_bytes))
+        print(f"paper bc_dw device time (f32 x and g, B={B}): {name} P={P} "
+              f"Q={Q} k={k}: kernel {ms!r} ms, plain {plain!r} ms, g.T @ x "
+              f"{dense!r} ms, bound {b_ms!r} ms ({b_by}); {geometry}, "
+              f"{geo.smem_bytes} B smem")
+    return rows, dw_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1141,19 +1180,143 @@ HYBRID_SHAPES = [("jamba.qkv", 1, 48, 32, 4), ("jamba.o", 1, 32, 32, 4),
 # bucket of 4 prompts x 8 tokens (an expert launch's rows are its capacity,
 # the forward's tokens)
 HYBRID_TIME_ROWS = (4, 32)
+# AdamW steps of each example on the card
+EXAMPLE_STEPS = 40
+# (bc_matmul, bc_dw) launches per train step and per evaluation batch of
+# each example at block size 8: the MNIST MLP runs fc0 and fc1 forward, fc1's
+# dx (fc0's input takes no grad) and both weight adjoints per step, fc0 and
+# fc1 per evaluation batch; the LSTM example takes its default impl, no
+# kernel
+EXAMPLE_LAUNCHES = {"train_mnist_swm": ((3, 2), (2, 0)),
+                    "lstm_asr": ((0, 0), (0, 0))}
 
 
 def hybrid_launches(model):
     """bc_matmul launches of one forward, read off the built model: 2 per
-    attention or Mamba mixer (fused QKV + o; in_proj + out_proj), 5 per
-    RWKV time mix, 3 per dense FFN or RWKV channel mix, 3 grouped per MoE
-    (wi, wu, wo over all experts at once)."""
+    attention (global or local) or Mamba mixer (fused QKV + o; in_proj +
+    out_proj), 5 per RWKV time mix, 3 per dense FFN or RWKV channel mix, 3
+    grouped per MoE (wi, wu, wo over all experts at once)."""
     n = 0
     for layer in model._modules["layers"]:
-        n += {"attn": 2, "mamba": 2, "rwkv": 5}[layer.mixer_kind]
+        n += {"attn": 2, "attn_local": 2, "mamba": 2,
+              "rwkv": 5}[layer.mixer_kind]
         n += 3 * sum(name in layer._modules
                      for name in ("ffn_dense", "ffn_moe"))
     return n
+
+
+def serve_cfg(arch, depth=None):
+    """``arch``'s CONFIG with ``impl="pallas"`` (the kernel path), cut to
+    ``depth`` layers when given."""
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(arch), swm=SWMConfig(
+        block_size=128, impl="pallas"))
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def card_vs_cpu(torch, cfg, frozen, toks, card, name, img=None):
+    """Logits of ``toks`` (and the image prefix ``img``) on the CPU from the
+    frozen tree ``frozen`` against ``card`` (the same forward on the card),
+    within FULL_WIDTH_TOL of the largest |logit|. Returns (rel err, argmax
+    equal, CPU seconds)."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import load_tree
+
+    t = time.perf_counter()
+    cpu_model = build_model(cfg, device="cpu")
+    load_tree(cpu_model, to_device(frozen, "cpu"))
+    with torch.no_grad():
+        cpu = cpu_model.forward(
+            toks.cpu(), img_embeds=None if img is None else img.cpu(),
+            logits_mode="last" if img is None else "all",
+            moe_no_drop=True)[0]
+    secs = time.perf_counter() - t
+    card = card.float().cpu()
+    if card.shape != cpu.shape or not (torch.isfinite(card).all()
+                                       and torch.isfinite(cpu).all()):
+        fail(f"{name}: card logits {tuple(card.shape)} vs cpu "
+             f"{tuple(cpu.shape)}, or not finite")
+    e = rel_err(card, cpu)
+    same = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+    what = f"{toks.shape[1]} tokens" + (
+        "" if img is None else f" after a {img.shape[1]}-position image "
+        f"prefix, every position's logits")
+    print(f"{name} card vs cpu logits ({cfg.n_layers} layers at full width, "
+          f"{what}): rel err {e:.3g} (tolerance {FULL_WIDTH_TOL}), argmax "
+          f"equal: {same}; cpu pass {secs:.1f}s")
+    if not e <= FULL_WIDTH_TOL:
+        fail(f"{name}: card vs cpu logits rel err {e:.3g} > "
+             f"{FULL_WIDTH_TOL}")
+    return e, same, secs
+
+
+def prefill_twice(torch, model, toks, name):
+    """The last position's logits of ``toks`` on the card, twice; the two
+    must agree bit for bit."""
+    with torch.no_grad():
+        a = model.forward(toks, logits_mode="last", moe_no_drop=True)[0]
+        b = model.forward(toks, logits_mode="last", moe_no_drop=True)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two prefills of one prompt on the card differ")
+    return a
+
+
+def short_requests(cfg, n=8, max_new=16):
+    """The serve traffic of every path: ``n`` greedy requests of 3-8
+    random tokens (numpy seed 0), ``max_new`` new tokens each."""
+    from repro_torch.serve.engine import Request
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
+                                 ).astype(np.int32), max_new=max_new)
+            for _ in range(n)]
+
+
+def serve_counted(torch, kernel, engine, reqs, per_forward, name):
+    """``reqs`` through the engine's streaming API with the bc_matmul count
+    set to 0 just before and read just after, held to ``per_forward`` per
+    forward (prefill call or decode step). Returns ({rid index: tokens},
+    stats of the run)."""
+    s = engine.stats
+    f0 = s.prefill_calls + s.decode_steps
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t_start = time.perf_counter()
+    rids = [engine.submit(r) for r in reqs]
+    decode_ms = []
+    while True:
+        p0 = s.prefill_calls
+        t = time.perf_counter()
+        more = engine.step()
+        torch.cuda.synchronize()
+        if s.prefill_calls == p0:
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+        if not more:
+            break
+    outs = engine.drain(rids)
+    dt = time.perf_counter() - t_start
+    launches = kernel.LAUNCHES["bc_matmul"]
+    forwards = s.prefill_calls + s.decode_steps - f0
+    if [len(outs[r]) for r in rids] != [r.max_new for r in reqs]:
+        fail(f"{name}: token counts {[len(outs[r]) for r in rids]}")
+    if launches != per_forward * forwards:
+        fail(f"{name}: bc_matmul launches {launches} != {per_forward} x "
+             f"{forwards} forwards")
+    n_tok = sum(len(o) for o in outs.values())
+    step_ms = statistics.median(decode_ms)
+    print(f"{name} serve: {len(reqs)} requests = {n_tok} tokens in "
+          f"{dt:.3f}s = {n_tok / dt:.1f} tok/s; {forwards} forwards "
+          f"({len(decode_ms)} decode-only steps, median {step_ms:.2f} "
+          f"ms/step); bc_matmul launches {launches} = {per_forward} x "
+          f"{forwards}; all logits finite; prefill shapes "
+          f"{sorted(s.prefill_shapes)} decode {sorted(s.decode_shapes)}")
+    return ([outs[r] for r in rids],
+            dict(tokens=n_tok, seconds=dt, step_ms=step_ms,
+                 launches=launches, forwards=forwards))
 
 
 def phase_hybrid(torch, kernel, dev, arch):
@@ -1164,16 +1327,13 @@ def phase_hybrid(torch, kernel, dev, arch):
     first request's prefill logits on the card against the CPU, and twice
     on the card (bit-identical: the MoE dispatch's atomic scatter-add sums
     one value per slot). Returns (report row, row counts launched)."""
-    from repro_torch.configs.base import SWMConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import init_params
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.runner import RecurrentRunner
     import numpy as np
 
-    cfg = dataclasses.replace(get_config(arch), swm=SWMConfig(
-        block_size=128, impl="pallas"))
+    cfg = serve_cfg(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     params = init_params(model.specs(), seed=0, device=dev)
@@ -1195,79 +1355,21 @@ def phase_hybrid(torch, kernel, dev, arch):
           f"{type(engine.runner).__name__}")
     engine.generate([Request(np.arange(4, dtype=np.int32), max_new=2)])
 
-    rng = np.random.default_rng(0)
-    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
-                                 ).astype(np.int32), max_new=16)
-            for _ in range(8)]
-    s = engine.stats
-    f0 = s.prefill_calls + s.decode_steps
-    torch.cuda.synchronize()
-    kernel.LAUNCHES["bc_matmul"] = 0
-    t_start = time.perf_counter()
-    rids = [engine.submit(r) for r in reqs]
-    decode_ms = []
-    while True:
-        p0 = s.prefill_calls
-        t = time.perf_counter()
-        more = engine.step()
-        torch.cuda.synchronize()
-        if s.prefill_calls == p0:
-            decode_ms.append((time.perf_counter() - t) * 1e3)
-        if not more:
-            break
-    outs = engine.drain(rids)
-    dt = time.perf_counter() - t_start
-    launches = kernel.LAUNCHES["bc_matmul"]
-    forwards = s.prefill_calls + s.decode_steps - f0
-    if [len(outs[r]) for r in rids] != [16] * 8:
-        fail(f"{arch}: token counts {[len(outs[r]) for r in rids]}")
-    if launches != per_forward * forwards:
-        fail(f"{arch}: bc_matmul launches {launches} != {per_forward} x "
-             f"{forwards} forwards")
-    n_tok = sum(len(o) for o in outs.values())
-    step_ms = statistics.median(decode_ms)
-    print(f"{arch} serve: {len(reqs)} requests x 16 tokens = {n_tok} tokens "
-          f"in {dt:.3f}s = {n_tok / dt:.1f} tok/s; {forwards} forwards "
-          f"({len(decode_ms)} decode-only steps, median {step_ms:.2f} "
-          f"ms/step); bc_matmul launches {launches} = {per_forward} x "
-          f"{forwards}; all logits finite; prefill shapes "
-          f"{sorted(s.prefill_shapes)} decode {sorted(s.decode_shapes)}")
+    reqs = short_requests(cfg)
+    _, serve = serve_counted(torch, kernel, engine, reqs, per_forward, arch)
+    n_tok, dt, step_ms = serve["tokens"], serve["seconds"], serve["step_ms"]
+    s, launches, forwards = engine.stats, serve["launches"], serve["forwards"]
     busy = phase_profile(torch, engine, reqs, step_ms)
 
     # the first request's prefill: twice on the card, then on the CPU
-    toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long)[None]
-    with torch.no_grad():
-        card = engine.runner.model.forward(toks.to(dev), logits_mode="last",
-                                           moe_no_drop=True)[0]
-        again = engine.runner.model.forward(toks.to(dev), logits_mode="last",
-                                            moe_no_drop=True)[0]
-    torch.cuda.synchronize()
-    if not torch.equal(card, again):
-        fail(f"{arch}: two prefills of one prompt on the card differ")
+    toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long,
+                           device=dev)[None]
+    card = prefill_twice(torch, engine.runner.model, toks, arch)
     frozen = engine.params
     del engine, model
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    cpu_model = build_model(cfg, device="cpu")
-    from repro_torch.nn.module import load_tree
-    load_tree(cpu_model, to_device(frozen, "cpu"))
+    e, _, _ = card_vs_cpu(torch, cfg, frozen, toks, card, arch)
     del frozen
-    with torch.no_grad():
-        cpu = cpu_model.forward(toks, logits_mode="last",
-                                moe_no_drop=True)[0]
-    card = card.float().cpu()
-    if not (torch.isfinite(card).all() and torch.isfinite(cpu).all()):
-        fail(f"{arch}: non-finite prefill logits")
-    e = rel_err(card, cpu)
-    print(f"{arch} card vs cpu prefill logits (full width, "
-          f"{toks.shape[1]} tokens, MoE no-drop): rel err {e:.3g} (tolerance "
-          f"{FULL_WIDTH_TOL}), argmax equal: "
-          f"{int(card.argmax()) == int(cpu.argmax())}; two card prefills "
-          f"bit-identical; cpu pass {time.perf_counter() - t:.1f}s")
-    if not e <= FULL_WIDTH_TOL:
-        fail(f"{arch}: card vs cpu logits rel err {e:.3g} > "
-             f"{FULL_WIDTH_TOL}")
-    del cpu_model
     rows = {b * t for b, t in s.prefill_shapes} | set(s.decode_shapes)
     return (dict(model=arch, requests=len(reqs), tokens=n_tok, seconds=dt,
                  tokens_per_s=n_tok / dt, decode_ms_per_step=step_ms,
@@ -1281,22 +1383,27 @@ def phase_hybrid(torch, kernel, dev, arch):
             rows)
 
 
-def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts):
-    """bc_matmul against its plain version at every HYBRID_SHAPES shape and
-    every row count the two serve paths launched (an expert launch's rows
-    are its capacity, the tokens of the forward), f32 and bf16 x, each
-    launched twice (bit-identical). Grouped shapes also: every group of
-    the grouped launch bit for bit against its own single launch, f32 and
-    int8 tables, and the int8 grouped launch bit for bit against the f32
-    grouped launch on dequantized tables. Returns the max abs error of the
-    f32 checks."""
-    gen = torch.Generator(device=dev).manual_seed(8)
+def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts,
+                         shapes=HYBRID_SHAPES, label="hybrid", seed=8):
+    """bc_matmul against its plain version at every one of ``shapes`` and
+    every row count its serve path launched (``row_counts``: {shape name:
+    row counts}; an expert launch's rows are its capacity, the tokens of
+    the forward), f32 and bf16 x,
+    each launched twice (bit-identical). Grouped shapes also: every group
+    of the grouped launch bit for bit against its own single launch, f32
+    and int8 tables, and the int8 grouped launch bit for bit against the
+    f32 grouped launch on dequantized tables. Returns the max abs error of
+    the f32 checks."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst_abs, n_checks = 0.0, 0
-    for name, G, p, q, _ in HYBRID_SHAPES:
+    all_rows, groups = set(), set()
+    for name, G, p, q, _ in shapes:
         lead = (G,) if G > 1 else ()
         wr = torch.randn(*lead, p, q, K // 2 + 1, generator=gen, device=dev)
         wi = torch.randn(*lead, p, q, K // 2 + 1, generator=gen, device=dev)
-        for B in row_counts:
+        all_rows |= set(row_counts[name])
+        groups.add(G)
+        for B in sorted(row_counts[name]):
             shape = (G, B, q * K) if G > 1 else (B, q * K)
             x32 = torch.randn(*shape, generator=gen, device=dev)
             for x, tol in ((x32, FP32_TOL), (x32.bfloat16(), BF16_TOL)):
@@ -1335,9 +1442,9 @@ def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts):
                     fail(f"{name}: int8 group {g} differs from its single "
                          f"launch")
             n_checks += 1
-    print(f"hybrid bc_matmul checks: {n_checks} passed at "
-          f"{len(HYBRID_SHAPES)} shapes (grouped G=16 at the expert shapes) "
-          f"x rows {sorted(row_counts)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
+    print(f"{label} bc_matmul checks: {n_checks} passed at {len(shapes)} "
+          f"shapes (grouped G={max(groups)} at the expert shapes) x rows "
+          f"{sorted(all_rows)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
           f"{BF16_TOL:.3g}; repeat launches bit-identical; every group of a "
           f"grouped launch bit-identical to its single launch, f32 and int8; "
           f"int8 bit-identical to dequantized f32); max abs err (f32) = "
@@ -1345,7 +1452,7 @@ def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts):
     return worst_abs
 
 
-def phase_hybrid_times(torch, kernel, dev, cases):
+def phase_hybrid_times(torch, kernel, dev, cases, label="hybrid", seed=9):
     """Device times at ``cases`` = [(name, groups, p, q, launches per
     forward, B)], bf16 x and f32 tables: the kernel, its plain version, the
     dense-equivalent product (``torch.bmm`` over the experts' stack for a
@@ -1354,10 +1461,10 @@ def phase_hybrid_times(torch, kernel, dev, cases):
     from repro_torch.core.circulant import blocks_to_dense
     from repro_torch.kernels.block_circulant.ops import freq_weights
 
-    gen = torch.Generator(device=dev).manual_seed(9)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     Kf = K // 2 + 1
     rows = []
-    print("hybrid bc_matmul device times (bf16 x, f32 tables; median of 30 "
+    print(f"{label} bc_matmul device times (bf16 x, f32 tables; median of 30 "
           "runs, CUDA events; bound as above over all groups; yardstick = "
           "torch.bmm on the (G, q*k, p*k) dense-equivalent stack for a "
           "grouped launch, torch.matmul otherwise):")
@@ -1384,18 +1491,360 @@ def phase_hybrid_times(torch, kernel, dev, cases):
                     f"{g.grid[0] * g.grid[1] * G} blocks, {g.rows} rows x "
                     f"{g.p_group} out blocks, q chunk {g.q_chunk}, "
                     f"{g.q_groups} q groups")
-        rows.append(dict(shape=name, path="hybrid", groups=G, B=B, p=p, q=q,
+        rows.append(dict(shape=name, path=label, groups=G, B=B, p=p, q=q,
                          k=K, launches=per, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                          bytes=nbytes, flops=flops, geometry=geometry,
                          smem_bytes=g.smem_bytes))
-        print(f"  {name:19s} G={G:2d} p={p:3d} q={q:3d} B={B:3d}: kernel "
+        print(f"  {name:24s} G={G:3d} p={p:3d} q={q:3d} B={B:4d}: kernel "
               f"{ms!r} ms, plain {plain!r} ms, "
               f"{'torch.bmm' if G > 1 else 'torch.matmul'} {lib!r} ms, bound "
               f"{b_ms!r} ms ({b_by}), {per} launches/forward; {geometry}, "
               f"{g.smem_bytes} B smem")
         del dense
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The rest of the decoder family (the seventh slice's path)
+# ---------------------------------------------------------------------------
+
+# bc_matmul launches per forward at full depth, pinned: 2 per attention
+# layer (fused QKV, o; gemma3's 52 local and 10 global alike) and 3 per
+# dense SwiGLU or grouped MoE (wi, wu, wo over all 128 experts at once):
+# gemma3 62 x 5, paligemma 18 x 5, deepseek 30 x 5, internlm2 48 x 5,
+# qwen3-moe 94 x (2 + 3 grouped), arctic 35 x (2 + 3 dense + 3 grouped).
+# A path cut in depth is held to (these / full depth) x its layers
+FAMILY_LAUNCHES = {"gemma3-27b": 310, "paligemma-3b": 90,
+                   "arctic-480b": 280, "qwen3-moe-235b-a22b": 470,
+                   "deepseek-7b": 150, "internlm2-20b": 240}
+# per path: the depth it is served at (None: full) and the depth of its
+# card-vs-CPU comparison (None: the served model itself). gemma3's CPU pass
+# over 62 layers at the 1400-token prompt would take minutes of the time
+# limit, so it compares one full 5 local + 1 global period at full width;
+# arctic's (35 layers of 128 experts) compares a 2-layer cut; qwen3-moe,
+# deepseek and internlm2 are uniform, so 2 layers keep every layer kind
+FAMILY_DEPTHS = {"gemma3-27b": (None, 6), "paligemma-3b": (None, None),
+                 "arctic-480b": (None, 2), "qwen3-moe-235b-a22b": (2, None),
+                 "deepseek-7b": (2, None), "internlm2-20b": (2, None)}
+# gemma3's long prompts beside the short traffic: 1015 tokens (a 1024-row
+# prefill bucket: its local layers take the fresh-kv branch, its global
+# ones the cache branch; decode wraps the 1024-entry rings) and 1400 (a
+# 2048-row bucket that wraps the rings during prefill)
+GEMMA_LONG = (1015, 1400)
+GEMMA_CACHE_LEN = 2048
+# the ring check compares two f32 card passes (cached decode against a
+# no-cache forward), so it is not held to FULL_WIDTH_TOL. RING_TOL lies
+# between the sound reading and a planted fault's: every local layer's
+# window one short during decode, i.e. one key of 1024 dropped per local
+# layer per step. On an NVIDIA H100 80GB HBM3 at 700 W the sound pass reads
+# 1.84e-6 and the planted fault 1.24e-5 (PERF.md §6). The served bf16
+# model's sound pass reads 2.27e-4, above that fault, hence the f32 pass
+RING_TOL = 5e-6
+RING_FAULT_SHIFT = -1
+# per path, (name, groups, p, q, launches per forward at the served depth)
+# of every bc_matmul shape it launches at k = 128; groups 128 = one grouped
+# launch over a MoE layer's experts
+FAMILY_SHAPES = {
+    "gemma3-27b": [("gemma3.qkv", 1, 64, 42, 62), ("gemma3.o", 1, 42, 32, 62),
+                   ("gemma3.wi_wu", 1, 168, 42, 124),
+                   ("gemma3.wo", 1, 42, 168, 62)],
+    "paligemma-3b": [("paligemma.qkv", 1, 20, 16, 18),
+                     ("paligemma.o", 1, 16, 16, 18),
+                     ("paligemma.wi_wu", 1, 128, 16, 36),
+                     ("paligemma.wo", 1, 16, 128, 18)],
+    "deepseek-7b": [("deepseek.qkv", 1, 96, 32, 2),
+                    ("deepseek.o", 1, 32, 32, 2),
+                    ("deepseek.wi_wu", 1, 86, 32, 4),
+                    ("deepseek.wo", 1, 32, 86, 2)],
+    "internlm2-20b": [("internlm2.qkv", 1, 64, 48, 2),
+                      ("internlm2.o", 1, 48, 48, 2),
+                      ("internlm2.wi_wu", 1, 128, 48, 4),
+                      ("internlm2.wo", 1, 48, 128, 2)],
+    "qwen3-moe-235b-a22b": [("qwen3_moe.qkv", 1, 72, 32, 2),
+                            ("qwen3_moe.o", 1, 32, 64, 2),
+                            ("qwen3_moe.expert.wi_wu", 128, 12, 32, 4),
+                            ("qwen3_moe.expert.wo", 128, 32, 12, 2)],
+    "arctic-480b": [("arctic.qkv", 1, 72, 56, 35), ("arctic.o", 1, 56, 56, 35),
+                    ("arctic.wi_wu", 1, 38, 56, 70),
+                    ("arctic.wo", 1, 56, 38, 35),
+                    ("arctic.expert.wi_wu", 128, 38, 56, 70),
+                    ("arctic.expert.wo", 128, 56, 38, 35)]}
+# rows of the timed launches: decode at 4 active slots, the 4 x 8 prefill
+# bucket, and gemma3's long prefill buckets
+FAMILY_TIME_ROWS = (4, 32)
+GEMMA_TIME_ROWS = (4, 1024, 2048)
+
+
+def family_per_forward(arch, cfg):
+    full = get_full_depth(arch)
+    if FAMILY_LAUNCHES[arch] % full:
+        fail(f"{arch}: pinned launches not a multiple of its depth")
+    return FAMILY_LAUNCHES[arch] // full * cfg.n_layers
+
+
+def get_full_depth(arch):
+    from repro_torch.configs.registry import get_config
+    return get_config(arch).n_layers
+
+
+def tree_bytes(tree, keep, path=()):
+    """Bytes of the tensors of a nested-dict tree whose path ``keep``s."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v, keep, path + (k,)) for k, v in tree.items())
+    return tree.nbytes if keep(path) else 0
+
+
+def ring_check(torch, cfg, frozen, prompt, gen, dev):
+    """gemma3's rings at full width and depth, in f32 as
+    ``tests/test_ring_cache.py`` runs them: the served model's frozen tree
+    ``frozen`` cast to f32 in an f32 model; prefill ``prompt`` into a fresh
+    B = 1 cache of GEMMA_CACHE_LEN, then decode the engine's tokens ``gen``
+    through it. The logits of those len(gen) steps must equal a no-cache
+    forward of prompt + gen[:-1] at the same positions within RING_TOL,
+    with the same argmax at every step. The cached pass runs again with a
+    planted fault (every local layer's window RING_FAULT_SHIFT short during
+    the decode steps, so each step drops the oldest key of its ring), whose
+    reading must exceed RING_TOL. Returns (rel err, planted rel err, the
+    rows launched)."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import load_tree, tree_map
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    load_tree(model, tree_map(lambda t: t.float() if t.is_floating_point()
+                              else t, frozen))
+    L = len(prompt)
+    toks = torch.as_tensor(list(prompt) + list(gen[:-1]), dtype=torch.long,
+                           device=dev)[None]
+    local = [layer._modules["mixer"] for layer in model._modules["layers"]
+             if layer.mixer_kind == "attn_local"]
+
+    def cached(shift):
+        with torch.no_grad():
+            cache = model.init_cache(1, GEMMA_CACHE_LEN)
+            lg, cache = model.prefill(toks[:, :L], cache)
+            steps = [lg]
+            for m in local:
+                m.window += shift
+            try:
+                for i in range(len(gen) - 1):
+                    lg, cache = model.decode_step(
+                        toks[:, L + i:L + i + 1], cache,
+                        torch.full((1,), L + i, dtype=torch.int32,
+                                   device=dev))
+                    steps.append(lg)
+            finally:
+                for m in local:
+                    m.window -= shift
+        return torch.cat(steps).float(), cache[0]["k"].shape[1]
+
+    steps, ring = cached(0)
+    with torch.no_grad():
+        h, _ = model.forward(toks, logits_mode="none")
+        full = model._logits(h[:, L - 1:])[0].float()
+    e = rel_err(steps, full)
+    planted = rel_err(cached(RING_FAULT_SHIFT)[0], full)
+    agree = int((steps.argmax(-1) == full.argmax(-1)).sum())
+    del model
+    torch.cuda.empty_cache()
+    print(f"gemma3-27b ring check (f32): prefill {L} tokens + "
+          f"{len(gen) - 1} decode steps through the cache (local rings of "
+          f"{ring}, {(L + len(gen)) / ring:.2f} ring lengths) against a "
+          f"no-cache forward of {toks.shape[1]} tokens: rel err {e!r} "
+          f"(tolerance {RING_TOL}); planted fault (local windows "
+          f"{RING_FAULT_SHIFT} during decode) rel err {planted!r}; argmax "
+          f"of the cached steps equals the forward's at {agree} of "
+          f"{len(gen)} steps")
+    if not e <= RING_TOL:
+        fail(f"gemma3-27b: cached decode vs no-cache forward rel err "
+             f"{e:.3g} > {RING_TOL}")
+    if not planted > RING_TOL:
+        fail(f"gemma3-27b: the planted ring fault reads {planted:.3g}, "
+             f"within the ring check's tolerance {RING_TOL}")
+    if agree != len(gen):
+        fail(f"gemma3-27b: cached and no-cache argmax agree at {agree} of "
+             f"{len(gen)} steps")
+    return e, planted, {L, toks.shape[1], 1}
+
+
+def long_prefill_profile(torch, model, toks):
+    """Wall and device time of one B = 1 prefill of ``toks`` (gemma3's
+    1400-token prompt: 1400 rows through every projection, the plain-loop
+    flash attention over 1400 keys on every layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.forward(toks, logits_mode="last")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.forward(toks, logits_mode="last")
+            torch.cuda.synchronize()
+    busy = report_profile(torch, prof, 1, wall_ms, f"gemma3-27b prefill of "
+                          f"{toks.shape[1]} tokens (B = 1)")
+    return dict(long_prefill_wall_ms=wall_ms, long_prefill_busy_ms=busy)
+
+
+def phase_family(torch, kernel, dev, arch):
+    """``arch`` (gemma3-27b, paligemma-3b, arctic-480b at full depth;
+    qwen3-moe-235b-a22b, deepseek-7b, internlm2-20b cut to 2 layers; all at
+    full width) served through ``make_runner`` -> ``DecoderRunner``: the
+    short traffic (8 greedy requests x 16 tokens; gemma3 adds GEMMA_LONG)
+    with bc_matmul held to the pinned launches per forward, a decode
+    profile, the served prompt's prefill twice on the card (bit-identical)
+    and against the CPU; gemma3's ring check; paligemma's image prefix
+    through ``model.forward`` on the card and the CPU. Returns (report row,
+    the row counts launched)."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.kernels.block_circulant.plan import freeze_params
+    from repro_torch.nn.module import init_params, load_tree
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.runner import DecoderRunner
+    import numpy as np
+
+    depth, cpu_depth = FAMILY_DEPTHS[arch]
+    cfg = serve_cfg(arch, depth)
+    gemma = arch == "gemma3-27b"
+    cache_len = GEMMA_CACHE_LEN if gemma else 128
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    engine = ServeEngine(model, cfg, params, batch=4, cache_len=cache_len)
+    del params
+    torch.cuda.synchronize()
+    per_forward = family_per_forward(arch, cfg)
+    if hybrid_launches(model) != per_forward:
+        fail(f"{arch}: the model has {hybrid_launches(model)} bc_matmul "
+             f"launches per forward, expected {per_forward}")
+    if type(engine.runner) is not DecoderRunner:
+        fail(f"{arch}: served by {type(engine.runner).__name__}")
+    mixers = [layer.mixer_kind for layer in model._modules["layers"]]
+    experts = tree_bytes(engine.params, lambda path: "ffn_moe" in path
+                         and "experts" in path)
+    print(f"{arch} full width ({cfg.n_layers} of {get_full_depth(arch)} "
+          f"layers: {mixers.count('attn_local')} local, "
+          f"{mixers.count('attn')} global attention; d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, experts {cfg.n_experts}, vocab {cfg.vocab}, "
+          f"{cfg.compute_dtype}, impl={cfg.swm.impl}): built, initialized "
+          f"and frozen in {time.perf_counter() - t0:.2f}s; frozen table "
+          f"bytes {engine.frozen_table_bytes()} (experts {experts}); device "
+          f"memory allocated {torch.cuda.memory_allocated(dev)}; runner "
+          f"{type(engine.runner).__name__}, {per_forward} bc_matmul "
+          f"launches per forward")
+    engine.generate([Request(np.arange(4, dtype=np.int32), max_new=2)])
+
+    reqs = short_requests(cfg, n=6 if gemma else 8)
+    if gemma:
+        rng = np.random.default_rng(1)
+        reqs += [Request(rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                         max_new=16) for n in GEMMA_LONG]
+    outs, serve = serve_counted(torch, kernel, engine, reqs, per_forward,
+                                arch)
+    s = engine.stats
+    busy = phase_profile(torch, engine, reqs, serve["step_ms"])
+    rows = {b * t for b, t in s.prefill_shapes} | set(s.decode_shapes) | {1}
+
+    row = dict(model=arch, layers=cfg.n_layers,
+               full_layers=get_full_depth(arch), requests=len(reqs),
+               tokens=serve["tokens"], seconds=serve["seconds"],
+               tokens_per_s=serve["tokens"] / serve["seconds"],
+               decode_ms_per_step=serve["step_ms"],
+               device_busy_ms_per_step=busy,
+               device_idle_share=(None if busy is None
+                                  else 1 - busy / serve["step_ms"]),
+               launches=serve["launches"], launches_per_forward=per_forward,
+               forwards=serve["forwards"],
+               frozen_table_bytes=engine.frozen_table_bytes(),
+               expert_table_bytes=experts,
+               device_memory_allocated=torch.cuda.memory_allocated(dev),
+               prefill_shapes=sorted(s.prefill_shapes),
+               decode_shapes=sorted(s.decode_shapes))
+    served = engine.runner.model
+    # the prompt compared: gemma3's 1400-token one, else the first request
+    prompt = reqs[-1].prompt if gemma else reqs[0].prompt
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    rows.add(toks.shape[1])
+    card = prefill_twice(torch, served, toks, arch)
+    if gemma:
+        e, planted, more = ring_check(torch, cfg, engine.params, prompt,
+                                      outs[-1], dev)
+        rows |= more
+        row.update(ring_rel_err=e, ring_planted_fault_rel_err=planted,
+                   **long_prefill_profile(torch, served, toks))
+    img = None
+    if cfg.n_img_tokens:
+        img = torch.randn(1, cfg.n_img_tokens, cfg.d_model,
+                          generator=torch.Generator().manual_seed(5)).to(
+                              dev, torch.bfloat16)
+        kernel.LAUNCHES["bc_matmul"] = 0
+        with torch.no_grad():
+            card = served.forward(toks, img_embeds=img)[0]
+        torch.cuda.synchronize()
+        if kernel.LAUNCHES["bc_matmul"] != per_forward:
+            fail(f"{arch}: image-prefix forward launched "
+                 f"{kernel.LAUNCHES['bc_matmul']} bc_matmul, not "
+                 f"{per_forward}")
+        rows.add(img.shape[1] + toks.shape[1])
+    frozen = engine.params
+    del engine, model, served
+    torch.cuda.empty_cache()
+    if cpu_depth is not None:
+        # compare a cut of the same width: fresh seeded params, frozen
+        cfg = serve_cfg(arch, cpu_depth)
+        cut = build_model(cfg, device=dev)
+        frozen = freeze_params(cut.specs(), init_params(cut.specs(), seed=1,
+                                                        device=dev))
+        load_tree(cut, frozen)
+        card = prefill_twice(torch, cut, toks, f"{arch} ({cpu_depth} layers)")
+        del cut
+    e, same, secs = card_vs_cpu(torch, cfg, frozen, toks, card, arch, img)
+    del frozen
+    torch.cuda.empty_cache()
+    row.update(cpu_vs_card_rel_err=e, cpu_vs_card_layers=cfg.n_layers,
+               cpu_seconds=secs, argmax_equal=same)
+    return row, rows
+
+
+def phase_examples(torch, kernel, dev):
+    """The paper's two examples on the card: ``train_one`` at block size 8
+    for EXAMPLE_STEPS AdamW steps each (finite losses, the last 5 below the
+    first 5), with launches held to EXAMPLE_LAUNCHES, and their times.
+    Returns report rows."""
+    from repro_torch.examples import lstm_asr, train_mnist_swm
+
+    out = []
+    for name, mod in (("train_mnist_swm", train_mnist_swm),
+                      ("lstm_asr", lstm_asr)):
+        torch.cuda.synchronize()
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        t = time.perf_counter()
+        acc, n, losses = mod.train_one(8, EXAMPLE_STEPS, device=dev)
+        dt = time.perf_counter() - t
+        launches = dict(kernel.LAUNCHES)
+        per_step, per_eval = EXAMPLE_LAUNCHES[name]
+        want = {kname: per_step[i] * EXAMPLE_STEPS
+                + per_eval[i] * len(mod.EVAL_STEPS)
+                for i, kname in enumerate(("bc_matmul", "bc_dw"))}
+        if {kname: launches[kname] for kname in want} != want:
+            fail(f"example {name}: launches {launches}, expected {want}")
+        first, last = losses[:5], losses[-5:]
+        if not all(math.isfinite(v) for v in losses) or not (
+                sum(last) < sum(first)):
+            fail(f"example {name}: losses {losses}")
+        print(f"example {name} (k=8, {EXAMPLE_STEPS} steps on the card): "
+              f"loss {losses[0]!r} -> {losses[-1]!r}, accuracy {acc!r}, "
+              f"{n} params, {dt:.2f}s ({dt / EXAMPLE_STEPS * 1e3:.1f} "
+              f"ms/step incl. evaluation); launches {launches}")
+        out.append(dict(example=name, block_size=8, steps=EXAMPLE_STEPS,
+                        seconds=dt, loss_first=losses[0],
+                        loss_last=losses[-1], accuracy=acc,
+                        launches=launches))
+    return out
 
 
 def main() -> int:
@@ -1446,7 +1895,7 @@ def main() -> int:
     paper_train, paper_train_launches = phase_paper_train(torch, kernel, dev)
     paper_mm_abs, paper_dw_abs = phase_paper_kernels(torch, kernel, quant,
                                                      dev)
-    paper_times, paper_dw_row = phase_paper_times(torch, kernel, dev)
+    paper_times, paper_dw_rows = phase_paper_times(torch, kernel, dev)
     paper_launches = {"bc_matmul": paper_mm
                       + paper_train_launches["bc_matmul"],
                       "bc_dw": paper_train_launches["bc_dw"]}
@@ -1461,13 +1910,39 @@ def main() -> int:
         row, counts = phase_hybrid(torch, kernel, dev, arch)
         hybrid_rows.append(row)
         hybrid_counts |= counts
-    hybrid_abs = phase_hybrid_kernels(torch, kernel, quant, dev,
-                                      sorted(hybrid_counts))
+    hybrid_abs = phase_hybrid_kernels(
+        torch, kernel, quant, dev, {c[0]: hybrid_counts
+                                    for c in HYBRID_SHAPES})
     hybrid_times = phase_hybrid_times(
         torch, kernel, dev, [(n, G, p, q, per, B)
                              for n, G, p, q, per in HYBRID_SHAPES
                              for B in HYBRID_TIME_ROWS])
     hybrid_launches = {r["model"]: r["launches"] for r in hybrid_rows}
+
+    for arch, shapes in FAMILY_SHAPES.items():
+        want = family_per_forward(arch, serve_cfg(arch,
+                                                   FAMILY_DEPTHS[arch][0]))
+        if sum(c[4] for c in shapes) != want:
+            fail(f"FAMILY_SHAPES' launches do not sum to {arch}'s {want}")
+    family_rows, family_counts = [], {}
+    for arch in FAMILY_LAUNCHES:
+        row, counts = phase_family(torch, kernel, dev, arch)
+        family_rows.append(row)
+        family_counts.update((c[0], counts) for c in FAMILY_SHAPES[arch])
+    family_abs = phase_hybrid_kernels(
+        torch, kernel, quant, dev, family_counts,
+        shapes=[c for shapes in FAMILY_SHAPES.values() for c in shapes],
+        label="family", seed=10)
+    family_times = phase_hybrid_times(
+        torch, kernel, dev,
+        [(n, G, p, q, per, B) for arch, shapes in FAMILY_SHAPES.items()
+         for n, G, p, q, per in shapes
+         for B in (GEMMA_TIME_ROWS if arch == "gemma3-27b"
+                   else FAMILY_TIME_ROWS)], label="family", seed=11)
+    family_launches = {r["model"]: r["launches"] for r in family_rows}
+    example_rows = phase_examples(torch, kernel, dev)
+    example_launches = {name: sum(r["launches"][name] for r in example_rows)
+                        for name in ("bc_matmul", "bc_dw")}
 
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
@@ -1478,13 +1953,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
         "launches": (serve_launches + train_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
-                     + sum(hybrid_launches.values())),
+                     + sum(hybrid_launches.values())
+                     + sum(family_launches.values())
+                     + example_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
-                             "rwkv": hybrid_launches["rwkv6-7b"]},
-        "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs),
+                             "rwkv": hybrid_launches["rwkv6-7b"],
+                             **family_launches,
+                             "examples": example_launches["bc_matmul"]},
+        "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1492,15 +1971,17 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
-        "all_shapes": rows + paper_times + hybrid_times,
+        "all_shapes": rows + paper_times + hybrid_times + family_times,
     }, {
         "name": "bc_dw",
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
-        "launches": train_launches["bc_dw"] + paper_launches["bc_dw"],
+        "launches": (train_launches["bc_dw"] + paper_launches["bc_dw"]
+                     + example_launches["bc_dw"]),
         "launches_by_path": {"train": train_launches["bc_dw"],
-                             "paper": paper_launches["bc_dw"]},
+                             "paper": paper_launches["bc_dw"],
+                             "examples": example_launches["bc_dw"]},
         "max_abs_err": max(dw_abs, paper_dw_abs),
         "ms": dw_row["ms"],
         "plain_ms": dw_row["plain_ms"],
@@ -1511,10 +1992,11 @@ def main() -> int:
         "shape": f"fused QKV weight adjoint in training: x ({train_rows}, "
                  f"1024) and g ({train_rows}, 4096) bf16, dw (32, 1024) "
                  f"f32, k=128",
-        "all_shapes": dw_rows + [paper_dw_row],
+        "all_shapes": dw_rows + paper_dw_rows,
     }], "train": {"ms_per_step": train_ms,
                   "tokens_per_s": train_rows / train_ms * 1e3},
-        "paper": paper_rows + [paper_train], "hybrid": hybrid_rows}
+        "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
+        "family": family_rows, "examples": example_rows}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

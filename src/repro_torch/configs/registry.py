@@ -1,6 +1,6 @@
-"""--model registry: id -> (CONFIG, SMOKE). Only the archs the port
-serves so far are listed, under the reference's names; the others join
-with their model families."""
+"""--model registry: id -> (CONFIG, SMOKE), under the reference's names.
+Every decoder-family arch is listed; the enc-dec arch
+(seamless-m4t-medium) joins with its model family."""
 
 from __future__ import annotations
 
@@ -12,7 +12,13 @@ from repro_torch.configs.base import ModelConfig
 __all__ = ["ARCHS", "get_config", "get_smoke"]
 
 ARCHS: Dict[str, str] = {
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }

@@ -4,8 +4,12 @@ serves batched requests through the continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --model qwen3-0.6b \
         --batch 4 --cache-len 128
 
-``--model`` takes every id in ``configs/registry.ARCHS``: qwen3-0.6b and
-the recurrent hybrids jamba-v0.1-52b and rwkv6-7b, which the engine serves
+``--model`` takes every id in ``configs/registry.ARCHS``, the nine
+decoder-family archs: qwen3-0.6b, gemma3-27b (sliding-window rings),
+paligemma-3b (text-only requests under its prefix-LM mask, as the
+reference engine serves requests without ``extra``), deepseek-7b,
+internlm2-20b, qwen3-moe-235b-a22b and arctic-480b through
+``DecoderRunner``, and the recurrent hybrids jamba-v0.1-52b and rwkv6-7b
 through ``RecurrentRunner`` (``serve/runner.make_runner``).
 The circulant implementation (``impl``) comes from the config. The engine
 freezes the frequency tables once at load, rounds prefill launches to

@@ -1,10 +1,12 @@
 """HybridDecoderLM — the decoder-only backbone for the LM-family archs.
 
-Covers dense transformers (qwen3), Mamba + attention hybrids with MoE
-every other layer (jamba) and attention-free RWKV-6 (rwkv6): the mixers
-``attn``, ``mamba`` and ``rwkv``, the FFNs ``dense``, ``moe`` and
-``dense+moe`` (rwkv layers take the RWKV channel mix), tied or untied
-logits heads.
+Covers dense transformers (qwen3, deepseek, internlm2), the 5 local : 1
+global sliding-window interleave (gemma3), MoE (qwen3-moe; arctic with its
+parallel dense residual), prefix-LM decoding behind an image prefix
+(paligemma), Mamba + attention hybrids with MoE every other layer (jamba)
+and attention-free RWKV-6 (rwkv6): the mixers ``attn``, ``attn_local``,
+``mamba`` and ``rwkv``, the FFNs ``dense``, ``moe`` and ``dense+moe`` (rwkv
+layers take the RWKV channel mix), tied or untied logits heads.
 
 The reference stacks each layer group's params on a leading ``repeat``
 axis and runs the group with ``lax.scan``; the port keeps one
@@ -15,8 +17,10 @@ Mamba, ``{"shift_att", "shift_ffn", "wkv"}`` for RWKV. Under autograd with
 ``cfg.remat != "none"`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), as the reference's per-layer
 ``jax.checkpoint``: only the residual stream between layers stays live.
-Local (sliding-window) and prefix-LM attention raise until their slices
-are ported.
+An ``attn_local`` layer's KV cache is a ring of
+:func:`local_attn_cache_len` entries; every attention layer takes the
+prefix-LM span ``cfg.n_img_tokens``, and ``img_embeds`` (B, P, D) go in
+front of the token embeddings.
 """
 
 from __future__ import annotations
@@ -38,21 +42,26 @@ from repro_torch.nn.rwkv import (RWKV6ChannelMix, RWKV6TimeMix,
                                  init_rwkv_cache)
 from repro_torch.nn.ssm import Mamba, init_mamba_cache
 
-__all__ = ["HybridDecoderLM", "DecoderLayer"]
+__all__ = ["HybridDecoderLM", "DecoderLayer", "local_attn_cache_len"]
 
 RECURRENT_MIXERS = ("mamba", "rwkv")
+ATTENTION_MIXERS = ("attn", "attn_local")
+
+
+def local_attn_cache_len(cfg: ModelConfig, cache_len: int) -> int:
+    """Ring length an ``attn_local`` layer's KV cache is allocated with:
+    the sliding window, or ``cache_len`` when that is shorter."""
+    return min(cfg.sliding_window or cache_len, cache_len)
 
 
 def _mixer(cfg: ModelConfig, kind: str) -> nn.Module:
-    if kind == "attn":
-        return Attention(cfg)
+    if kind in ATTENTION_MIXERS:
+        return Attention(cfg, local=kind == "attn_local",
+                         prefix_len=cfg.n_img_tokens)
     if kind == "mamba":
         return Mamba(cfg)
     if kind == "rwkv":
         return RWKV6TimeMix(cfg)
-    if kind == "attn_local":
-        raise NotImplementedError("local (sliding-window) attention is not "
-                                  "ported yet")
     raise ValueError(f"unknown mixer {kind!r}")
 
 
@@ -87,7 +96,9 @@ class DecoderLayer(nn.Module):
     def init_cache(self, cfg: ModelConfig, batch: int, cache_len: int,
                    device) -> dict:
         kind = self.mixer_kind
-        if kind == "attn":
+        if kind in ATTENTION_MIXERS:
+            if kind == "attn_local":
+                cache_len = local_attn_cache_len(cfg, cache_len)
             return init_kv_cache(batch, cache_len, cfg.n_kv_heads,
                                  cfg.head_dim, cfg.dtype, device)
         if kind == "mamba":
@@ -107,7 +118,7 @@ class DecoderLayer(nn.Module):
         positions."""
         m = self._modules
         h = m["ln1"](x)
-        if self.mixer_kind == "attn":
+        if self.mixer_kind in ATTENTION_MIXERS:
             mo, _ = m["mixer"](h, positions, cache=cache)
         else:
             mo, _ = m["mixer"](h, cache=cache, mask=mask)
@@ -169,9 +180,12 @@ class HybridDecoderLM(nn.Module):
         return [layer.init_cache(self.cfg, batch, cache_len, self.device)
                 for layer in self._modules["layers"]]
 
-    def _trunk(self, tokens, positions, cache, moe_no_drop):
-        """Embedding, every layer and the final norm: (hidden, aux)."""
+    def _trunk(self, tokens, positions, cache, moe_no_drop, img_embeds=None):
+        """Embedding (after the image prefix, when given), every layer and
+        the final norm: (hidden, aux)."""
         x = self._modules["embed"].encode(tokens)
+        if img_embeds is not None:
+            x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         # the serve engine's left-pad lanes carry negative positions; the
         # recurrent mixers take their validity as a mask
@@ -196,9 +210,12 @@ class HybridDecoderLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
+                img_embeds: Optional[torch.Tensor] = None,
                 cache: Optional[List[dict]] = None,
                 logits_mode: str = "all", moe_no_drop: bool = False):
-        """tokens (B, S) -> (logits, cache). ``positions`` (B, S) default
+        """tokens (B, S) -> (logits, cache). ``img_embeds`` (B, P, D), the
+        VLM's image prefix, go in front of the token embeddings (logits
+        then cover P + S positions). ``positions`` (B, S) default
         to ``0..S-1``; negative positions (left-pad lanes) are masked out
         of attention, and when given on a model with recurrent mixers their
         validity ``positions >= 0`` keeps pad lanes out of every recurrent
@@ -209,7 +226,7 @@ class HybridDecoderLM(nn.Module):
         place."""
         if logits_mode not in ("all", "last", "none"):
             raise ValueError(f"logits_mode {logits_mode!r}: all | last | none")
-        x, _ = self._trunk(tokens, positions, cache, moe_no_drop)
+        x, _ = self._trunk(tokens, positions, cache, moe_no_drop, img_embeds)
         if logits_mode == "none":
             return x, cache
         if logits_mode == "last":
@@ -222,11 +239,12 @@ class HybridDecoderLM(nn.Module):
             return self._modules["embed"].decode(x)
         return x.float() @ self._modules["lm_head"]._buffers["w"].float()
 
-    def forward_hidden(self, tokens: torch.Tensor):
-        """Final hidden states for chunked-loss training: (hidden (B, S,
-        D), aux), aux being the summed MoE auxiliary loss (0 without
+    def forward_hidden(self, tokens: torch.Tensor, *,
+                       img_embeds: Optional[torch.Tensor] = None):
+        """Final hidden states for chunked-loss training: (hidden (B, P +
+        S, D), aux), aux being the summed MoE auxiliary loss (0 without
         MoE)."""
-        return self._trunk(tokens, None, None, False)
+        return self._trunk(tokens, None, None, False, img_embeds)
 
     def output_table(self) -> torch.Tensor:
         """(V, D) matrix the chunked loss uses: the tied embedding or the
@@ -240,4 +258,12 @@ class HybridDecoderLM(nn.Module):
         cache)."""
         logits, cache = self.forward(tokens, positions=pos[:, None].to(
             torch.int32), cache=cache, moe_no_drop=moe_no_drop)
+        return logits[:, -1], cache
+
+    def prefill(self, tokens, cache, img_embeds=None):
+        """Prompt forward into ``cache`` (positions ``0..P+S-1``): (the last
+        position's logits (B, V), cache)."""
+        logits, cache = self.forward(tokens, cache=cache,
+                                     img_embeds=img_embeds,
+                                     logits_mode="last")
         return logits[:, -1], cache

@@ -1,12 +1,21 @@
-"""Grouped-query attention: rotary, qk-norm, ring-buffer KV cache.
+"""Grouped-query attention: rotary, qk-norm, sliding window, prefix-LM,
+ring-buffer KV cache.
 
-GQA/MQA with optional qk-norm (qwen3), causal. Masks are predicates over
-absolute positions: keys with negative ``kv_pos`` (unfilled cache slots and
-the serve engine's left-pad lanes) are always masked. Long queries
-(``S > flash_q_chunk``) use a chunked online-softmax attention written as
-plain PyTorch loops. The KV cache stores absolute positions beside k/v and
-is updated in place. Local (sliding-window), cross, bidirectional and
-prefix-LM attention wait for the slices that serve those families.
+GQA/MQA with optional qk-norm (qwen3). Masks are predicates over absolute
+positions: keys with negative ``kv_pos`` (unfilled cache slots and the
+serve engine's left-pad lanes) are always masked; causal keys sit at or
+before the query, or inside the prefix-LM span ``kv_pos < prefix_len``
+(paligemma's image prefix, attended bidirectionally); local layers
+(gemma3's sliding window) also need ``q_pos - kv_pos < window``. A local
+layer's KV cache is a ring of the window's length, written at ``pos %
+ring``; the positions stored beside k/v mask its stale slots exactly.
+Local layers rotate with ``cfg.rope_theta_local``, global ones with
+``cfg.rope_theta``. Long queries (``S > flash_q_chunk``) use a chunked
+online-softmax attention written as plain PyTorch loops over every KV
+chunk (the reference's window span slicing only skips fully masked
+chunks, which the loops compute and mask). The KV cache is updated in
+place. Cross and bidirectional (encoder) attention wait for the enc-dec
+slice.
 """
 
 from __future__ import annotations
@@ -39,11 +48,23 @@ def init_kv_cache(batch, cache_len, n_kv, head_dim, dtype, device):
     }
 
 
-def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
-    """(B, Sq, Skv) additive f32 bias: valid cache slots (``kv_pos >= 0``)
-    at or before the query position."""
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+               causal: bool = True, window: int = 0,
+               prefix_len: int = 0) -> torch.Tensor:
+    """(B, Sq, Skv) additive f32 bias from position predicates: valid cache
+    slots (``kv_pos >= 0``); when ``causal``, keys at or before the query
+    or (``prefix_len > 0``) inside the bidirectional prefix; when
+    ``window > 0``, keys less than ``window`` positions back."""
+    qp = q_pos[:, :, None]
     kp = kv_pos[:, None, :]
-    ok = (kp >= 0) & (kp <= q_pos[:, :, None])
+    ok = kp >= 0
+    if causal:
+        c = kp <= qp
+        if prefix_len > 0:
+            c = c | (kp < prefix_len)
+        ok = ok & c
+    if window > 0:
+        ok = ok & (qp - kp < window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, neg)
@@ -58,7 +79,8 @@ def _scores(q, k, softcap):
     return s
 
 
-def flash_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0,
+def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                    prefix_len: int = 0, softcap: float = 0.0,
                     q_chunk: int = 512, kv_chunk: int = 1024):
     """Online-softmax attention over KV chunks, O(S·chunk) memory.
     q (B, Sq, HKV, G, hd), k/v (B, Skv, HKV, hd) -> (B, Sq, HKV, G, hd)."""
@@ -75,7 +97,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0,
         for k0 in range(0, Skv, kv_chunk):
             ki, vi = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
             s = _scores(qi, ki, softcap) + _mask_bias(
-                qpi, kv_pos[:, k0:k0 + kv_chunk])[:, None, None]
+                qpi, kv_pos[:, k0:k0 + kv_chunk], window=window,
+                prefix_len=prefix_len)[:, None, None]
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -88,23 +111,29 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _direct_attention(q, k, v, q_pos, kv_pos, *, softcap: float = 0.0):
+def _direct_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                      prefix_len: int = 0, softcap: float = 0.0):
     """Small-Sq path (decode, short prefill): one materialized score
     tensor."""
-    s = _scores(q, k, softcap) + _mask_bias(q_pos, kv_pos)[:, None, None]
+    s = _scores(q, k, softcap) + _mask_bias(
+        q_pos, kv_pos, window=window, prefix_len=prefix_len)[:, None, None]
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", w.to(q.dtype), v)
 
 
 class Attention(nn.Module):
-    """Self-attention with a fused QKV launch when all three projections
-    are circulant with one block size."""
+    """Causal self-attention with a fused QKV launch when all three
+    projections are circulant with one block size. ``local`` makes it a
+    sliding-window layer (``cfg.sliding_window``, ``cfg.rope_theta_local``);
+    ``prefix_len`` is the bidirectional prefix-LM span."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, local: bool = False,
+                 prefix_len: int = 0):
         super().__init__()
-        if cfg.n_img_tokens:
-            raise NotImplementedError("prefix-LM attention is not ported yet")
         self.cfg = cfg
+        self.prefix_len = int(prefix_len)
+        self.window = cfg.sliding_window if local else 0
+        self.rope_theta = cfg.rope_theta_local if local else cfg.rope_theta
         hd = cfg.head_dim
 
         def proj(i, o):
@@ -167,11 +196,12 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             q = self._modules["q_norm"](q)
             k = self._modules["k_norm"](k)
-        cos, sin = rotary(positions, hd, cfg.rope_theta)
+        cos, sin = rotary(positions, hd, self.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
         if cache is not None:
             cache = self._write_cache(cache, k, v, positions)
+            # the layer's own cache length: a local layer's is its ring
             if S == 1 or S < cache["k"].shape[1]:
                 # decode / short append: attend over the cache
                 k_att, v_att = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
@@ -183,14 +213,15 @@ class Attention(nn.Module):
             k_att, v_att, kv_pos = k, v, positions
 
         qg = q.reshape(B, S, HKV, HQ // HKV, hd)
+        masks = dict(window=self.window, prefix_len=self.prefix_len,
+                     softcap=cfg.logit_softcap)
         if S > cfg.flash_q_chunk:
             out = flash_attention(qg, k_att, v_att, positions, kv_pos,
-                                  softcap=cfg.logit_softcap,
                                   q_chunk=cfg.flash_q_chunk,
-                                  kv_chunk=cfg.flash_kv_chunk)
+                                  kv_chunk=cfg.flash_kv_chunk, **masks)
         else:
             out = _direct_attention(qg, k_att, v_att, positions, kv_pos,
-                                    softcap=cfg.logit_softcap)
+                                    **masks)
         return self._modules["o"](out.reshape(B, S, HQ * hd)), cache
 
     @staticmethod

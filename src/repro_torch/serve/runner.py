@@ -31,7 +31,9 @@ its own row only).
 are position-sliceable (a donor's rows for positions ``[0, m)`` could seed
 another request), with ``prefix_cache_unsupported_reason`` saying why not:
 full-length KV caches are, recurrent state is not. The engine's prefix
-cache itself is not ported yet; the flags mirror the reference's runners.
+cache itself is not ported yet, nor the reference's refusal for short
+local-attention rings (``DecoderRunner`` keeps the flag True for gemma3);
+the flags mirror the reference's runners otherwise.
 
 :func:`make_runner` picks the runner for a config.
 """
