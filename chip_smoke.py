@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per forward, then images/s or frames/s; one ``SWMCNN`` train step at
    batch 128 (launches (2, 1)) on the card against the CPU, then counted
    steps; both kernels against their plain versions at every new shape,
-   the MNIST example's (phase 11) included (``bc_dw`` at P = 8, Q = 100,
+   the MNIST example's (phase 12) included (``bc_dw`` at P = 8, Q = 100,
    k = 8 over 8192 rows and at P = 32, Q = 98 and 32, k = 8 over 128),
    and their times;
 9. the recurrent hybrids (``hybrid`` and ``rwkv`` paths): full-width
@@ -88,7 +88,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version at every new shape and row count (128-expert grouped launches
    group by group against single launches) and the times of every new
    shape;
-11. the paper's two examples (``repro_torch.examples``): ``train_one`` at
+11. the enc-dec family (``encdec`` path): full-width seamless-m4t-medium
+   (12 encoder + 12 decoder layers, bidirectional encoder, cross attention
+   over a stashed encoder K/V) with ``impl="pallas"`` and seeded random
+   params, served through ``make_runner`` -> ``EncDecRunner`` to the short
+   traffic, each request with seeded (4096, 1024) f32 frames; bc_matmul
+   held to 144 launches per prefill and 72 per decode step; a decode
+   profile, a profiled 4-request prefill (16,384 encoder rows) and the
+   device time of the runner's gather and place; the cross-cache check in
+   f32 (prefill + 15 cached decode steps against a no-cache forward, then a
+   planted fault that must exceed the limit); the first request's prefill
+   twice on the card (bit-identical) and against the CPU at full depth;
+   bc_matmul against its plain version at its four shapes and every row
+   count launched (int8 too), and their times at 4 to 16,384 rows;
+12. the paper's two examples (``repro_torch.examples``): ``train_one`` at
    block size 8 for 40 steps each on the card, losses finite and falling,
    launches held to the pinned counts (the MNIST example's shapes are
    checked in phase 8).
@@ -1216,11 +1229,13 @@ def serve_cfg(arch, depth=None):
     return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
 
 
-def card_vs_cpu(torch, cfg, frozen, toks, card, name, img=None):
-    """Logits of ``toks`` (and the image prefix ``img``) on the CPU from the
-    frozen tree ``frozen`` against ``card`` (the same forward on the card),
-    within FULL_WIDTH_TOL of the largest |logit|. Returns (rel err, argmax
-    equal, CPU seconds)."""
+def card_vs_cpu(torch, cfg, frozen, toks, card, name, img=None,
+                frames=None):
+    """Logits of ``toks`` (after the image prefix ``img``, or under the
+    encoder ``frames`` of an enc-dec model) on the CPU from the frozen tree
+    ``frozen`` against ``card`` (the same forward on the card), within
+    FULL_WIDTH_TOL of the largest |logit|. Returns (rel err, argmax equal,
+    CPU seconds)."""
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import load_tree
 
@@ -1228,10 +1243,14 @@ def card_vs_cpu(torch, cfg, frozen, toks, card, name, img=None):
     cpu_model = build_model(cfg, device="cpu")
     load_tree(cpu_model, to_device(frozen, "cpu"))
     with torch.no_grad():
-        cpu = cpu_model.forward(
-            toks.cpu(), img_embeds=None if img is None else img.cpu(),
-            logits_mode="last" if img is None else "all",
-            moe_no_drop=True)[0]
+        if frames is not None:
+            cpu = cpu_model.forward(frames.cpu(), toks.cpu(),
+                                    logits_mode="last")[0]
+        else:
+            cpu = cpu_model.forward(
+                toks.cpu(), img_embeds=None if img is None else img.cpu(),
+                logits_mode="last" if img is None else "all",
+                moe_no_drop=True)[0]
     secs = time.perf_counter() - t
     card = card.float().cpu()
     if card.shape != cpu.shape or not (torch.isfinite(card).all()
@@ -1242,8 +1261,11 @@ def card_vs_cpu(torch, cfg, frozen, toks, card, name, img=None):
     same = bool((card.argmax(-1) == cpu.argmax(-1)).all())
     what = f"{toks.shape[1]} tokens" + (
         "" if img is None else f" after a {img.shape[1]}-position image "
-        f"prefix, every position's logits")
-    print(f"{name} card vs cpu logits ({cfg.n_layers} layers at full width, "
+        f"prefix, every position's logits") + (
+        "" if frames is None else f" over {frames.shape[1]} encoder frames")
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.n_enc_layers
+             else cfg.n_layers)
+    print(f"{name} card vs cpu logits ({depth} layers at full width, "
           f"{what}): rel err {e:.3g} (tolerance {FULL_WIDTH_TOL}), argmax "
           f"equal: {same}; cpu pass {secs:.1f}s")
     if not e <= FULL_WIDTH_TOL:
@@ -1276,13 +1298,15 @@ def short_requests(cfg, n=8, max_new=16):
             for _ in range(n)]
 
 
-def serve_counted(torch, kernel, engine, reqs, per_forward, name):
+def serve_counted(torch, kernel, engine, reqs, per_forward, name,
+                  per_decode=None):
     """``reqs`` through the engine's streaming API with the bc_matmul count
     set to 0 just before and read just after, held to ``per_forward`` per
-    forward (prefill call or decode step). Returns ({rid index: tokens},
-    stats of the run)."""
+    prefill call and ``per_decode`` (default ``per_forward``) per decode
+    step. Returns ({rid index: tokens}, stats of the run)."""
+    per_decode = per_forward if per_decode is None else per_decode
     s = engine.stats
-    f0 = s.prefill_calls + s.decode_steps
+    prefills0, decodes0 = s.prefill_calls, s.decode_steps
     torch.cuda.synchronize()
     kernel.LAUNCHES["bc_matmul"] = 0
     t_start = time.perf_counter()
@@ -1300,23 +1324,29 @@ def serve_counted(torch, kernel, engine, reqs, per_forward, name):
     outs = engine.drain(rids)
     dt = time.perf_counter() - t_start
     launches = kernel.LAUNCHES["bc_matmul"]
-    forwards = s.prefill_calls + s.decode_steps - f0
+    prefills = s.prefill_calls - prefills0
+    decodes = s.decode_steps - decodes0
+    forwards = prefills + decodes
     if [len(outs[r]) for r in rids] != [r.max_new for r in reqs]:
         fail(f"{name}: token counts {[len(outs[r]) for r in rids]}")
-    if launches != per_forward * forwards:
-        fail(f"{name}: bc_matmul launches {launches} != {per_forward} x "
-             f"{forwards} forwards")
+    want = per_forward * prefills + per_decode * decodes
+    held = (f"{per_forward} x {forwards}" if per_decode == per_forward
+            else f"{per_forward} x {prefills} prefills + {per_decode} x "
+            f"{decodes} decode steps")
+    if launches != want:
+        fail(f"{name}: bc_matmul launches {launches} != {held} = {want}")
     n_tok = sum(len(o) for o in outs.values())
     step_ms = statistics.median(decode_ms)
     print(f"{name} serve: {len(reqs)} requests = {n_tok} tokens in "
           f"{dt:.3f}s = {n_tok / dt:.1f} tok/s; {forwards} forwards "
           f"({len(decode_ms)} decode-only steps, median {step_ms:.2f} "
-          f"ms/step); bc_matmul launches {launches} = {per_forward} x "
-          f"{forwards}; all logits finite; prefill shapes "
-          f"{sorted(s.prefill_shapes)} decode {sorted(s.decode_shapes)}")
+          f"ms/step); bc_matmul launches {launches} = {held}; all logits "
+          f"finite; prefill shapes {sorted(s.prefill_shapes)} decode "
+          f"{sorted(s.decode_shapes)}")
     return ([outs[r] for r in rids],
             dict(tokens=n_tok, seconds=dt, step_ms=step_ms,
-                 launches=launches, forwards=forwards))
+                 launches=launches, forwards=forwards, prefills=prefills,
+                 decodes=decodes))
 
 
 def phase_hybrid(torch, kernel, dev, arch):
@@ -1391,9 +1421,9 @@ def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts,
     the forward), f32 and bf16 x,
     each launched twice (bit-identical). Grouped shapes also: every group
     of the grouped launch bit for bit against its own single launch, f32
-    and int8 tables, and the int8 grouped launch bit for bit against the
-    f32 grouped launch on dequantized tables. Returns the max abs error of
-    the f32 checks."""
+    and int8 tables. Every shape: the int8 launch bit for bit against the
+    f32 launch on dequantized tables. Returns the max abs error of the f32
+    checks."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst_abs, n_checks = 0.0, 0
     all_rows, groups = set(), set()
@@ -1425,30 +1455,30 @@ def phase_hybrid_kernels(torch, kernel, quant, dev, row_counts,
                 if x.dtype == torch.float32:
                     worst_abs = max(worst_abs, float((y - yp).abs().max()))
                 n_checks += 1
-        if G > 1:
-            sc = quant.symmetric_scales(wr, wi)
-            qr, qi = (quant.quantize_symmetric(wr, sc),
-                      quant.quantize_symmetric(wi, sc))
-            x = torch.randn(G, 4, q * K, generator=gen, device=dev).bfloat16()
-            y8 = kernel.bc_matmul(x, qr, qi, None, sc, k=K)
-            yd = kernel.bc_matmul(x, quant.dequantize_symmetric(qr, sc),
-                                  quant.dequantize_symmetric(qi, sc), k=K)
-            if not torch.equal(y8, yd):
-                fail(f"{name}: int8 grouped launch differs from the f32 "
-                     f"grouped launch on dequantized tables")
-            for g in range(G):
-                if not torch.equal(y8[g], kernel.bc_matmul(
-                        x[g], qr[g], qi[g], None, sc[g], k=K)):
-                    fail(f"{name}: int8 group {g} differs from its single "
-                         f"launch")
-            n_checks += 1
+        sc = quant.symmetric_scales(wr, wi)
+        qr, qi = (quant.quantize_symmetric(wr, sc),
+                  quant.quantize_symmetric(wi, sc))
+        x = torch.randn(*lead, 4, q * K, generator=gen, device=dev).bfloat16()
+        y8 = kernel.bc_matmul(x, qr, qi, None, sc, k=K)
+        yd = kernel.bc_matmul(x, quant.dequantize_symmetric(qr, sc),
+                              quant.dequantize_symmetric(qi, sc), k=K)
+        if not torch.equal(y8, yd):
+            fail(f"{name}: int8 launch differs from the f32 launch on "
+                 f"dequantized tables")
+        for g in range(G if G > 1 else 0):
+            if not torch.equal(y8[g], kernel.bc_matmul(
+                    x[g], qr[g], qi[g], None, sc[g], k=K)):
+                fail(f"{name}: int8 group {g} differs from its single "
+                     f"launch")
+        n_checks += 1
+    grouped = (f" (grouped G={max(groups)} at the expert shapes)"
+               if max(groups) > 1 else "")
     print(f"{label} bc_matmul checks: {n_checks} passed at {len(shapes)} "
-          f"shapes (grouped G={max(groups)} at the expert shapes) x rows "
-          f"{sorted(all_rows)} (f32 rel <= {FP32_TOL}, bf16 rel <= "
-          f"{BF16_TOL:.3g}; repeat launches bit-identical; every group of a "
-          f"grouped launch bit-identical to its single launch, f32 and int8; "
-          f"int8 bit-identical to dequantized f32); max abs err (f32) = "
-          f"{worst_abs!r}")
+          f"shapes{grouped} x rows {sorted(all_rows)} (f32 rel <= "
+          f"{FP32_TOL}, bf16 rel <= {BF16_TOL:.3g}; repeat launches "
+          f"bit-identical; every group of a grouped launch bit-identical to "
+          f"its single launch, f32 and int8; int8 bit-identical to "
+          f"dequantized f32); max abs err (f32) = {worst_abs!r}")
     return worst_abs
 
 
@@ -1810,6 +1840,291 @@ def phase_family(torch, kernel, dev, arch):
     return row, rows
 
 
+# ---------------------------------------------------------------------------
+# The enc-dec family (the eighth slice's path)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+# bc_matmul launches per prefill and per decode step, pinned: 4 per encoder
+# layer (fused QKV, o, wi, wo) and 8 per decoder layer in prefill (fused
+# self QKV, o; cross q, k, v, o; wi, wo), 6 in decode (the cross k/v come
+# from the cache): 12 x 4 + 12 x 8 and 12 x 6. ``encdec_launches`` derives
+# the same counts from the built model
+ENCDEC_LAUNCHES = (144, 72)
+# (name, groups, p, q, launches per prefill, launches per decode step) of
+# every bc_matmul shape the path launches at k = 128: the fused QKV (encoder
+# and decoder self attention), the 8 x 8 projections (every o; cross q, k
+# and v), the MLP's wi and wo
+ENCDEC_SHAPES = [("encdec.qkv", 1, 24, 8, 24, 12),
+                 ("encdec.proj", 1, 8, 8, 72, 36),
+                 ("encdec.wi", 1, 32, 8, 24, 12),
+                 ("encdec.wo", 1, 8, 32, 24, 12)]
+# rows of the timed launches: decode at 4 active slots, the 4 x 8 prefill
+# bucket, one request's and a 4-request bucket's encoder frames
+ENCDEC_TIME_ROWS = (4, 32, 4096, 16384)
+# the frames of every request come from this numpy seed (the prompts from
+# ``short_requests``' seed 0)
+ENCDEC_FRAME_SEED = 2
+ENCDEC_CACHE_LEN = 128
+# the cross-cache check compares two f32 card passes (cached decode, which
+# reads the cross K/V stashed at prefill, against a no-cache forward), so
+# it is not held to FULL_WIDTH_TOL. CROSS_TOL lies between the sound
+# reading and a planted fault's: encoder frame CROSS_FAULT_FRAME masked
+# (cross-cache pos = -1) in every decoder layer during decode, i.e. one key
+# of 4096 dropped per layer per step. On an NVIDIA H100 80GB HBM3 at 700 W
+# the sound pass reads 9.30e-7 and the planted fault 3.69e-6 (PERF.md §6)
+CROSS_TOL = 2e-6
+CROSS_FAULT_FRAME = 0
+
+
+def encdec_launches(model):
+    """(per prefill, per decode step) bc_matmul launches read off the built
+    model, once every projection is checked circulant: per encoder layer
+    the fused QKV, o, wi and wo; per decoder layer the fused self QKV, o,
+    cross q, k, v, o, wi and wo in prefill, less cross k and v in
+    decode."""
+    from repro_torch.nn.linear import Linear
+
+    flat = [m for m in model.modules() if isinstance(m, Linear)]
+    if not all(m.is_circulant for m in flat):
+        fail("enc-dec: a projection is not circulant")
+    n_enc = len(model._modules["encoder"])
+    n_dec = len(model._modules["decoder"])
+    return 4 * n_enc + 8 * n_dec, 6 * n_dec
+
+
+def encdec_frames(cfg, n):
+    """``n`` requests' encoder frames (enc_seq, d_model), f32, from
+    ENCDEC_FRAME_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(ENCDEC_FRAME_SEED)
+    return [rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(
+        np.float32) for _ in range(n)]
+
+
+def cross_check(torch, cfg, frozen, prompt, frames, gen, dev):
+    """The cross caches at full width and depth, in f32: the served model's
+    frozen tree ``frozen`` cast to f32 in an f32 model; prefill ``prompt``
+    under ``frames`` into a fresh B = 1 cache, then decode the engine's
+    tokens ``gen`` through it (cross K/V read back from the cache). The
+    logits of those len(gen) steps must equal a no-cache forward of
+    prompt + gen[:-1] within CROSS_TOL, with the same argmax at every step.
+    The cached pass runs again with a planted fault (encoder frame
+    CROSS_FAULT_FRAME's cross-cache position set to -1 in every decoder
+    layer after the prefill), whose reading must exceed CROSS_TOL. Returns
+    (rel err, planted rel err, the rows launched)."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import load_tree, tree_map
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    load_tree(model, tree_map(lambda t: t.float() if t.is_floating_point()
+                              else t, frozen))
+    L = len(prompt)
+    toks = torch.as_tensor(list(prompt) + list(gen[:-1]), dtype=torch.long,
+                           device=dev)[None]
+    f = torch.as_tensor(frames, device=dev)[None]
+
+    def cached(fault):
+        with torch.no_grad():
+            lg, cache = model.forward(f, toks[:, :L],
+                                      cache=model.init_cache(
+                                          1, ENCDEC_CACHE_LEN),
+                                      logits_mode="last")
+            steps = [lg[:, -1]]
+            if fault:
+                for c in cache["cross"]:
+                    c["pos"][:, CROSS_FAULT_FRAME] = -1
+            for i in range(len(gen) - 1):
+                lg, cache = model.decode_step(
+                    toks[:, L + i:L + i + 1], cache,
+                    torch.full((1,), L + i, dtype=torch.int32, device=dev))
+                steps.append(lg)
+        return torch.cat(steps).float()
+
+    steps = cached(False)
+    with torch.no_grad():
+        full = model.forward(f, toks)[0][0, L - 1:].float()
+    e = rel_err(steps, full)
+    planted = rel_err(cached(True), full)
+    agree = int((steps.argmax(-1) == full.argmax(-1)).sum())
+    del model
+    torch.cuda.empty_cache()
+    print(f"{ENCDEC_ARCH} cross-cache check (f32): prefill {L} tokens over "
+          f"{f.shape[1]} frames + {len(gen) - 1} decode steps reading the "
+          f"cross K/V from the cache, against a no-cache forward of "
+          f"{toks.shape[1]} tokens: rel err {e!r} (tolerance {CROSS_TOL}); "
+          f"planted fault (frame {CROSS_FAULT_FRAME} masked in every cross "
+          f"cache during decode) rel err {planted!r}; argmax of the cached "
+          f"steps equals the forward's at {agree} of {len(gen)} steps")
+    if not e <= CROSS_TOL:
+        fail(f"{ENCDEC_ARCH}: cached decode vs no-cache forward rel err "
+             f"{e:.3g} > {CROSS_TOL}")
+    if not planted > CROSS_TOL:
+        fail(f"{ENCDEC_ARCH}: the planted cross-cache fault reads "
+             f"{planted:.3g}, within the check's tolerance {CROSS_TOL}")
+    if agree != len(gen):
+        fail(f"{ENCDEC_ARCH}: cached and no-cache argmax agree at {agree} "
+             f"of {len(gen)} steps")
+    return e, planted, {f.shape[1], L, toks.shape[1], 1}
+
+
+def encdec_prefill_profile(torch, engine, reqs):
+    """Wall and device time of one 4-request prefill through the runner
+    (4 x enc_seq encoder rows through every encoder projection and the
+    plain-loop flash attention, the 4 x 8 decoder bucket), its bc_matmul
+    share, and the device time of one decode step's gather and place of
+    4 slots' whole state. Run on the idle engine's slots 0-3, which the
+    next admission overwrites."""
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
+
+    runner, dev = engine.runner, engine.device
+    chunk = reqs[:4]
+    Sb = 8
+    toks = np.zeros((4, Sb), np.int64)
+    pos = np.zeros((4, Sb), np.int32)
+    for j, r in enumerate(chunk):
+        T = r.prompt_len
+        toks[j, Sb - T:] = r.prompt
+        pos[j] = np.arange(Sb, dtype=np.int32) - (Sb - T)
+    args = (torch.as_tensor(toks, device=dev), torch.as_tensor(pos,
+                                                               device=dev))
+    extra = torch.as_tensor(np.stack([r.extra for r in chunk]), device=dev)
+    slots = torch.arange(4, device=dev)
+
+    def run():
+        runner.prefill(*args, engine.cache, slots, extra=extra)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = report_profile(torch, prof, 1, wall_ms, f"{ENCDEC_ARCH} prefill "
+                          f"of 4 requests ({4 * extra.shape[1]} encoder "
+                          f"rows, 4 x {Sb} decoder rows)")
+    bc_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "bc_matmul" in e.key) / 1e3
+    gp_ms = time_ms(torch, lambda: runner.place_state(
+        engine.cache, runner.gather_state(engine.cache, slots), slots),
+        runs=10)
+    print(f"  bc_matmul {bc_ms!r} ms of the prefill; gather + place of 4 "
+          f"slots' state (self rings and {engine.cfg.n_layers} cross caches "
+          f"of {extra.shape[1]} frames): {gp_ms!r} ms of device time")
+    return dict(prefill_wall_ms=wall_ms, prefill_busy_ms=busy,
+                prefill_bc_matmul_ms=bc_ms, gather_place_ms=gp_ms)
+
+
+def phase_encdec(torch, kernel, dev):
+    """Full-width seamless-m4t-medium (12 encoder + 12 decoder layers)
+    served through ``make_runner`` -> ``EncDecRunner``: the short traffic
+    (8 greedy requests x 16 tokens), each request with seeded (4096, 1024)
+    frames, with bc_matmul held to ENCDEC_LAUNCHES per prefill and decode
+    step; a decode profile; a profiled 4-request prefill; the first
+    request's prefill twice on the card (bit-identical) and against the
+    CPU; the cross-cache check. Returns (report row, the row counts
+    launched)."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.runner import EncDecRunner
+    import numpy as np
+
+    cfg = serve_cfg(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    engine = ServeEngine(model, cfg, params, batch=4,
+                         cache_len=ENCDEC_CACHE_LEN)
+    del params
+    torch.cuda.synchronize()
+    per_prefill, per_decode = encdec_launches(model)
+    if (per_prefill, per_decode) != ENCDEC_LAUNCHES:
+        fail(f"{ENCDEC_ARCH}: the model has {per_prefill}/{per_decode} "
+             f"bc_matmul launches per prefill/decode step, expected "
+             f"{ENCDEC_LAUNCHES}")
+    if type(engine.runner) is not EncDecRunner:
+        fail(f"{ENCDEC_ARCH}: served by {type(engine.runner).__name__}")
+    print(f"{ENCDEC_ARCH} full width ({cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, enc_seq {cfg.enc_seq}, "
+          f"{cfg.compute_dtype}, impl={cfg.swm.impl}): built, initialized "
+          f"and frozen in {time.perf_counter() - t0:.2f}s; frozen table "
+          f"bytes {engine.frozen_table_bytes()}; device memory allocated "
+          f"{torch.cuda.memory_allocated(dev)}; runner "
+          f"{type(engine.runner).__name__}, {per_prefill} bc_matmul "
+          f"launches per prefill, {per_decode} per decode step")
+    reqs = short_requests(cfg)
+    warm, *frames = encdec_frames(cfg, len(reqs) + 1)
+    for r, f in zip(reqs, frames):
+        r.extra = f
+    engine.generate([Request(np.arange(4, dtype=np.int32), max_new=2,
+                             extra=warm)])
+
+    outs, serve = serve_counted(torch, kernel, engine, reqs, per_prefill,
+                                ENCDEC_ARCH, per_decode=per_decode)
+    s = engine.stats
+    busy = phase_profile(torch, engine, reqs, serve["step_ms"])
+    prof = encdec_prefill_profile(torch, engine, reqs)
+    rows = ({b * t for b, t in s.prefill_shapes}
+            | {b * cfg.enc_seq for b, _ in s.prefill_shapes}
+            | set(s.decode_shapes) | {1})
+    row = dict(model=ENCDEC_ARCH, enc_layers=cfg.n_enc_layers,
+               layers=cfg.n_layers, requests=len(reqs),
+               tokens=serve["tokens"], seconds=serve["seconds"],
+               tokens_per_s=serve["tokens"] / serve["seconds"],
+               decode_ms_per_step=serve["step_ms"],
+               device_busy_ms_per_step=busy,
+               device_idle_share=(None if busy is None
+                                  else 1 - busy / serve["step_ms"]),
+               launches=serve["launches"],
+               launches_per_prefill=per_prefill,
+               launches_per_decode=per_decode, prefills=serve["prefills"],
+               decode_steps=serve["decodes"],
+               frozen_table_bytes=engine.frozen_table_bytes(),
+               device_memory_allocated=torch.cuda.memory_allocated(dev),
+               prefill_shapes=sorted(s.prefill_shapes),
+               decode_shapes=sorted(s.decode_shapes), **prof)
+
+    served = engine.runner.model
+    toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long,
+                           device=dev)[None]
+    f0 = torch.as_tensor(reqs[0].extra, device=dev)[None]
+    rows.add(toks.shape[1])
+    e, planted, more = cross_check(torch, cfg, engine.params, reqs[0].prompt,
+                                   reqs[0].extra, outs[0], dev)
+    rows |= more
+    frozen = engine.params
+    del engine, model
+    torch.cuda.empty_cache()
+    # the CPU pass runs the full depth (12.8 s on an H100 host, PERF.md §4)
+    with torch.no_grad():
+        card = served.forward(f0, toks, logits_mode="last")[0]
+        again = served.forward(f0, toks, logits_mode="last")[0]
+    torch.cuda.synchronize()
+    if not torch.equal(card, again):
+        fail(f"{ENCDEC_ARCH}: two prefills of one request on the card "
+             f"differ")
+    del served
+    torch.cuda.empty_cache()
+    e_cpu, same, secs = card_vs_cpu(torch, cfg, frozen, toks, card,
+                                    ENCDEC_ARCH, frames=f0)
+    del frozen
+    torch.cuda.empty_cache()
+    row.update(cross_rel_err=e, cross_planted_fault_rel_err=planted,
+               cpu_vs_card_rel_err=e_cpu, cpu_seconds=secs,
+               argmax_equal=same)
+    return row, rows
+
+
 def phase_examples(torch, kernel, dev):
     """The paper's two examples on the card: ``train_one`` at block size 8
     for EXAMPLE_STEPS AdamW steps each (finite losses, the last 5 below the
@@ -1940,6 +2255,20 @@ def main() -> int:
          for B in (GEMMA_TIME_ROWS if arch == "gemma3-27b"
                    else FAMILY_TIME_ROWS)], label="family", seed=11)
     family_launches = {r["model"]: r["launches"] for r in family_rows}
+
+    if tuple(sum(c[i] for c in ENCDEC_SHAPES) for i in (4, 5)) != \
+            ENCDEC_LAUNCHES:
+        fail(f"ENCDEC_SHAPES' launches do not sum to {ENCDEC_LAUNCHES}")
+    encdec_row, encdec_counts = phase_encdec(torch, kernel, dev)
+    encdec_abs = phase_hybrid_kernels(
+        torch, kernel, quant, dev, {c[0]: encdec_counts | {512}
+                                    for c in ENCDEC_SHAPES},
+        shapes=[c[:5] for c in ENCDEC_SHAPES], label="encdec", seed=12)
+    encdec_times = phase_hybrid_times(
+        torch, kernel, dev, [(n, G, p, q, per, B)
+                             for n, G, p, q, per, _ in ENCDEC_SHAPES
+                             for B in ENCDEC_TIME_ROWS],
+        label="encdec", seed=13)
     example_rows = phase_examples(torch, kernel, dev)
     example_launches = {name: sum(r["launches"][name] for r in example_rows)
                         for name in ("bc_matmul", "bc_dw")}
@@ -1955,6 +2284,7 @@ def main() -> int:
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
+                     + encdec_row["launches"]
                      + example_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["bc_matmul"],
@@ -1962,8 +2292,10 @@ def main() -> int:
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
                              "rwkv": hybrid_launches["rwkv6-7b"],
                              **family_launches,
+                             "encdec": encdec_row["launches"],
                              "examples": example_launches["bc_matmul"]},
-        "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs),
+        "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs,
+                           encdec_abs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1971,7 +2303,8 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
-        "all_shapes": rows + paper_times + hybrid_times + family_times,
+        "all_shapes": (rows + paper_times + hybrid_times + family_times
+                       + encdec_times),
     }, {
         "name": "bc_dw",
         "route": "cuda",
@@ -1996,7 +2329,8 @@ def main() -> int:
     }], "train": {"ms_per_step": train_ms,
                   "tokens_per_s": train_rows / train_ms * 1e3},
         "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
-        "family": family_rows, "examples": example_rows}
+        "family": family_rows, "encdec": encdec_row,
+        "examples": example_rows}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""--model registry: id -> (CONFIG, SMOKE), under the reference's names.
-Every decoder-family arch is listed; the enc-dec arch
-(seamless-m4t-medium) joins with its model family."""
+"""--model registry: id -> (CONFIG, SMOKE), under the reference's names:
+every arch of the reference's registry, the decoder family and the
+enc-dec arch (seamless-m4t-medium) alike."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ ARCHS: Dict[str, str] = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "paligemma-3b": "repro_torch.configs.paligemma_3b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 

@@ -9,7 +9,11 @@ period carry across (jamba's 32 layers are a 6-layer group repeated once
 and a 2-layer one at smoke size, an 8-layer group repeated 4 times at full
 size); a MoE layer's expert axis stays inside its leaves (``(E, p, q, k)``
 tables, ``(E, p, q)`` scales); top-level trees such as an untied
-``lm_head`` carry over as they are.
+``lm_head`` carry over as they are. The enc-dec family's reference tree
+stacks every ``encoder``/``decoder`` leaf on a leading layer axis
+(``(n_enc_layers, ...)``, ``(n_layers, ...)``); the port keeps
+``encoder/<n>/...`` and ``decoder/<n>/...``, and ``embed``, ``enc_norm``
+and ``dec_norm`` carry over as they are.
 
 :func:`from_reference` turns a reference tree given as nested dicts of
 numpy arrays into the port's tensor tree (install it with
@@ -61,11 +65,31 @@ def _layer_slots(cfg: ModelConfig):
     return out
 
 
+# the enc-dec family's layer stacks, each stacked on a leading layer axis
+# in the reference
+ENCDEC_STACKS = ("encoder", "decoder")
+
+
+def _stack(subs):
+    if isinstance(subs[0], dict):
+        return {k: _stack([s[k] for s in subs]) for k in subs[0]}
+    return np.stack(subs)
+
+
 def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
                    ) -> Dict[str, Any]:
     """Reference-layout numpy tree -> the port's per-layer tensor tree on
     ``device`` (default ``"cuda"``)."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        out = {k: tree_map(lambda a: _to_tensor(a, dev), v)
+               for k, v in tree.items() if k not in ENCDEC_STACKS}
+        depths = (cfg.n_enc_layers or cfg.n_layers, cfg.n_layers)
+        for name, n in zip(ENCDEC_STACKS, depths):
+            out[name] = {str(i): tree_map(
+                lambda a, i=i: _to_tensor(np.asarray(a)[i], dev),
+                tree[name]) for i in range(n)}
+        return out
     out = {k: tree_map(lambda a: _to_tensor(a, dev), v)
            for k, v in tree.items()
            if not k.startswith("group")}
@@ -81,21 +105,22 @@ def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
 
 def to_reference(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tensor tree -> reference-layout numpy tree (repeated
-    groups restacked on a leading axis)."""
+    groups and the enc-dec stacks restacked on a leading axis)."""
+    if cfg.family == "encdec":
+        out = {k: tree_map(_to_numpy, v) for k, v in tree.items()
+               if k not in ENCDEC_STACKS}
+        for name in ENCDEC_STACKS:
+            out[name] = _stack([tree_map(_to_numpy, tree[name][str(i)])
+                                for i in range(len(tree[name]))])
+        return out
     out = {k: tree_map(_to_numpy, v) for k, v in tree.items()
            if k != "layers"}
     stacks: Dict[tuple, list] = {}
     for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
         stacks.setdefault((gi, lkey, r is not None), []).append(
             tree_map(_to_numpy, tree["layers"][str(n)]))
-
-    def stack(subs):
-        if isinstance(subs[0], dict):
-            return {k: stack([s[k] for s in subs]) for k in subs[0]}
-        return np.stack(subs)
-
     for (gi, lkey, stacked), subs in stacks.items():
-        out.setdefault(f"group{gi}", {})[lkey] = (stack(subs) if stacked
+        out.setdefault(f"group{gi}", {})[lkey] = (_stack(subs) if stacked
                                                   else subs[0])
     return out
 

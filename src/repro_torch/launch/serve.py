@@ -4,13 +4,16 @@ serves batched requests through the continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --model qwen3-0.6b \
         --batch 4 --cache-len 128
 
-``--model`` takes every id in ``configs/registry.ARCHS``, the nine
-decoder-family archs: qwen3-0.6b, gemma3-27b (sliding-window rings),
+``--model`` takes every id in ``configs/registry.ARCHS``: the nine
+decoder-family archs, qwen3-0.6b, gemma3-27b (sliding-window rings),
 paligemma-3b (text-only requests under its prefix-LM mask, as the
 reference engine serves requests without ``extra``), deepseek-7b,
 internlm2-20b, qwen3-moe-235b-a22b and arctic-480b through
-``DecoderRunner``, and the recurrent hybrids jamba-v0.1-52b and rwkv6-7b
-through ``RecurrentRunner`` (``serve/runner.make_runner``).
+``DecoderRunner`` and the recurrent hybrids jamba-v0.1-52b and rwkv6-7b
+through ``RecurrentRunner``, and the enc-dec arch seamless-m4t-medium
+through ``EncDecRunner`` (``serve/runner.make_runner``), whose requests
+each carry seeded random encoder frames ``(enc_seq or cache_len,
+d_model)`` in place of the stubbed speech frontend.
 The circulant implementation (``impl``) comes from the config. The engine
 freezes the frequency tables once at load, rounds prefill launches to
 (batch-bucket, prompt-bucket) shapes and compacts decode launches to the
@@ -109,10 +112,19 @@ def main(argv=None):
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               seed=args.seed)
     rng = np.random.default_rng(args.seed)
+
+    def _extra():
+        # enc-dec requests carry per-request encoder frames (the speech
+        # frontend is a stub, so random embeddings stand in)
+        if cfg.family != "encdec":
+            return None
+        enc_len = cfg.enc_seq or args.cache_len
+        return rng.standard_normal((enc_len, cfg.d_model)).astype(np.float32)
+
     reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
                                  ).astype(np.int32),
                     max_new=args.max_new, stop_tokens=tuple(args.stop_token),
-                    sampling=sampling)
+                    sampling=sampling, extra=_extra())
             for _ in range(args.n_requests)]
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,21 +1,24 @@
 """Grouped-query attention: rotary, qk-norm, sliding window, prefix-LM,
-ring-buffer KV cache.
+bidirectional (encoder) and cross attention, ring-buffer KV cache.
 
 GQA/MQA with optional qk-norm (qwen3). Masks are predicates over absolute
 positions: keys with negative ``kv_pos`` (unfilled cache slots and the
 serve engine's left-pad lanes) are always masked; causal keys sit at or
 before the query, or inside the prefix-LM span ``kv_pos < prefix_len``
 (paligemma's image prefix, attended bidirectionally); local layers
-(gemma3's sliding window) also need ``q_pos - kv_pos < window``. A local
-layer's KV cache is a ring of the window's length, written at ``pos %
-ring``; the positions stored beside k/v mask its stale slots exactly.
-Local layers rotate with ``cfg.rope_theta_local``, global ones with
-``cfg.rope_theta``. Long queries (``S > flash_q_chunk``) use a chunked
-online-softmax attention written as plain PyTorch loops over every KV
-chunk (the reference's window span slicing only skips fully masked
-chunks, which the loops compute and mask). The KV cache is updated in
-place. Cross and bidirectional (encoder) attention wait for the enc-dec
-slice.
+(gemma3's sliding window) also need ``q_pos - kv_pos < window``;
+``causal=False`` (the enc-dec encoder, and cross attention) drops the
+causal predicate. A local layer's KV cache is a ring of the window's
+length, written at ``pos % ring``; the positions stored beside k/v mask
+its stale slots exactly. Local layers rotate with
+``cfg.rope_theta_local``, global ones with ``cfg.rope_theta``. Cross
+attention (enc-dec) takes q from x and k/v from the encoder output
+``kv_x``, without rope; at prefill its cache stashes the encoder's K/V and
+positions, and decode steps read them back. Long queries (``S >
+flash_q_chunk``) use a chunked online-softmax attention written as plain
+PyTorch loops over every KV chunk (the reference's window span slicing
+only skips fully masked chunks, which the loops compute and mask). The KV
+cache is updated in place.
 """
 
 from __future__ import annotations
@@ -79,9 +82,10 @@ def _scores(q, k, softcap):
     return s
 
 
-def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                    prefix_len: int = 0, softcap: float = 0.0,
-                    q_chunk: int = 512, kv_chunk: int = 1024):
+def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                    window: int = 0, prefix_len: int = 0,
+                    softcap: float = 0.0, q_chunk: int = 512,
+                    kv_chunk: int = 1024):
     """Online-softmax attention over KV chunks, O(S·chunk) memory.
     q (B, Sq, HKV, G, hd), k/v (B, Skv, HKV, hd) -> (B, Sq, HKV, G, hd)."""
     B, Sq, HKV, G, hd = q.shape
@@ -97,8 +101,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
         for k0 in range(0, Skv, kv_chunk):
             ki, vi = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
             s = _scores(qi, ki, softcap) + _mask_bias(
-                qpi, kv_pos[:, k0:k0 + kv_chunk], window=window,
-                prefix_len=prefix_len)[:, None, None]
+                qpi, kv_pos[:, k0:k0 + kv_chunk], causal=causal,
+                window=window, prefix_len=prefix_len)[:, None, None]
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -111,27 +115,36 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _direct_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                      prefix_len: int = 0, softcap: float = 0.0):
+def _direct_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                      window: int = 0, prefix_len: int = 0,
+                      softcap: float = 0.0):
     """Small-Sq path (decode, short prefill): one materialized score
     tensor."""
     s = _scores(q, k, softcap) + _mask_bias(
-        q_pos, kv_pos, window=window, prefix_len=prefix_len)[:, None, None]
+        q_pos, kv_pos, causal=causal, window=window,
+        prefix_len=prefix_len)[:, None, None]
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", w.to(q.dtype), v)
 
 
 class Attention(nn.Module):
-    """Causal self-attention with a fused QKV launch when all three
-    projections are circulant with one block size. ``local`` makes it a
-    sliding-window layer (``cfg.sliding_window``, ``cfg.rope_theta_local``);
-    ``prefix_len`` is the bidirectional prefix-LM span."""
+    """Self-attention with a fused QKV launch when all three projections
+    are circulant with one block size, or cross attention. ``local`` makes
+    it a sliding-window layer (``cfg.sliding_window``,
+    ``cfg.rope_theta_local``); ``prefix_len`` is the bidirectional
+    prefix-LM span; ``causal=False`` attends both ways (the encoder);
+    ``cross`` takes k/v from ``kv_x`` or the cache, never fused (a frozen
+    tree's ``FUSED_KEY`` table, which freezing attaches to any q/k/v
+    triple, goes unread), without rope and unmasked by causality."""
 
     def __init__(self, cfg: ModelConfig, local: bool = False,
-                 prefix_len: int = 0):
+                 prefix_len: int = 0, cross: bool = False,
+                 causal: bool = True):
         super().__init__()
         self.cfg = cfg
         self.prefix_len = int(prefix_len)
+        self.cross = bool(cross)
+        self.causal = bool(causal)
         self.window = cfg.sliding_window if local else 0
         self.rope_theta = cfg.rope_theta_local if local else cfg.rope_theta
         hd = cfg.head_dim
@@ -180,26 +193,58 @@ class Attention(nn.Module):
             k=kb)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                cache: Optional[dict] = None
+                cache: Optional[dict] = None,
+                kv_x: Optional[torch.Tensor] = None,
+                kv_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """x (B, S, D), positions (B, S) -> (out, cache). The cache, when
-        given, is updated in place and returned."""
+        """x (B, S, D), positions (B, S) -> (out, cache). ``kv_x`` (B, T, D)
+        is the cross-attention source (the encoder output) and
+        ``kv_positions`` (B, T) its positions (self-attention: the keys'
+        positions, default ``positions``). The cache, when given, is
+        updated in place and returned: a self-attention cache by a ring
+        write; a cross cache, when ``kv_x`` is given (prefill), by the
+        fresh K/V and ``kv_positions`` replacing its entries (the
+        reference's ``update_cache``, which its callers set exactly when
+        they pass ``kv_x``); in decode, ``kv_x=None``, it is only read."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd, HQ, HKV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        qkv = self._fused_qkv(x)
-        if qkv is None:
-            qkv = [self._modules[n](x) for n in ("q", "k", "v")]
-        q = qkv[0].reshape(B, S, HQ, hd)
-        k = qkv[1].reshape(B, S, HKV, hd)
-        v = qkv[2].reshape(B, S, HKV, hd)
+        m = self._modules
+        qkv = (self._fused_qkv(x) if kv_x is None and not self.cross
+               else None)
+        if qkv is not None:
+            q = qkv[0].reshape(B, S, HQ, hd)
+            k = qkv[1].reshape(B, S, HKV, hd)
+            v = qkv[2].reshape(B, S, HKV, hd)
+        else:
+            q = m["q"](x).reshape(B, S, HQ, hd)
+            if self.cross and cache is not None and kv_x is None:
+                k = v = None                 # cross decode: K/V from cache
+            else:
+                src = x if kv_x is None else kv_x
+                k = m["k"](src).reshape(B, src.shape[1], HKV, hd)
+                v = m["v"](src).reshape(B, src.shape[1], HKV, hd)
         if cfg.qk_norm:
-            q = self._modules["q_norm"](q)
-            k = self._modules["k_norm"](k)
-        cos, sin = rotary(positions, hd, self.rope_theta)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            q = m["q_norm"](q)
+            if k is not None:
+                k = m["k_norm"](k)
+        if not self.cross:
+            rope = rotary(positions, hd, self.rope_theta)
+            q = apply_rope(q, *rope)
+            if k is not None:
+                if kv_positions is not None:
+                    rope = rotary(kv_positions, hd, self.rope_theta)
+                k = apply_rope(k, *rope)
 
-        if cache is not None:
+        if cache is not None and self.cross:
+            if k is not None:                     # prefill: stash enc K/V
+                cache["k"] = k.to(cache["k"].dtype)
+                cache["v"] = v.to(cache["v"].dtype)
+                cache["pos"] = kv_positions.to(torch.int32)
+            # prefill and decode alike attend over the cache's contents
+            k_att, v_att = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+            kv_pos = cache["pos"]
+        elif cache is not None:
             cache = self._write_cache(cache, k, v, positions)
             # the layer's own cache length: a local layer's is its ring
             if S == 1 or S < cache["k"].shape[1]:
@@ -210,10 +255,12 @@ class Attention(nn.Module):
                 # prefill covering the whole cache: attend over fresh kv
                 k_att, v_att, kv_pos = k, v, positions
         else:
-            k_att, v_att, kv_pos = k, v, positions
+            k_att, v_att = k, v
+            kv_pos = positions if kv_positions is None else kv_positions
 
         qg = q.reshape(B, S, HKV, HQ // HKV, hd)
-        masks = dict(window=self.window, prefix_len=self.prefix_len,
+        masks = dict(causal=self.causal and not self.cross,
+                     window=self.window, prefix_len=self.prefix_len,
                      softcap=cfg.logit_softcap)
         if S > cfg.flash_q_chunk:
             out = flash_attention(qg, k_att, v_att, positions, kv_pos,
@@ -222,7 +269,7 @@ class Attention(nn.Module):
         else:
             out = _direct_attention(qg, k_att, v_att, positions, kv_pos,
                                     **masks)
-        return self._modules["o"](out.reshape(B, S, HQ * hd)), cache
+        return m["o"](out.reshape(B, S, HQ * hd)), cache
 
     @staticmethod
     def _write_cache(cache, k, v, positions):

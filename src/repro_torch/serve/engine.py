@@ -30,9 +30,14 @@ pure permutation of slot rows, over every state leaf the runner holds (KV
 caches, Mamba's conv and SSM states, RWKV's shift and WKV states).
 
 Everything model-shaped sits behind a :mod:`repro_torch.serve.runner`
-runner. The reference engine's prefix cache, deadlines/cancel/shedding,
-snapshot/restore, tenants and audit are not ported yet; without its
-per-request NaN guard, non-finite logits raise ``FloatingPointError``.
+runner. Requests of a family whose runner ``requires_extra`` (the enc-dec
+family) carry their conditioning as ``Request.extra``, the encoder frames
+``(enc_seq, d_model)``: the runner's ``validate_request`` checks it at
+``submit``/``generate`` (decoder families refuse it), and a prefill
+chunk's frames go to the runner stacked as f32. The reference engine's
+prefix cache, deadlines/cancel/shedding, snapshot/restore, tenants and
+audit are not ported yet; without its per-request NaN guard, non-finite
+logits raise ``FloatingPointError``.
 """
 
 from __future__ import annotations
@@ -159,11 +164,18 @@ def _sample_token(logits: np.ndarray, sp: SamplingParams,
 
 @dataclasses.dataclass
 class Request:
+    """``extra``: per-request conditioning for families whose runner
+    declares ``requires_extra`` — for enc-dec configs, the encoder frame
+    embeddings with shape ``(enc_seq, d_model)``. Decoder-only families
+    must leave it ``None`` (the runner's ``validate_request`` enforces
+    both ways)."""
+
     prompt: np.ndarray
     max_new: int = 16
     stop_tokens: Tuple[int, ...] = ()
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
+    extra: Optional[np.ndarray] = None
 
     def __post_init__(self):
         self.stop_tokens = tuple(int(t) for t in self.stop_tokens)
@@ -409,9 +421,14 @@ class ServeEngine:
                     # pads get negative positions -> attention-masked
                     pos[j] = np.arange(Sb, dtype=np.int32) - (Sb - T)
                     self.stats.padded_prompt_tokens += Sb - T
+                extra = None
+                if self.runner.requires_extra:
+                    extra = self._tensor(np.stack([
+                        np.asarray(self._req[rid].extra, np.float32)
+                        for rid in chunk]))
                 logits, ok, self.cache = self.runner.prefill(
                     self._tensor(toks), self._tensor(pos), self.cache,
-                    self._tensor(np.asarray(slots, np.int64)))
+                    self._tensor(np.asarray(slots, np.int64)), extra=extra)
                 self.stats.prefill_calls += 1
                 self.stats.prefill_shapes.add((Bb, Sb))
                 lg = logits.float().cpu().numpy()
@@ -459,6 +476,7 @@ class ServeEngine:
     def submit(self, request: Request) -> int:
         """Enqueue one request; returns its request id."""
         _validate_request(request, self.cache_len)
+        self.runner.validate_request(request)
         rid = self._next_rid
         self._next_rid += 1
         self._sched.submit(rid, request.prompt_len)
@@ -502,6 +520,7 @@ class ServeEngine:
         """Serve a list of requests; per-request tokens in request order."""
         for r in requests:
             _validate_request(r, self.cache_len)
+            self.runner.validate_request(r)
         rids = [self.submit(r) for r in requests]
         done = self.drain(rids)
         return [done[rid] for rid in rids]

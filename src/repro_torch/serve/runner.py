@@ -5,9 +5,11 @@ model-shaped lives behind a runner, which owns the per-slot *state* (the
 KV caches) and exposes the operations the engine composes:
 
 * ``init_state(batch)`` — fresh state with one row per slot;
-* ``prefill(tokens, positions, state, slot_idx)`` — run a bucket-shaped
-  prompt group on fresh rows and place them into ``state`` at
-  ``slot_idx``; returns ``(last_logits, ok, state)``;
+* ``prefill(tokens, positions, state, slot_idx, extra=None)`` — run a
+  bucket-shaped prompt group on fresh rows and place them into ``state``
+  at ``slot_idx``; returns ``(last_logits, ok, state)``. ``extra`` is the
+  chunk's stacked per-request conditioning (the enc-dec encoder frames);
+  decoder runners take none;
 * ``decode(tokens, state, pos, slot_idx)`` — gather the rows named by
   ``slot_idx``, decode one token, place them back; returns
   ``(logits, ok, state)``;
@@ -30,24 +32,30 @@ its own row only).
 **Capability flags.** ``supports_prefix_cache`` records whether state rows
 are position-sliceable (a donor's rows for positions ``[0, m)`` could seed
 another request), with ``prefix_cache_unsupported_reason`` saying why not:
-full-length KV caches are, recurrent state is not. The engine's prefix
-cache itself is not ported yet, nor the reference's refusal for short
-local-attention rings (``DecoderRunner`` keeps the flag True for gemma3);
-the flags mirror the reference's runners otherwise.
+full-length KV caches are, recurrent state and enc-dec cross-attention
+state are not. The engine's prefix cache itself is not ported yet, nor the
+reference's refusal for short local-attention rings (``DecoderRunner``
+keeps the flag True for gemma3); the flags mirror the reference's runners
+otherwise. ``requires_extra`` marks families whose requests carry
+per-request conditioning (``Request.extra``: the enc-dec encoder frames),
+and ``validate_request`` checks a request against it both ways.
 
-:func:`make_runner` picks the runner for a config.
+:func:`make_runner` picks the runner for a config: :class:`EncDecRunner`
+for the enc-dec family, :class:`RecurrentRunner` when recurrent mixers are
+present, else :class:`DecoderRunner`.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 
 __all__ = ["ModelRunner", "DecoderRunner", "RecurrentRunner",
-           "make_runner", "recurrent_mixer_names"]
+           "EncDecRunner", "make_runner", "recurrent_mixer_names"]
 
 
 def recurrent_mixer_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -68,6 +76,8 @@ class ModelRunner:
     supports_prefix_cache: bool = False
     #: why not, when they are not
     prefix_cache_unsupported_reason: str = ""
+    #: whether requests must carry per-request conditioning (Request.extra)
+    requires_extra: bool = False
 
     def __init__(self, model, cfg: ModelConfig, cache_len: int):
         self.model = model
@@ -80,7 +90,7 @@ class ModelRunner:
     def init_state(self, batch: int):
         raise NotImplementedError
 
-    def prefill(self, tokens, positions, state, slot_idx):
+    def prefill(self, tokens, positions, state, slot_idx, extra=None):
         raise NotImplementedError
 
     def decode(self, tokens, state, pos, slot_idx):
@@ -91,6 +101,16 @@ class ModelRunner:
 
     def place_state(self, state, sub, idx):
         raise NotImplementedError
+
+    def validate_request(self, r) -> None:
+        """Family-specific admission checks beyond the engine's shared
+        length/budget contract: a decoder family takes no ``extra``."""
+        if getattr(r, "extra", None) is not None:
+            raise ValueError(
+                f"request carries extra conditioning but "
+                f"{type(self).__name__} serves a decoder-only family that "
+                f"takes none (drop Request.extra, or serve an enc-dec "
+                f"config)")
 
 
 class DecoderRunner(ModelRunner):
@@ -103,7 +123,7 @@ class DecoderRunner(ModelRunner):
         return self.model.init_cache(batch, self.cache_len)
 
     @torch.no_grad()
-    def prefill(self, tokens, positions, state, slot_idx):
+    def prefill(self, tokens, positions, state, slot_idx, extra=None):
         fresh = self.init_state(tokens.shape[0])
         logits, filled = self.model.forward(tokens, positions=positions,
                                             cache=fresh, logits_mode="last",
@@ -150,12 +170,88 @@ class RecurrentRunner(DecoderRunner):
             f"entire prompt (serve this family with prefix_cache=False)")
 
 
+class EncDecRunner(ModelRunner):
+    """Runner over :class:`EncDecLM` (seamless-m4t). Requests carry the
+    encoder frames as ``Request.extra`` (shape ``(enc_len, d_model)``);
+    the encoder runs inside the prefill, once per request, and the
+    resulting cross-attention K/V live in the state beside the decoder's
+    self-attention rings, so decode steps never run the encoder again.
+
+    State: the model's cache, ``{"self": [...], "cross": [...]}`` with one
+    ``{"k", "v", "pos"}`` dict per decoder layer in each list, every leaf
+    with the slot axis at 0 (the reference stacks layers on axis 0 and
+    keeps the slot axis at 1). Decode gathers and places every active
+    slot's whole cross cache, as the reference does. The reference's
+    ``prewarm_extra`` (zero frames for prewarm launches) is not ported:
+    the port's engine has no prewarm."""
+
+    requires_extra = True
+    supports_prefix_cache = False
+    prefix_cache_unsupported_reason = (
+        "enc-dec cross-attention state is computed per request from "
+        "its encoder frames; donor rows cannot stand in for another "
+        "request's conditioning (serve with prefix_cache=False)")
+
+    def __init__(self, model, cfg: ModelConfig, cache_len: int):
+        super().__init__(model, cfg, cache_len)
+        self.enc_len = int(cfg.enc_seq or cache_len)
+
+    def init_state(self, batch: int) -> dict:
+        return self.model.init_cache(batch, self.cache_len)
+
+    @torch.no_grad()
+    def prefill(self, tokens, positions, state, slot_idx, extra=None):
+        """``extra`` (Bb, enc_len, d_model) are the chunk's stacked encoder
+        frames; the encoder pass runs here and its cross K/V are placed
+        into the slot state with the rest of the rows."""
+        fresh = self.init_state(tokens.shape[0])
+        logits, filled = self.model.forward(extra, tokens, cache=fresh,
+                                            logits_mode="last",
+                                            positions=positions)
+        last = logits[:, -1]
+        ok = torch.isfinite(last).all(dim=-1)
+        return last, ok, self.place_state(state, filled, slot_idx)
+
+    @torch.no_grad()
+    def decode(self, tokens, state, pos, slot_idx):
+        sub = self.gather_state(state, slot_idx)
+        logits, sub = self.model.decode_step(tokens, sub, pos)
+        ok = torch.isfinite(logits).all(dim=-1)
+        return logits, ok, self.place_state(state, sub, slot_idx)
+
+    def gather_state(self, state, idx):
+        return {part: [{n: t[idx] for n, t in layer.items()}
+                       for layer in layers]
+                for part, layers in state.items()}
+
+    def place_state(self, state, sub, idx):
+        for part, layers in state.items():
+            for dst, src in zip(layers, sub[part]):
+                for n, t in dst.items():
+                    t[idx] = src[n].to(t.dtype)
+        return state
+
+    def validate_request(self, r) -> None:
+        extra = getattr(r, "extra", None)
+        if extra is None:
+            raise ValueError(
+                f"enc-dec serving needs encoder frames per request: set "
+                f"Request.extra to an ({self.enc_len}, {self.cfg.d_model}) "
+                f"array of frame embeddings")
+        a = np.asarray(extra)
+        if a.shape != (self.enc_len, self.cfg.d_model):
+            raise ValueError(
+                f"Request.extra has shape {a.shape}, expected "
+                f"({self.enc_len}, {self.cfg.d_model}) "
+                f"(enc_seq x d_model for this config)")
+
+
 def make_runner(model, cfg: ModelConfig, cache_len: int) -> ModelRunner:
-    """The runner for a config: recurrent mixers present ->
-    :class:`RecurrentRunner`, else :class:`DecoderRunner`. The enc-dec
-    family (the reference's ``EncDecRunner``) is not ported yet."""
+    """The runner for a config: enc-dec family -> :class:`EncDecRunner`,
+    recurrent mixers present -> :class:`RecurrentRunner`, else
+    :class:`DecoderRunner`."""
     if cfg.family == "encdec":
-        raise NotImplementedError("enc-dec serving is not ported yet")
+        return EncDecRunner(model, cfg, cache_len)
     if recurrent_mixer_names(cfg):
         return RecurrentRunner(model, cfg, cache_len)
     return DecoderRunner(model, cfg, cache_len)

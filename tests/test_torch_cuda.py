@@ -489,3 +489,36 @@ def test_hybrid_smoke_engine_on_card_matches_cpu(cuda, arch):
             assert (kernel.LAUNCHES["bc_matmul"] - n0
                     == per_forward * forwards)
     assert outs["cpu"] == outs[str(cuda)]
+
+
+def test_encdec_smoke_engine_on_card_matches_cpu(cuda):
+    """seamless-m4t-medium's smoke config (f32, kernel impl) through
+    ServeEngine -> EncDecRunner on the card emits the CPU engine's greedy
+    tokens for requests with encoder frames, with 4 launches per encoder
+    layer and 8 per decoder layer per prefill, 6 per decoder layer per
+    decode step."""
+    from repro_torch.configs import seamless_m4t_medium as ts
+
+    cfg = dataclasses.replace(ts.SMOKE, swm=SWMConfig(block_size=8,
+                                                      impl="pallas"))
+    params = init_params(build_model(cfg, device="cpu").specs(), 0,
+                         device="cpu")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(2, 9))
+                                 ).astype(np.int32), max_new=5,
+                    extra=rng.standard_normal((cfg.enc_seq, cfg.d_model)
+                                              ).astype(np.float32))
+            for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        tree = params if dev == "cpu" else _to(params, dev)
+        eng = ServeEngine(build_model(cfg, device=dev), cfg, tree, batch=4,
+                          cache_len=32)
+        n0 = kernel.LAUNCHES["bc_matmul"]
+        outs[str(dev)] = eng.generate(reqs)
+        if dev != "cpu":
+            assert (kernel.LAUNCHES["bc_matmul"] - n0
+                    == (4 * cfg.n_enc_layers + 8 * cfg.n_layers)
+                    * eng.stats.prefill_calls
+                    + 6 * cfg.n_layers * eng.stats.decode_steps)
+    assert outs["cpu"] == outs[str(cuda)]

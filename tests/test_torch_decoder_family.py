@@ -22,7 +22,8 @@ included; paligemma's ``img_embeds`` through ``forward``,
 engine prefill against the B = 1 runner loop; greedy engine tokens against
 the JAX ``ServeEngine`` (text-only for paligemma, as the reference engine
 serves requests without ``extra``); the full configs field for field; the
-runner choice; the serve launcher at ``--smoke`` on the CPU.
+runner choice (and the decoder runner's refusal of a request's enc-dec
+``extra``); the serve launcher at ``--smoke`` on the CPU.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ import pytest
 import torch
 
 from repro.configs.base import SWMConfig as JSWM
+from repro.configs.registry import ARCHS as JARCHS
 from repro.kernels.block_circulant import plan as jplan
 from repro.models.decoder import HybridDecoderLM as JLM
 from repro.nn.module import init_params as jinit
@@ -47,7 +49,8 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params, load_tree
 from repro_torch.serve import engine as teng
-from repro_torch.serve.runner import DecoderRunner, make_runner
+from repro_torch.serve.runner import (DecoderRunner, EncDecRunner,
+                                      make_runner)
 from test_torch_recurrent import _b1_oracle, _layer_states, _rel, _reqs
 
 jax.config.update("jax_platform_name", "cpu")
@@ -303,20 +306,26 @@ def test_full_configs_mirror_reference():
             assert (dataclasses.asdict(getattr(tmod, which))
                     == dataclasses.asdict(getattr(jmod, which))), (name, which)
         assert ARCHS[arch] == tmod.__name__
-    assert "seamless-m4t-medium" not in ARCHS
+    assert sorted(ARCHS) == sorted(JARCHS)
     g = _mods("gemma3")[1].CONFIG
     mixers = [lspec.mixer for lspec in g.layer_specs()]
     assert (mixers.count("attn_local"), mixers.count("attn")) == (52, 10)
 
 
 def test_runner_choice_and_encdec_refusal():
+    """Every decoder-family arch gets ``DecoderRunner``, which refuses a
+    request carrying enc-dec conditioning (``extra``); the enc-dec family
+    gets ``EncDecRunner``."""
+    req = teng.Request(np.arange(1, 5, dtype=np.int32),
+                       extra=np.zeros((4, 4), np.float32))
     for name, (_, arch) in FAMILIES.items():
         cfg = get_smoke(arch)
-        assert type(make_runner(build_model(cfg, device="cpu"), cfg,
-                                16)) is DecoderRunner
+        runner = make_runner(build_model(cfg, device="cpu"), cfg, 16)
+        assert type(runner) is DecoderRunner
+        with pytest.raises(ValueError, match="extra"):
+            runner.validate_request(req)
     encdec = dataclasses.replace(get_smoke("qwen3-0.6b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        make_runner(None, encdec, 16)
+    assert type(make_runner(None, encdec, 16)) is EncDecRunner
 
 
 @pytest.mark.parametrize("model", ["gemma3-27b", "qwen3-moe-235b-a22b"])

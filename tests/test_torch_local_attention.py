@@ -44,8 +44,8 @@ jax.config.update("jax_platform_name", "cpu")
 ATT_TOL = 2e-5
 MASKS = [(True, 0, 0), (True, 16, 0), (True, 0, 10), (True, 16, 10),
          (False, 0, 0), (False, 16, 0)]
-# (window, prefix) of the causal attention paths (the port's attention is
-# causal; bidirectional attention waits for the enc-dec slice)
+# (window, prefix) of the causal attention paths (the bidirectional ones,
+# ``causal=False``, are tests/test_torch_encdec.py's)
 ATT_MASKS = [(0, 0), (16, 0), (0, 10), (16, 10), (8, 20), (40, 0)]
 
 
