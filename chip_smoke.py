@@ -104,7 +104,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. the paper's two examples (``repro_torch.examples``): ``train_one`` at
    block size 8 for 40 steps each on the card, losses finite and falling,
    launches held to the pinned counts (the MNIST example's shapes are
-   checked in phase 8).
+   checked in phase 8);
+13. training the MoE, vlm and enc-dec families (``train_family`` path):
+   qwen3-moe-235b-a22b (2 of 94 layers, full width: 128 experts, top-8,
+   untied head), paligemma-3b (18 layers, a seeded 256 x 2048 image prefix
+   per row) and seamless-m4t-medium (12 + 12 layers, seeded (256, 1024)
+   frames per row), each with ``impl="pallas"``, seeded random params,
+   AdamW, ``remat="block"`` and batch 8 x seq 256 in
+   ``launch.specs.batch_specs``' shapes through ``make_train_step``: one
+   warm-up step, then 4 counted steps with both kernels' launches held to
+   the pinned counts per step (36/10, 270/90, 432/144: the experts' grad
+   through one grouped ``bc_matmul`` dx and one grouped ``bc_dw`` per
+   projection), a profiled step (device busy and idle share), and one
+   step at batch 2 x seq 32 on the card against the CPU (loss and grad
+   norm); then ``bc_matmul`` against its plain version at every shape and
+   row count the path launches (the grouped G = 128 launches at the
+   capacity's 160 rows group by group against single launches), ``bc_dw``
+   against its plain version at every weight-adjoint shape it launches
+   (G = 128 grouped, both epilogues, f32 and bf16, bit-identical repeats)
+   and at a ragged grouped case (G = 3, 37 rows), and the times of every
+   shape beside the bound and ``torch.matmul``/``torch.bmm`` (for
+   ``bc_dw`` the dense weight gradient ``g^T @ x``).
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -273,6 +293,34 @@ def dw_tol(B):
     return FP32_TOL * max(1.0, B / DW_TOL_ROWS)
 
 
+def check_dw(torch, kernel, x32, g32, P, Q, k, name):
+    """bc_dw on ``x32``/``g32`` ((B, ·) or grouped (G, B, ·)) and on their
+    bf16 copies, in both epilogues, each launched twice (the two must agree
+    bit for bit), against its plain version within ``dw_tol(B)``. Returns
+    the max abs error of the f32 launches."""
+    B, worst_abs = x32.shape[-2], 0.0
+    tol = dw_tol(B)
+    for x, g in ((x32, g32), (x32.bfloat16(), g32.bfloat16())):
+        for freq_out in (False, True):
+            got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+            torch.cuda.synchronize()
+            got, again, ref = ((t,) if not freq_out else t
+                               for t in (got, again, ref))
+            for a, a2, r in zip(got, again, ref):
+                e = rel_err(a, r)
+                if not e <= tol:
+                    fail(f"bc_dw {name} B={B} P={P} Q={Q} k={k} {x.dtype} "
+                         f"freq_out={freq_out}: rel err {e:.3g} > "
+                         f"{tol:.3g}")
+                if not torch.equal(a, a2):
+                    fail(f"bc_dw {name} B={B}: two launches differ")
+                if x.dtype == torch.float32:
+                    worst_abs = max(worst_abs, float((a - r).abs().max()))
+    return worst_abs
+
+
 def phase_dw(torch, kernel, dev, row_counts):
     """bc_dw against its plain version: the slice's shapes at ``row_counts``
     in both epilogues, f32 and bf16 inputs, and ragged shapes; the same
@@ -292,28 +340,10 @@ def phase_dw(torch, kernel, dev, row_counts):
     for name, B, P, Q, k in cases:
         x32 = torch.randn(B, Q * k, generator=gen, device=dev)
         g32 = torch.randn(B, P * k, generator=gen, device=dev)
-        for x, g in ((x32, g32), (x32.bfloat16(), g32.bfloat16())):
-            tol = dw_tol(B)
-            for freq_out in (False, True):
-                got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
-                again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
-                ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k,
-                                         freq_out=freq_out)
-                torch.cuda.synchronize()
-                got, again, ref = ((t,) if not freq_out else t
-                                   for t in (got, again, ref))
-                for a, a2, r in zip(got, again, ref):
-                    e = rel_err(a, r)
-                    if not e <= tol:
-                        fail(f"bc_dw {name} B={B} P={P} Q={Q} k={k} "
-                             f"{x.dtype} freq_out={freq_out}: rel err "
-                             f"{e:.3g} > {tol:.3g}")
-                    if not torch.equal(a, a2):
-                        fail(f"bc_dw {name} B={B}: two launches differ")
-                    if x.dtype == torch.float32 and k == K:
-                        worst_abs = max(worst_abs,
-                                        float((a - r).abs().max()))
-                n_checks += 1
+        e = check_dw(torch, kernel, x32, g32, P, Q, k, name)
+        if k == K:
+            worst_abs = max(worst_abs, e)
+        n_checks += 4
     print(f"bc_dw checks: {n_checks} passed at slice shapes x rows "
           f"{list(row_counts)} and {len(RAGGED)} ragged shapes, both "
           f"epilogues, f32 and bf16 inputs (rel <= {FP32_TOL} x max(1, "
@@ -486,38 +516,6 @@ def phase_train(torch, dev):
     print(f"train grads: {len(cg)} circulant tables, all finite and "
           f"non-zero; global grad norm {float(global_norm(grads))!r}")
     return cfg, launches, ms, tokens
-
-
-def phase_train_cpu_vs_card(torch, cfg, dev):
-    """One full-width train step at batch 2 x seq 32 on the card and on
-    the CPU from the same params and batch: loss and grad norm."""
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch.specs import build_model
-    from repro_torch.nn.module import init_params
-    from repro_torch.train.loop import init_train_state, make_train_step
-
-    tcfg = TrainConfig()
-    card_params = init_params(build_model(cfg, device=dev).specs(), seed=1,
-                              device=dev)
-    tokens = torch.from_numpy(SyntheticLM(vocab=cfg.vocab, seq_len=32,
-                                          batch=2, seed=1).batch_np(0)[
-                                              "tokens"])
-    out = {}
-    for name, d, params in (("card", dev, card_params),
-                            ("cpu", "cpu", to_device(card_params, "cpu"))):
-        model = build_model(cfg, device=d)
-        state = init_train_state(params, tcfg, cfg.optimizer)
-        _, m = make_train_step(model, cfg, tcfg)(
-            state, {"tokens": tokens.to(d)})
-        out[name] = (float(m["loss"]), float(m["grad_norm"]))
-    (lc, nc), (lp, npu) = out["card"], out["cpu"]
-    el, en = abs(lc - lp) / abs(lp), abs(nc - npu) / abs(npu)
-    print(f"card vs cpu train step (full width, batch 2 x seq 32): loss "
-          f"{lc!r} vs {lp!r} (rel {el:.3g}), grad norm {nc!r} vs {npu!r} "
-          f"(rel {en:.3g}); tolerance {FULL_WIDTH_TOL}")
-    if not (el <= FULL_WIDTH_TOL and en <= FULL_WIDTH_TOL):
-        fail("card vs cpu train step differs beyond the tolerance")
 
 
 def phase_cpu_vs_card(torch, cfg, engine, prompt_req):
@@ -2162,6 +2160,320 @@ def phase_examples(torch, kernel, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training the MoE, vlm and enc-dec families (the ninth slice's path)
+# ---------------------------------------------------------------------------
+
+# the depth each arch trains at (None: full depth). qwen3-moe's 94 layers
+# are all one kind (attention + a 128-expert MoE) and its full model (235 B
+# params, with AdamW's moments) does not fit one card, so it trains a
+# 2-layer cut as its serve path does: every layer kind and every grouped
+# expert launch stay, at full width
+TRAIN_FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 2, "paligemma-3b": None,
+                      "seamless-m4t-medium": None}
+# (bc_matmul, bc_dw) launches per train step, pinned. remat="block" in all
+# three configs: each launch of a forward runs again in the layer's
+# recompute and once more as dx on the transposed grid (3 per projection),
+# a MoE layer's three grouped expert projections once more in the experts'
+# own recompute, and each projection takes one bc_dw. qwen3-moe 2 x (3 x 5
+# + 3) and 2 x 5; paligemma 3 x 90 and 90; seamless 3 x 144 and 144.
+# ``train_family_launches`` derives the same counts from the built model
+TRAIN_FAMILY_LAUNCHES = {"qwen3-moe-235b-a22b": (36, 10),
+                         "paligemma-3b": (270, 90),
+                         "seamless-m4t-medium": (432, 144)}
+# batch 8 x seq 256: 2048 token rows; paligemma's 256-position image prefix
+# makes 8 x 512 = 4096; seamless's frames are min(256, enc_seq) = 256 per
+# row (launch.specs.batch_specs), 2048 encoder rows; qwen3-moe's capacity
+# C = int(2048 x 8 / 128 x 1.25) = 160 rows per expert
+TRAIN_FAMILY_BATCH = (8, 256)
+MOE_CAPACITY = 160
+# per arch, (name, groups, p, q, rows, bc_matmul launches, bc_dw launches)
+# per step of every shape the path launches at k = 128: each projection's
+# (p, q) with its forward and recompute launches and its bc_dw, and its dx
+# on the transposed (q, p) grid. Each arch's rows sum to
+# TRAIN_FAMILY_LAUNCHES
+TRAIN_FAMILY_SHAPES = {
+    "qwen3-moe-235b-a22b": [
+        ("qwen3_moe.qkv", 1, 72, 32, 2048, 4, 2),
+        ("qwen3_moe.qkv.dx", 1, 32, 72, 2048, 2, 0),
+        ("qwen3_moe.o", 1, 32, 64, 2048, 4, 2),
+        ("qwen3_moe.o.dx", 1, 64, 32, 2048, 2, 0),
+        ("qwen3_moe.expert.wi_wu", 128, 12, 32, MOE_CAPACITY, 12, 4),
+        ("qwen3_moe.expert.wi_wu.dx", 128, 32, 12, MOE_CAPACITY, 4, 0),
+        ("qwen3_moe.expert.wo", 128, 32, 12, MOE_CAPACITY, 6, 2),
+        ("qwen3_moe.expert.wo.dx", 128, 12, 32, MOE_CAPACITY, 2, 0)],
+    "paligemma-3b": [
+        ("paligemma.qkv", 1, 20, 16, 4096, 36, 18),
+        ("paligemma.qkv.dx", 1, 16, 20, 4096, 18, 0),
+        ("paligemma.o", 1, 16, 16, 4096, 54, 18),      # o and its dx
+        ("paligemma.wi_wu", 1, 128, 16, 4096, 90, 36),  # and wo's dx
+        ("paligemma.wo", 1, 16, 128, 4096, 72, 18)],    # and wi_wu's dx
+    "seamless-m4t-medium": [
+        ("encdec.qkv", 1, 24, 8, 2048, 48, 24),
+        ("encdec.qkv.dx", 1, 8, 24, 2048, 24, 0),
+        ("encdec.proj", 1, 8, 8, 2048, 216, 72),       # and their dx
+        ("encdec.wi", 1, 32, 8, 2048, 72, 24),         # and wo's dx
+        ("encdec.wo", 1, 8, 32, 2048, 72, 24)]}        # and wi's dx
+# the card-vs-CPU train step's batch (qwen3-0.6b's and each train_family
+# arch's): 2 x 32 tokens from other seeded params (a CPU pass at batch 8 x
+# 256 would take minutes); paligemma keeps its 256-position image prefix,
+# seamless's frames are min(32, 4096) = 32
+CPU_STEP_BATCH = (2, 32)
+# the ragged grouped bc_dw check: (G, B, P, Q); 37 rows leave a ragged last
+# row chunk
+GROUPED_DW_RAGGED = (3, 37, 12, 32)
+
+
+def train_family_launches(model, cfg):
+    """(bc_matmul, bc_dw) launches per train step read off the built model
+    (see TRAIN_FAMILY_LAUNCHES)."""
+    from repro_torch.nn.moe import MoE
+
+    per_forward = (encdec_launches(model)[0] if cfg.family == "encdec"
+                   else hybrid_launches(model))
+    passes = 3 if cfg.remat != "none" else 2     # forward, recompute, dx
+    moe = sum(isinstance(m, MoE) for m in model.modules())
+    return passes * per_forward + 3 * moe, per_forward
+
+
+def family_batch(torch, cfg, B, S, seed, dev):
+    """A training batch in ``launch.specs.batch_specs``' shapes and dtypes:
+    ``SyntheticLM`` tokens (``seed``) and, for a vlm or an enc-dec model,
+    an ``img`` or ``frames`` tensor of standard normals from a generator
+    seeded with ``seed``, made on the CPU and moved to ``dev``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.specs import batch_specs
+
+    specs = batch_specs(cfg, ShapeConfig("train_family", S, B, "train"))
+    gen = torch.Generator().manual_seed(seed)
+    batch = {}
+    for name, (shape, dtype) in specs.items():
+        if name == "tokens":
+            t = torch.from_numpy(SyntheticLM(vocab=cfg.vocab, seq_len=S,
+                                             batch=B, seed=seed).batch_np(
+                                                 0)["tokens"])
+        else:
+            t = torch.randn(shape, generator=gen).to(dtype)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            fail(f"batch {name}: {tuple(t.shape)} {t.dtype}, specs say "
+                 f"{shape} {dtype}")
+        batch[name] = t.to(dev)
+    return batch
+
+
+def train_step_card_vs_cpu(torch, cfg, dev, name):
+    """One full-width train step at CPU_STEP_BATCH on the card and
+    on the CPU from the same seeded params (seed 1) and batch
+    (``family_batch``, seed 1): loss and grad norm within FULL_WIDTH_TOL.
+    Returns (rel err of the loss, of the grad norm, CPU seconds)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    tcfg = TrainConfig()
+    card_params = init_params(build_model(cfg, device=dev).specs(), seed=1,
+                              device=dev)
+    cpu_params = to_device(card_params, "cpu")
+    B, S = CPU_STEP_BATCH
+    batch = family_batch(torch, cfg, B, S, 1, "cpu")
+    out = {}
+    for where, d, params in (("card", dev, card_params),
+                             ("cpu", "cpu", cpu_params)):
+        t = time.perf_counter()
+        model = build_model(cfg, device=d)
+        state = init_train_state(params, tcfg, cfg.optimizer)
+        _, m = make_train_step(model, cfg, tcfg)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        out[where] = (float(m["loss"]), float(m["grad_norm"]),
+                      time.perf_counter() - t)
+        del model, state, params
+    del card_params
+    torch.cuda.empty_cache()
+    (lc, nc, _), (lp, npu, secs) = out["card"], out["cpu"]
+    el, en = abs(lc - lp) / abs(lp), abs(nc - npu) / abs(npu)
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.n_enc_layers
+             else cfg.n_layers)
+    print(f"{name} card vs cpu train step ({depth} layers at full width, "
+          f"batch {B} x seq {S}): loss {lc!r} vs {lp!r} (rel "
+          f"{el:.3g}), grad norm {nc!r} vs {npu!r} (rel {en:.3g}); "
+          f"tolerance {FULL_WIDTH_TOL}; cpu step {secs:.1f}s")
+    if not (el <= FULL_WIDTH_TOL and en <= FULL_WIDTH_TOL):
+        fail(f"{name}: card vs cpu train step differs beyond the "
+             f"tolerance")
+    return el, en, secs
+
+
+def phase_train_family(torch, kernel, dev, arch):
+    """``arch`` trained on the card at full width through
+    ``make_train_step`` with ``impl="pallas"`` (AdamW, its config's
+    remat="block", batch TRAIN_FAMILY_BATCH from ``family_batch``): one
+    warm-up step, then 4 counted steps with both kernels' counts set to 0
+    just before and read just after, held to TRAIN_FAMILY_LAUNCHES; a
+    profiled step; then one step on the card against the CPU. Returns a
+    report row."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve_cfg(arch, TRAIN_FAMILY_DEPTH[arch])
+    tcfg = TrainConfig()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    state = init_train_state(params, tcfg, cfg.optimizer)
+    step_fn = make_train_step(model, cfg, tcfg)
+    derived = train_family_launches(model, cfg)
+    if derived != TRAIN_FAMILY_LAUNCHES[arch]:
+        fail(f"{arch}: the model has {derived} (bc_matmul, bc_dw) launches "
+             f"per train step, expected {TRAIN_FAMILY_LAUNCHES[arch]}")
+    B, S = TRAIN_FAMILY_BATCH
+    batches = [family_batch(torch, cfg, B, S, i, dev)
+               for i in range(TRAIN_STEPS + 2)]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    state, m = step_fn(state, batches[0])          # warm-up; lr(0) = 0
+    loss0 = float(m["loss"])
+    warm_s = time.perf_counter() - t
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    losses, norms, step_ms = [], [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        losses.append(float(m["loss"]))          # waits for the device
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(kernel.LAUNCHES)
+    mm, dw = TRAIN_FAMILY_LAUNCHES[arch]
+    want = {"bc_matmul": mm * TRAIN_STEPS, "bc_dw": dw * TRAIN_STEPS}
+    if not all(math.isfinite(v) for v in losses + norms + [loss0]):
+        fail(f"{arch}: non-finite train loss or grad norm: {losses} "
+             f"{norms}")
+    if launches != want:
+        fail(f"{arch}: train launches {launches} != {want}")
+    ms = statistics.median(step_ms)
+    tokens = B * S
+    peak = torch.cuda.max_memory_allocated(dev)
+    extra = {k: tuple(v.shape) for k, v in batches[0].items()
+             if k != "tokens"}
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.n_enc_layers
+             else f"{cfg.n_layers} of {get_full_depth(arch)}")
+    print(f"train_family {arch}: full width ({depth} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff_expert or cfg.d_ff}, experts "
+          f"{cfg.n_experts}, vocab {cfg.vocab}, remat={cfg.remat!r}, "
+          f"impl={cfg.swm.impl}, {n_params} params), AdamW, batch {B} x "
+          f"seq {S} = {tokens} tokens/step{'' if not extra else ' + '}"
+          f"{extra or ''}; built in {built_s:.1f}s; "
+          f"warm-up step {warm_s:.2f}s (loss {loss0!r}); steps 1..."
+          f"{TRAIN_STEPS}: losses {losses}, grad norms {norms}, ms/step "
+          f"{step_ms} (median {ms:.1f} = {tokens / ms * 1e3:.1f} tokens/s); "
+          f"launches {launches} = {want}; peak device memory {peak}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batches[TRAIN_STEPS + 1])
+        torch.cuda.synchronize()
+    busy = report_profile(torch, prof, 1, ms, f"{arch} train step (batch "
+                          f"{B} x seq {S}; wall = the median unprofiled "
+                          f"step)")
+    del state, params, model, step_fn, batches, prof
+    torch.cuda.empty_cache()
+    el, en, secs = train_step_card_vs_cpu(torch, cfg, dev, arch)
+    return dict(model=arch, layers=cfg.n_layers,
+                enc_layers=cfg.n_enc_layers,
+                full_layers=get_full_depth(arch), batch=B, seq=S,
+                tokens_per_step=tokens, ms_per_step=step_ms,
+                median_ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+                device_busy_ms_per_step=busy,
+                device_idle_share=None if busy is None else 1 - busy / ms,
+                launches=launches, launches_per_step={
+                    "bc_matmul": mm, "bc_dw": dw},
+                losses=losses, grad_norms=norms, params=n_params,
+                peak_device_memory=peak, cpu_vs_card_loss_rel_err=el,
+                cpu_vs_card_grad_norm_rel_err=en, cpu_seconds=secs)
+
+
+def phase_train_family_dw(torch, kernel, dev):
+    """bc_dw against its plain version at every weight-adjoint shape the
+    train_family path launches, at its rows (the 128-expert adjoints
+    grouped, G = 128, at the capacity's 160 rows), and at the ragged
+    grouped case GROUPED_DW_RAGGED: f32 and bf16 inputs, both epilogues,
+    each launched twice (bit-identical). Returns the max abs error of the
+    f32 checks."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = sorted({(G, B, p, q) for shapes in TRAIN_FAMILY_SHAPES.values()
+                    for _, G, p, q, B, _, dw in shapes if dw}
+                   | {GROUPED_DW_RAGGED})
+    worst_abs = 0.0
+    for G, B, P, Q in cases:
+        lead = (G,) if G > 1 else ()
+        x32 = torch.randn(*lead, B, Q * K, generator=gen, device=dev)
+        g32 = torch.randn(*lead, B, P * K, generator=gen, device=dev)
+        worst_abs = max(worst_abs, check_dw(torch, kernel, x32, g32, P, Q,
+                                            K, f"G={G}"))
+    n_checks = 4 * len(cases)
+    print(f"train_family bc_dw checks: {n_checks} passed at (G, B, P, Q) "
+          f"{cases}, k = {K}, both epilogues, f32 and bf16 inputs (rel <= "
+          f"{FP32_TOL} x max(1, B/{DW_TOL_ROWS}); repeat launches "
+          f"bit-identical); max abs err (f32) = {worst_abs!r}")
+    return worst_abs
+
+
+def phase_dw_group_times(torch, kernel, dev, cases):
+    """bc_dw device times at ``cases`` = [(name, groups, P, Q, rows,
+    launches per step)], bf16 x and g, dw (G, P, Q·k) f32: the kernel, its
+    plain version, the dense weight gradient ``gᵀ @ x`` (``torch.bmm`` over
+    the groups, ``torch.matmul`` for one; a yardstick the port never calls)
+    and the bound over every group."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    Kf = K // 2 + 1
+    rows = []
+    print("train_family bc_dw device times (bf16 x and g; median of 30 "
+          "runs, CUDA events; bound as above over all groups; yardstick = "
+          "the dense weight gradient g^T @ x, torch.bmm over the groups):")
+    for name, G, P, Q, B, per in cases:
+        x = torch.randn(G, B, Q * K, generator=gen, device=dev).bfloat16()
+        g = torch.randn(G, B, P * K, generator=gen, device=dev).bfloat16()
+        if G == 1:
+            x, g = x[0], g[0]
+            lib_fn = lambda: torch.matmul(g.T, x)
+        else:
+            lib_fn = lambda: torch.bmm(g.transpose(1, 2), x)
+        ms = time_ms(torch, lambda: kernel.bc_dw(x, g, P=P, Q=Q, k=K))
+        plain = time_ms(torch, lambda: kernel.bc_dw_plain(x, g, P=P, Q=Q,
+                                                          k=K), runs=10)
+        dense = time_ms(torch, lib_fn)
+        nbytes = x.nbytes + g.nbytes + G * P * Q * K * 4
+        flops = G * B * (2.5 * K * math.log2(K) * (P + Q) + 8 * P * Q * Kf)
+        b_ms, b_by = bound(nbytes, flops)
+        geo = kernel._dw_geometry(B, P, Q, K, G)
+        geometry = (f"grid {geo.grid[0]}x{geo.grid[1]}x{geo.grid[2]} = "
+                    f"{geo.grid[0] * geo.grid[1] * geo.grid[2]} blocks, tile "
+                    f"{geo.p_tile} x {geo.q_tile}, thread {geo.p_per_thread}"
+                    f" x {geo.q_per_thread}, {geo.rows_per_split} rows per "
+                    f"split, {geo.rows} per chunk")
+        rows.append(dict(shape=name, path="train_family", groups=G, B=B,
+                         P=P, Q=Q, k=K, launches=per, ms=ms, plain_ms=plain,
+                         library_ms=None, dense_dw_matmul_ms=dense,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         flops=flops, geometry=geometry,
+                         smem_bytes=geo.smem_bytes))
+        print(f"  {name:24s} G={G:3d} P={P:3d} Q={Q:3d} B={B:4d}: kernel "
+              f"{ms!r} ms, plain {plain!r} ms, "
+              f"{'torch.bmm' if G > 1 else 'torch.matmul'} {dense!r} ms, "
+              f"bound {b_ms!r} ms ({b_by}), {per} launches/step; "
+              f"{geometry}, {geo.smem_bytes} B smem")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2198,7 +2510,7 @@ def main() -> int:
                       sorted({512, train_rows, *DW_EXTRA_ROWS}))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
     phase_cpu_vs_card(torch, cfg, engine, reqs[0])
-    phase_train_cpu_vs_card(torch, train_cfg, dev)
+    train_step_card_vs_cpu(torch, train_cfg, dev, "qwen3-0.6b")
     phase_int8(torch, cfg, params, dev, engine.frozen_table_bytes())
     rows = phase_times(
         torch, kernel, dev,
@@ -2273,6 +2585,27 @@ def main() -> int:
     example_launches = {name: sum(r["launches"][name] for r in example_rows)
                         for name in ("bc_matmul", "bc_dw")}
 
+    for arch, shapes in TRAIN_FAMILY_SHAPES.items():
+        if tuple(sum(c[i] for c in shapes) for i in (5, 6)) != \
+                TRAIN_FAMILY_LAUNCHES[arch]:
+            fail(f"TRAIN_FAMILY_SHAPES' launches do not sum to {arch}'s "
+                 f"{TRAIN_FAMILY_LAUNCHES[arch]}")
+    tf_rows = [phase_train_family(torch, kernel, dev, arch)
+               for arch in TRAIN_FAMILY_LAUNCHES]
+    tf_shapes = [c for shapes in TRAIN_FAMILY_SHAPES.values() for c in shapes]
+    tf_abs = phase_hybrid_kernels(
+        torch, kernel, quant, dev, {c[0]: {c[4]} for c in tf_shapes},
+        shapes=[c[:5] for c in tf_shapes], label="train_family", seed=16)
+    tf_dw_abs = phase_train_family_dw(torch, kernel, dev)
+    tf_times = phase_hybrid_times(
+        torch, kernel, dev, [(n, G, p, q, mm, B)
+                             for n, G, p, q, B, mm, _ in tf_shapes],
+        label="train_family", seed=17)
+    tf_dw_rows = phase_dw_group_times(
+        torch, kernel, dev, [(n, G, p, q, B, dw)
+                             for n, G, p, q, B, _, dw in tf_shapes if dw])
+    tf_launches = {r["model"]: r["launches"] for r in tf_rows}
+
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
     report = {"kernels": [{
@@ -2285,7 +2618,8 @@ def main() -> int:
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
                      + encdec_row["launches"]
-                     + example_launches["bc_matmul"]),
+                     + example_launches["bc_matmul"]
+                     + sum(v["bc_matmul"] for v in tf_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
@@ -2293,9 +2627,11 @@ def main() -> int:
                              "rwkv": hybrid_launches["rwkv6-7b"],
                              **family_launches,
                              "encdec": encdec_row["launches"],
-                             "examples": example_launches["bc_matmul"]},
+                             "examples": example_launches["bc_matmul"],
+                             **{f"train_family {a}": v["bc_matmul"]
+                                for a, v in tf_launches.items()}},
         "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs,
-                           encdec_abs),
+                           encdec_abs, tf_abs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -2304,18 +2640,21 @@ def main() -> int:
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
         "all_shapes": (rows + paper_times + hybrid_times + family_times
-                       + encdec_times),
+                       + encdec_times + tf_times),
     }, {
         "name": "bc_dw",
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
         "launches": (train_launches["bc_dw"] + paper_launches["bc_dw"]
-                     + example_launches["bc_dw"]),
+                     + example_launches["bc_dw"]
+                     + sum(v["bc_dw"] for v in tf_launches.values())),
         "launches_by_path": {"train": train_launches["bc_dw"],
                              "paper": paper_launches["bc_dw"],
-                             "examples": example_launches["bc_dw"]},
-        "max_abs_err": max(dw_abs, paper_dw_abs),
+                             "examples": example_launches["bc_dw"],
+                             **{f"train_family {a}": v["bc_dw"]
+                                for a, v in tf_launches.items()}},
+        "max_abs_err": max(dw_abs, paper_dw_abs, tf_dw_abs),
         "ms": dw_row["ms"],
         "plain_ms": dw_row["plain_ms"],
         "bound_ms": dw_row["bound_ms"],
@@ -2325,12 +2664,12 @@ def main() -> int:
         "shape": f"fused QKV weight adjoint in training: x ({train_rows}, "
                  f"1024) and g ({train_rows}, 4096) bf16, dw (32, 1024) "
                  f"f32, k=128",
-        "all_shapes": dw_rows + paper_dw_rows,
+        "all_shapes": dw_rows + paper_dw_rows + tf_dw_rows,
     }], "train": {"ms_per_step": train_ms,
                   "tokens_per_s": train_rows / train_ms * 1e3},
         "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
         "family": family_rows, "encdec": encdec_row,
-        "examples": example_rows}
+        "examples": example_rows, "train_family": tf_rows}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,16 @@
 //    loops: both x and g through C/S staged in shared memory (K = k/2+1
 //    slots in natural order, no packing), then the fold dw = dŵ·Cᵀ + dŵ·Sᵀ
 //    per (p, q) in the reduce.
+//  * Groups: G independent adjoints of one shape (a MoE layer's experts,
+//    the reference's `_bc_dw_kernel` under `jax.vmap`) run as one launch
+//    with grid z = G. Block z offsets x and g by its group's stride and
+//    then runs the single-adjoint code above unchanged; the workspace is
+//    (splits, G, P, Q, S) complex, so bc_dw_reduce sees the G·P·Q pairs of
+//    the launch as one flat range and writes dw (G, P, Q·k) or dwr/dwi
+//    (G, P, Q, K) with no group logic of its own. The split order stays
+//    fixed, so repeat launches agree bit for bit, and G = 1 is the single
+//    launch (z = 0, no offset). `_dw_geometry` spreads one wave of blocks
+//    over G·tiles·splits: at G >= 132 one split per group.
 //
 // Later steps: the per-bin products on tensor cores (3xTF32 mma.sync, since
 // the f32 tolerance rules out plain TF32); TMA or cp.async to stage the
@@ -177,8 +187,8 @@ __device__ __forceinline__ void stage(float2* hat, float* raw,
 }
 
 // kN = k/2 for power-of-two k (FFT path), 0 for any other k (dense path).
-// Grid (tiles_p·tiles_q, splits); tile t covers p blocks from
-// (t / tiles_q)·PT and q blocks from (t % tiles_q)·QT.
+// Grid (tiles_p·tiles_q, splits, G); tile t covers p blocks from
+// (t / tiles_q)·PT and q blocks from (t % tiles_q)·QT of group z.
 template <typename XT, typename GT, int kN>
 __global__ void __launch_bounds__(kThreads, 1)
 bc_dw_partial(const XT* __restrict__ x, const GT* __restrict__ g,
@@ -192,6 +202,10 @@ bc_dw_partial(const XT* __restrict__ x, const GT* __restrict__ g,
   const int K = k / 2 + 1;
   const int S = kFFT ? kN : K;                 // slots per transformed row
   const int RS = kFFT ? F::kRow : K;           // row stride, in complex
+  // this block's group: x and g move by its group stride
+  const long grp_z = blockIdx.z;
+  x += grp_z * B * Q * k;
+  g += grp_z * B * P * k;
   const int PT = GP * pt, QT = GQ * qt, NS = QT + PT;
   const int p0 = blockIdx.x / tiles_q * PT, q0 = blockIdx.x % tiles_q * QT;
   const int r_begin = (int)((long)blockIdx.y * B / gridDim.y);
@@ -293,7 +307,9 @@ bc_dw_partial(const XT* __restrict__ x, const GT* __restrict__ g,
   }
 
   if (active) {
-    float2* out = part + (long)blockIdx.y * P * Q * S + s;
+    // workspace (splits, G, P, Q, S): split y's plane of group z
+    float2* out =
+        part + ((long)blockIdx.y * gridDim.z + grp_z) * P * Q * S + s;
 #pragma unroll
     for (int i = 0; i < kMaxPt; ++i) {
 #pragma unroll
@@ -307,7 +323,8 @@ bc_dw_partial(const XT* __restrict__ x, const GT* __restrict__ g,
 }
 
 // Sum of the partials in split order, then the epilogue. A block takes
-// 256/S (p, q) pairs, one thread per (pair, slot).
+// 256/S (p, q) pairs, one thread per (pair, slot); a grouped launch's
+// G·P·Q pairs are one flat range (PQ), group-major as the outputs are.
 template <int kN>
 __global__ void __launch_bounds__(kReduceThreads)
 bc_dw_reduce(const float2* __restrict__ part, const float2* __restrict__ tw,
@@ -397,8 +414,8 @@ bc_dw_reduce(const float2* __restrict__ part, const float2* __restrict__ tw,
 template <typename XT, typename GT, int kN>
 int launch(const void* x, const void* g, const void* tw, const void* C,
            const void* Sb, void* part, void* out0, void* out1, int B, int P,
-           int Q, int k, int freq_out, int R, int GP, int GQ, int pt, int qt,
-           int splits, int smem, cudaStream_t stream) {
+           int Q, int k, int G, int freq_out, int R, int GP, int GQ, int pt,
+           int qt, int splits, int smem, cudaStream_t stream) {
   // the caller's size (`_dw_smem_bytes`) must be this layout's, so the
   // geometry was chosen on the bytes the kernel really takes
   const Layout L(kN, Fft<(kN > 0 ? kN : 1)>::kRow, k, R, GP * pt + GQ * qt);
@@ -413,7 +430,7 @@ int launch(const void* x, const void* g, const void* tw, const void* C,
   if (e != cudaSuccess) return (int)e;
   const int tiles_p = (P + GP * pt - 1) / (GP * pt);
   const int tiles_q = (Q + GQ * qt - 1) / (GQ * qt);
-  bc_dw_partial<XT, GT, kN><<<dim3(tiles_p * tiles_q, splits), kThreads,
+  bc_dw_partial<XT, GT, kN><<<dim3(tiles_p * tiles_q, splits, G), kThreads,
                               smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const GT*>(g),
       static_cast<const float2*>(tw), static_cast<const float*>(C),
@@ -423,7 +440,7 @@ int launch(const void* x, const void* g, const void* tw, const void* C,
   if (e1 != cudaSuccess) return (int)e1;
   const int S = kN > 0 ? kN : k / 2 + 1;
   const int rb = kReduceThreads / S;
-  const long PQ = (long)P * Q;
+  const long PQ = (long)G * P * Q;
   bc_dw_reduce<kN><<<(int)((PQ + rb - 1) / rb), kReduceThreads, 0, stream>>>(
       static_cast<const float2*>(part), static_cast<const float2*>(tw),
       static_cast<const float*>(C), static_cast<const float*>(Sb),
@@ -437,10 +454,10 @@ int launch(const void* x, const void* g, const void* tw, const void* C,
 template <typename XT, typename GT>
 int launch_k(const void* x, const void* g, const void* tw, const void* C,
              const void* Sb, void* part, void* out0, void* out1, int B, int P,
-             int Q, int k, int freq_out, int R, int GP, int GQ, int pt, int qt,
-             int splits, int smem, cudaStream_t s) {
+             int Q, int k, int G, int freq_out, int R, int GP, int GQ, int pt,
+             int qt, int splits, int smem, cudaStream_t s) {
 #define BC_LAUNCH(N)                                                        \
-  launch<XT, GT, N>(x, g, tw, C, Sb, part, out0, out1, B, P, Q, k,         \
+  launch<XT, GT, N>(x, g, tw, C, Sb, part, out0, out1, B, P, Q, k, G,      \
                     freq_out, R, GP, GQ, pt, qt, splits, smem, s)
   switch (k) {
     case 2: return BC_LAUNCH(1);
@@ -457,28 +474,31 @@ int launch_k(const void* x, const void* g, const void* tw, const void* C,
 
 }  // namespace
 
-// Plain C entry point for ctypes. x (B, Q·k) and g (B, P·k) are bf16 when
-// x_bf16 / g_bf16 (else f32). Power-of-two k >= 2 takes the FFT path and
+// Plain C entry point for ctypes. `groups` G >= 1 adjoints of one shape
+// run as one launch: x (G, B, Q·k) and g (G, B, P·k), each contiguous and
+// bf16 when x_bf16 / g_bf16 (else f32); G = 1 is one adjoint. Power-of-two
+// k >= 2 takes the FFT path and
 // needs `tw` (k complex twiddles, `fft_twiddles`); any other k takes the
 // dense path and needs the bases C, S (k, K). `part` is an f32 workspace of
-// splits·P·Q·S complex (S = k/2 on the FFT path, K = k/2+1 on the dense
+// splits·G·P·Q·S complex (S = k/2 on the FFT path, K = k/2+1 on the dense
 // path). The geometry (rows per chunk, p and q groups, p and q
 // blocks per thread, splits; split s takes rows [s·B/splits,
 // (s+1)·B/splits)) and the partial kernel's
 // dynamic shared memory in bytes (which must equal `Layout`'s) come from
-// `_dw_geometry`. freq_out: out0/out1 are dwr/dwi (P, Q, K) f32; else out0
-// is dw (P, Q·k) f32 and out1 must be null. Returns the first CUDA error of
-// the two launches (0 on success).
+// `_dw_geometry`. freq_out: out0/out1 are dwr/dwi (G, P, Q, K) f32; else
+// out0 is dw (G, P, Q·k) f32 and out1 must be null. Returns the first CUDA
+// error of the two launches (0 on success).
 extern "C" int bc_dw_launch(const void* x, const void* g, const void* tw,
                             const void* C, const void* S, void* part,
                             void* out0, void* out1, int B, int P, int Q, int k,
-                            int x_bf16, int g_bf16, int freq_out, int rows,
-                            int p_groups, int q_groups, int p_per_thread,
-                            int q_per_thread, int splits, int smem_bytes,
-                            void* stream) {
+                            int groups, int x_bf16, int g_bf16, int freq_out,
+                            int rows, int p_groups, int q_groups,
+                            int p_per_thread, int q_per_thread, int splits,
+                            int smem_bytes, void* stream) {
   const bool fft = k >= 2 && (k & (k - 1)) == 0;
   const int slots = fft ? k / 2 : k / 2 + 1;
-  if (B < 1 || P < 1 || Q < 1 || k < 1 || k > kMaxK || rows < 1 ||
+  if (B < 1 || P < 1 || Q < 1 || k < 1 || k > kMaxK || groups < 1 ||
+      groups > 65535 || (long)groups * P * Q > 0x7fffffffL || rows < 1 ||
       p_groups < 1 || q_groups < 1 ||
       (long)p_groups * q_groups * slots > kThreads || p_per_thread < 1 ||
       p_per_thread > kMaxPt || q_per_thread < 1 || q_per_thread > kMaxQt ||
@@ -489,8 +509,8 @@ extern "C" int bc_dw_launch(const void* x, const void* g, const void* tw,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BC_DW_ARGS                                                          \
-  x, g, tw, C, S, part, out0, out1, B, P, Q, k, freq_out, rows, p_groups,  \
-      q_groups, p_per_thread, q_per_thread, splits, smem_bytes, s
+  x, g, tw, C, S, part, out0, out1, B, P, Q, k, groups, freq_out, rows,    \
+      p_groups, q_groups, p_per_thread, q_per_thread, splits, smem_bytes, s
   if (x_bf16) {
     return g_bf16 ? launch_k<__nv_bfloat16, __nv_bfloat16>(BC_DW_ARGS)
                   : launch_k<__nv_bfloat16, float>(BC_DW_ARGS);

@@ -6,7 +6,9 @@ the function of the reference's Pallas TPU kernel ``_bc_kernel``
 (``repro/kernels/block_circulant/kernel.py``). ``bc_dw`` computes the
 weight adjoint ``dŵ[p,q,f] = Σ_b ĝ[b,p,f]·conj(x̂[b,q,f])`` of the
 reference's ``_bc_dw_kernel``, folded back to the time domain or as the raw
-frequency pair. On a CUDA tensor each launches its hand-written kernel
+frequency pair. Both take a leading group axis (G products or adjoints of
+one shape in one launch: a MoE layer's experts, the reference's kernels
+under ``jax.vmap``). On a CUDA tensor each launches its hand-written kernel
 (``csrc/bc_matmul.cu``, ``csrc/bc_dw.cu``; the note in each source says
 what bounds it on the H100 and how it is laid out); on a CPU tensor each
 runs its plain version (:func:`bc_matmul_plain`, :func:`bc_dw_plain`), the
@@ -20,10 +22,11 @@ a block's threads; a grouped launch (a leading axis of G products of one
 shape, a MoE layer's experts) runs G copies of that geometry, one per grid
 z index. ``bc_dw``'s (:func:`_dw_geometry`): the (p, q) tile of
 a block and its threads, the row splits across blocks and the rows staged
-per chunk. For a power-of-two k both kernels transform with the four-step
-real FFT of ``csrc/bc_fft.cuh`` in shared memory, whose twiddles come from
-:func:`fft_twiddles`; any other k runs dense DFT loops over ``dft_bases``
-staged in shared memory.
+per chunk; a grouped launch runs that geometry once per grid z index, with
+one wave of blocks spread over groups, tiles and splits. For a power-of-two
+k both kernels transform with the four-step real FFT of ``csrc/bc_fft.cuh``
+in shared memory, whose twiddles come from :func:`fft_twiddles`; any other
+k runs dense DFT loops over ``dft_bases`` staged in shared memory.
 
 :func:`build` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``
 (one process per source, all started together) into the ``build/``
@@ -149,7 +152,15 @@ def bc_dw_plain(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int,
     """Plain PyTorch version of the weight-adjoint kernel: x through C/S,
     g through Ciᵀ/Siᵀ, the per-bin complex GEMM with the rows contracted,
     all in f32; then the fold ``dw = dwr@Cᵀ + dwi@Sᵀ`` to (P, Q·k), or the
-    raw (dwr, dwi) pair (P, Q, K) when ``freq_out``."""
+    raw (dwr, dwi) pair (P, Q, K) when ``freq_out``. Grouped (x (G, B,
+    Q·k), g (G, B, P·k)): one call per group, stacked to (G, P, Q·k) or
+    (G, P, Q, K)."""
+    if x2d.dim() == 3:
+        outs = [bc_dw_plain(x2d[i], g2d[i], P=P, Q=Q, k=k, freq_out=freq_out)
+                for i in range(x2d.shape[0])]
+        if freq_out:
+            return tuple(torch.stack(t) for t in zip(*outs))
+        return torch.stack(outs)
     B = x2d.shape[0]
     K = k // 2 + 1
     C, S, CiT, SiT, CT, ST = dft_bases_adjoint(k, device=x2d.device)
@@ -230,7 +241,7 @@ def build() -> Dict[str, Tuple[Path, str]]:
 # entry point takes the stream last and returns a CUDA error code
 _ENTRY_POINTS = {
     "bc_matmul": ("bc_matmul_forward", 11, 15),
-    "bc_dw": ("bc_dw_launch", 8, 14),
+    "bc_dw": ("bc_dw_launch", 8, 15),
 }
 
 
@@ -474,6 +485,7 @@ class DWGeometry(NamedTuple):
     splits: int          # row ranges [s·B/splits, (s+1)·B/splits)
     rows_per_split: int  # the most rows a split takes
     smem_bytes: int
+    groups: int          # grid z: one adjoint per group
 
     @property
     def p_tile(self) -> int:
@@ -484,8 +496,8 @@ class DWGeometry(NamedTuple):
         return self.q_groups * self.q_per_thread
 
     @property
-    def grid(self) -> Tuple[int, int]:
-        return self.tiles[0] * self.tiles[1], self.splits
+    def grid(self) -> Tuple[int, int, int]:
+        return self.tiles[0] * self.tiles[1], self.splits, self.groups
 
 
 def _dw_smem_bytes(k: int, rows: int, staged: int) -> int:
@@ -506,7 +518,7 @@ def _dw_smem_bytes(k: int, rows: int, staged: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _dw_geometry(B: int, P: int, Q: int, k: int) -> DWGeometry:
+def _dw_geometry(B: int, P: int, Q: int, k: int, G: int = 1) -> DWGeometry:
     """bc_dw's launch geometry, from the shapes alone (so a launch is
     reproducible). A block's threads take (slot, p group, q group) and each
     sums up to ``_DW_MAX_PT`` x ``_DW_MAX_QT`` (p, q) blocks of one slot,
@@ -516,9 +528,11 @@ def _dw_geometry(B: int, P: int, Q: int, k: int) -> DWGeometry:
     tile), then the fewest sums and loads per thread: where all of P and Q
     fit, one tile, and every row is transformed once per launch. The rows
     are then cut into ``splits`` near-equal ranges, as many as fill one
-    wave of ``_DW_WAVE`` blocks (at least ``_DW_MIN_ROWS`` rows a range
-    where B allows), and each range into the fewest equal chunks whose
-    staged rows fit ``_DW_SMEM_BUDGET``."""
+    wave of ``_DW_WAVE`` blocks over the G groups' tiles (at least
+    ``_DW_MIN_ROWS`` rows a range where B allows; one range per group once
+    G·tiles fill the wave), and each range into the fewest equal chunks
+    whose staged rows fit ``_DW_SMEM_BUDGET``. A group's geometry is the
+    single adjoint's but for the splits."""
     fft = _mm_fft(k)
     slots = k // 2 if fft else k // 2 + 1
     groups = _DW_THREADS // slots
@@ -535,7 +549,7 @@ def _dw_geometry(B: int, P: int, Q: int, k: int) -> DWGeometry:
             if best is None or key < best[0]:
                 best = key, (gp, gq, pt, qt, tp, tq)
     gp, gq, pt, qt, tp, tq = best[1]
-    splits = max(1, min(_DW_WAVE // (tp * tq), -(-B // _DW_MIN_ROWS)))
+    splits = max(1, min(_DW_WAVE // (G * tp * tq), -(-B // _DW_MIN_ROWS)))
     rows_per_split = -(-B // splits)
     staged = gp * pt + gq * qt
     fit = 1
@@ -545,13 +559,16 @@ def _dw_geometry(B: int, P: int, Q: int, k: int) -> DWGeometry:
     rows = -(-rows_per_split // -(-rows_per_split // fit))   # equal chunks
     return DWGeometry(fft, slots, rows, gp, gq, pt, qt,
                       (tp, tq), splits, rows_per_split,
-                      _dw_smem_bytes(k, rows, staged))
+                      _dw_smem_bytes(k, rows, staged), G)
 
 
 def _check_dw_args(x2d, g2d, P, Q, k):
+    """Shapes, types, devices and layout of a launch; returns its group
+    count G (1 for 2-D x and g; the leading axis of 3-D x and g)."""
     for name, t in (("x", x2d), ("g", g2d)):
-        if t.dim() != 2 or t.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"{name} must be 2-D f32 or bf16, got "
+        if t.dim() not in (2, 3) or t.dtype not in (torch.float32,
+                                                    torch.bfloat16):
+            raise ValueError(f"{name} must be 2-D or 3-D f32 or bf16, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -560,16 +577,26 @@ def _check_dw_args(x2d, g2d, P, Q, k):
     if not 1 <= k <= _MAX_K or P < 1 or Q < 1:
         raise ValueError(f"block grid P={P}, Q={Q}, k={k}: the kernel takes "
                          f"P, Q >= 1 and 1 <= k <= {_MAX_K}")
-    if x2d.shape[1] != Q * k or g2d.shape != (x2d.shape[0], P * k):
+    lead = x2d.shape[:-2]
+    if (x2d.shape[-1] != Q * k
+            or g2d.shape != lead + (x2d.shape[-2], P * k)):
         raise ValueError(f"x {tuple(x2d.shape)} and g {tuple(g2d.shape)} "
-                         f"must be (B, Q*k={Q * k}) and (B, P*k={P * k})")
+                         f"must be ([G,] B, Q*k={Q * k}) and ([G,] B, "
+                         f"P*k={P * k})")
+    G = lead[0] if lead else 1
+    if not 1 <= G <= _MAX_GROUPS:
+        raise ValueError(f"groups: x {tuple(x2d.shape)}; the kernel takes "
+                         f"1 <= G <= {_MAX_GROUPS} groups")
+    return G
 
 
 def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
           freq_out: bool = False):
     """Weight adjoint: x (B, Q·k) and cotangent g (B, P·k), each f32 or
     bf16 -> dw (P, Q·k) f32, or (dwr, dwi) each (P, Q, K) f32 when
-    ``freq_out``.
+    ``freq_out``. Grouped: x (G, B, Q·k) and g (G, B, P·k) -> dw (G, P,
+    Q·k) or (dwr, dwi) each (G, P, Q, K), G adjoints in ONE launch (the
+    reference's ``_bc_dw_kernel`` under ``jax.vmap``).
 
     CPU tensors take :func:`bc_dw_plain`; CUDA tensors launch the kernel
     (``csrc/bc_dw.cu``: partial sums over row ranges in an f32 workspace,
@@ -580,30 +607,30 @@ def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
         return bc_dw_plain(x2d, g2d, P=P, Q=Q, k=k, freq_out=freq_out)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"bc_dw runs on cuda or cpu, not {x2d.device}")
-    _check_dw_args(x2d, g2d, P, Q, k)
-    B, K, dev = x2d.shape[0], k // 2 + 1, x2d.device
-    if freq_out:
-        outs = (torch.empty((P, Q, K), dtype=torch.float32, device=dev),
-                torch.empty((P, Q, K), dtype=torch.float32, device=dev))
-    else:
-        outs = (torch.empty((P, Q * k), dtype=torch.float32, device=dev),
-                None)
+    G = _check_dw_args(x2d, g2d, P, Q, k)
+    lead = x2d.shape[:-2]
+    B, K, dev = x2d.shape[-2], k // 2 + 1, x2d.device
+    def out(shape):
+        return torch.empty(lead + shape, dtype=torch.float32, device=dev)
+
+    outs = ((out((P, Q, K)), out((P, Q, K))) if freq_out
+            else (out((P, Q * k)), None))
     if B == 0:                       # a sum over no rows
         for t in outs:
             if t is not None:
                 t.zero_()
         return outs if freq_out else outs[0]
     launch = _entry("bc_dw")
-    geo = _dw_geometry(B, P, Q, k)
-    part = torch.empty((geo.splits, P, Q, geo.slots, 2), dtype=torch.float32,
-                       device=dev)
+    geo = _dw_geometry(B, P, Q, k, G)
+    part = torch.empty((geo.splits, G, P, Q, geo.slots, 2),
+                       dtype=torch.float32, device=dev)
     tw, bases = ((fft_twiddles(k, device=dev), (None, None)) if geo.fft
                  else (None, dft_bases(k, device=dev)[:2]))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             _ptr(x2d), _ptr(g2d), _ptr(tw), *map(_ptr, bases), _ptr(part),
-            _ptr(outs[0]), _ptr(outs[1]), B, P, Q, k,
+            _ptr(outs[0]), _ptr(outs[1]), B, P, Q, k, G,
             int(x2d.dtype == torch.bfloat16), int(g2d.dtype == torch.bfloat16),
             int(freq_out), geo.rows, geo.p_groups, geo.q_groups,
             geo.p_per_thread, geo.q_per_thread, geo.splits, geo.smem_bytes,

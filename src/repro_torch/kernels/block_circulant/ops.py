@@ -12,8 +12,9 @@ input (attention QKV, LSTM gates) along p and runs them as one launch.
 Stacked tables (a leading group axis: a MoE layer's experts, ``(G, p, q,
 k)`` or frozen ``(G, p, q, K)``) take x ``(G, ..., q·k)`` and run all G
 products in one grouped kernel launch, the reference's kernel under
-``jax.vmap``. That path is for serving: it refuses gradients (training the
-MoE families is a later slice).
+``jax.vmap``; under autograd the same Functions carry the group axis
+through their backward (one grouped ``bc_matmul`` for dx, one grouped
+``bc_dw`` for dw), the reference's custom VJPs under ``jax.vmap``.
 
 Gradients are the reference's closed-form circulant adjoints
 (``repro/kernels/block_circulant/ops.py``), as ``torch.autograd.Function``s
@@ -77,15 +78,16 @@ def freq_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _transpose_freq(wr: torch.Tensor, wi: torch.Tensor):
     """Frequency tables of the transposed block-circulant matrix:
     (Wᵀ)_ji = W_ijᵀ, and a circulant transpose is conj(ŵ) — swap (p, q),
-    negate wi. Contiguous, as the kernel takes them."""
-    return (wr.permute(1, 0, 2).contiguous(),
-            (-wi).permute(1, 0, 2).contiguous())
+    negate wi; a leading group axis passes through. Contiguous, as the
+    kernel takes them."""
+    return (wr.transpose(-3, -2).contiguous(),
+            (-wi).transpose(-3, -2).contiguous())
 
 
 def _dx_via_kernel(gz: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                    k: int) -> torch.Tensor:
     """dx = gz @ W through the forward kernel on the transposed tables;
-    gz (B, p·k) -> (B, q·k) in gz's dtype."""
+    gz ([G,] B, p·k) -> ([G,] B, q·k) in gz's dtype."""
     wrT, wiT = _transpose_freq(wr, wi)
     return bc_matmul(gz.contiguous(), wrT, wiT, k=k)
 
@@ -93,11 +95,11 @@ def _dx_via_kernel(gz: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 def _dw_via_kernel(x2d: torch.Tensor, gz: torch.Tensor, P: int, Q: int,
                    k: int, freq_out: bool = False):
     """Weight adjoint through the ``bc_dw`` kernel: time-domain ``dw
-    (P, Q, k)`` f32, or the frequency cotangents ``(dwr, dwi)`` each
-    (P, Q, K) f32 when ``freq_out``."""
+    ([G,] P, Q, k)`` f32, or the frequency cotangents ``(dwr, dwi)`` each
+    ([G,] P, Q, K) f32 when ``freq_out``."""
     out = bc_dw(x2d.contiguous(), gz.contiguous(), P=P, Q=Q, k=k,
                 freq_out=freq_out)
-    return out if freq_out else out.reshape(P, Q, k)
+    return out if freq_out else out.reshape(out.shape[:-1] + (Q, k))
 
 
 def _dw_freq_cotangents(x2d, gz, P, Q, k):
@@ -118,13 +120,16 @@ def _dw_freq_cotangents(x2d, gz, P, Q, k):
 
 
 def _bias_grad(gz: torch.Tensor) -> torch.Tensor:
-    return gz.sum(0).to(torch.float32)
+    """Each group's row sum: ([G,] B, p·k) -> ([G,] p·k) f32."""
+    return gz.sum(-2).to(torch.float32)
 
 
 class _BCMatmul2d(torch.autograd.Function):
     """Trainable time-domain table ``w (p, q, k)``: the reference's
     ``_bc_matmul2d`` custom VJP. Returns the pre-activation
-    ``z = x @ W + bias`` in x's dtype."""
+    ``z = x @ W + bias`` in x's dtype. Stacked tables ``w (G, p, q, k)``
+    with x (G, B, q·k) and bias (G, p·k) run every launch grouped: the
+    custom VJP under ``jax.vmap``."""
 
     @staticmethod
     def forward(ctx, x2d, w, bias):
@@ -140,8 +145,8 @@ class _BCMatmul2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gz):
         x2d, wr, wi = ctx.saved_tensors
-        p, q, _ = wr.shape
-        k = x2d.shape[1] // q
+        p, q, _ = wr.shape[-3:]
+        k = x2d.shape[-1] // q
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = _dx_via_kernel(gz, wr, wi, k).to(x2d.dtype)
@@ -154,7 +159,8 @@ class _BCMatmul2d(torch.autograd.Function):
 
 class _BCFreq2d(torch.autograd.Function):
     """Trainable frozen tables ``(wr, wi) (p, q, K)``: the reference's
-    ``_bc_freq2d`` custom VJP. Returns the pre-activation in x's dtype."""
+    ``_bc_freq2d`` custom VJP. Returns the pre-activation in x's dtype.
+    Stacked ``(G, p, q, K)`` tables run grouped, as in :class:`_BCMatmul2d`."""
 
     @staticmethod
     def forward(ctx, x2d, wr, wi, bias, k):
@@ -166,7 +172,7 @@ class _BCFreq2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gz):
         x2d, wr, wi = ctx.saved_tensors
-        p, q, _ = wr.shape
+        p, q, _ = wr.shape[-3:]
         k = ctx.k
         dx = dwr = dwi = db = None
         if ctx.needs_input_grad[0]:
@@ -180,10 +186,10 @@ class _BCFreq2d(torch.autograd.Function):
 
 
 class _BCFreqQuant2d(torch.autograd.Function):
-    """int8 frozen tables: primal-only, as the reference's
-    ``_bc_freq_quant2d`` (``jax.grad`` through it raises). The forward is
-    the fused launch; any gradient through it raises instead of coming
-    back silently zero."""
+    """int8 frozen tables, single or stacked: primal-only, as the
+    reference's ``_bc_freq_quant2d`` (``jax.grad`` through it raises). The
+    forward is the fused launch; any gradient through it raises instead of
+    coming back silently zero."""
 
     @staticmethod
     def forward(ctx, x2d, wr, wi, w_scale, bias, k, activation):
@@ -229,7 +235,7 @@ def block_circulant_matmul(
     equal their q (the reference also takes a smaller q for tile-padded
     plan tables, which the port does not have). Stacked tables (G, p, q,
     ·) with ``w_scale`` (G, p, q) and ``bias`` (G, p·k) take x (G, ...,
-    q·k): one grouped launch, no gradient (:func:`_grouped_matmul`).
+    q·k): every launch grouped, forward and backward.
     """
     if w_scale is not None and w_freq is None:
         raise ValueError("w_scale only applies to frozen w_freq tables")
@@ -250,11 +256,15 @@ def block_circulant_matmul(
             f"x feature dim {x.shape[-1]} is incompatible with block "
             f"tables (q={q}, k={k}): expected exactly q*k={q * k}")
     k = int(k)
-    if (w_freq[0] if w_freq is not None else w).dim() == 4:
-        return _grouped_matmul(x, w, bias, activation, w_freq, w_scale, k)
-    lead = x.shape[:-1]
-    x2d = x.reshape(-1, x.shape[-1]).contiguous()
-    b = None if bias is None else bias.reshape(-1).float().contiguous()
+    # stacked tables: the group axis leads x, the bias and every launch
+    table = w_freq[0] if w_freq is not None else w
+    groups = table.shape[:1] if table.dim() == 4 else ()
+    if groups and (x.dim() < 2 or x.shape[0] != groups[0]):
+        raise ValueError(f"x {tuple(x.shape)} must lead with the tables' "
+                         f"{groups[0]} groups")
+    x2d = x.reshape(*groups, -1, x.shape[-1]).contiguous()
+    b = (None if bias is None
+         else bias.reshape(*groups, -1).float().contiguous())
     if not _records_grad(x, w, b, w_scale, *(w_freq or ())):
         if w_freq is None:
             wr, wi = freq_weights(w)
@@ -265,26 +275,6 @@ def block_circulant_matmul(
         z = (_BCMatmul2d.apply(x2d, w, b) if w_freq is None
              else _BCFreq2d.apply(x2d, wr, wi, b, k))
         y = apply_activation(z, activation).to(x.dtype)
-    return y.reshape(*lead, p * k)
-
-
-def _grouped_matmul(x, w, bias, activation, w_freq, w_scale, k):
-    """G stacked products, x (G, ..., q·k) -> (G, ..., p·k), in one grouped
-    ``bc_matmul`` launch (its plain version on the CPU)."""
-    if _records_grad(x, w, bias, w_scale, *(w_freq or ())):
-        raise NotImplementedError(
-            "stacked (expert) block-circulant tables run the grouped "
-            "serving launch, which carries no gradient; training the MoE "
-            "families is not ported yet (run under torch.no_grad)")
-    G = (w_freq[0] if w_freq is not None else w).shape[0]
-    if x.dim() < 2 or x.shape[0] != G:
-        raise ValueError(f"x {tuple(x.shape)} must lead with the tables' "
-                         f"{G} groups")
-    wr, wi = w_freq if w_freq is not None else freq_weights(w)
-    p = wr.shape[-3]
-    b = None if bias is None else bias.reshape(G, -1).float().contiguous()
-    y = bc_matmul(x.reshape(G, -1, x.shape[-1]).contiguous(), wr, wi, b,
-                  w_scale, k=k, activation=activation)
     return y.reshape(*x.shape[:-1], p * k)
 
 

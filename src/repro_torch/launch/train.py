@@ -14,6 +14,12 @@ circulant implementation comes from the config (qwen3-0.6b's says
 ``paper``, ``torch.fft``; the kernel path is ``SWMConfig(impl="pallas")``,
 as ``chip_smoke.py`` builds it).
 
+The batches are ``SyntheticLM`` tokens alone, as the reference
+launcher's: the lm-family archs train (the MoE ones with their experts
+through the grouped kernels on the kernel path) and paligemma-3b trains
+text-only; an enc-dec arch stops at its first step, whose batch has no
+``frames``, as in the reference.
+
 The reference launcher's mesh, sharded state, host-sharded batches,
 automatic restarts and checkpoints wait for the port's ``dist`` and
 ``ft`` modules.

@@ -10,11 +10,15 @@ The reference stacks the encoder's and the decoder's params on a leading
 layer axis and runs each stack with ``lax.scan`` (under ``jax.checkpoint``
 when ``cfg.remat != "none"``, which changes no value); the port keeps one
 module per layer (``encoder.<n>``, ``decoder.<n>``) and runs them in a
-Python loop. The decode cache is ``{"self": [...], "cross": [...]}``, one
-``{"k", "v", "pos"}`` dict per decoder layer in each list, slot axis 0: the
-decoder's self-attention ring of ``cache_len`` entries, and the cross
-attention's K/V of ``enc_seq`` (or ``cache_len``) encoder frames, stashed
-once at prefill and read back by every decode step.
+Python loop. Under autograd with ``cfg.remat != "none"`` each encoder and
+decoder layer is recomputed in the backward (``torch.utils.checkpoint``),
+as the reference's per-layer ``jax.checkpoint``: only the residual stream
+between layers and the encoder output stay live. The decode cache is
+``{"self": [...], "cross": [...]}``, one ``{"k", "v", "pos"}`` dict per
+decoder layer in each list, slot axis 0: the decoder's self-attention ring
+of ``cache_len`` entries, and the cross attention's K/V of ``enc_seq`` (or
+``cache_len``) encoder frames, stashed once at prefill and read back by
+every decode step.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -119,15 +124,28 @@ class EncDecLM(nn.Module):
         pos = torch.arange(T, dtype=torch.int32,
                            device=frames.device).expand(B, T)
         x = frames.to(self.cfg.dtype)
+        remat = self._remat()
         for layer in self._modules["encoder"]:
-            x = layer(x, pos)
+            x = (checkpoint(layer, x, pos, use_reentrant=False) if remat
+                 else layer(x, pos))
         return self._modules["enc_norm"](x), pos
 
+    def _remat(self, cache=None) -> bool:
+        """Recompute each layer in the backward: a gradient is recorded,
+        ``cfg.remat`` asks for it, and no cache is updated in place."""
+        return (self.cfg.remat != "none" and cache is None
+                and torch.is_grad_enabled())
+
     def _decode_stack(self, x, positions, enc_out, enc_pos, cache):
+        remat = self._remat(cache)
         for i, layer in enumerate(self._modules["decoder"]):
-            x = layer(x, positions, enc_out, enc_pos,
-                      None if cache is None else cache["self"][i],
-                      None if cache is None else cache["cross"][i])
+            if remat:
+                x = checkpoint(layer, x, positions, enc_out, enc_pos,
+                               use_reentrant=False)
+            else:
+                x = layer(x, positions, enc_out, enc_pos,
+                          None if cache is None else cache["self"][i],
+                          None if cache is None else cache["cross"][i])
         return self._modules["dec_norm"](x)
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor,

@@ -7,6 +7,12 @@ scatter into an ``(E, C, d)`` buffer, the experts as one stacked
 :class:`SwiGLU` (three grouped ``bc_matmul`` launches on the kernel impl,
 where the reference ``jax.vmap``s one expert), then a gather and the
 gate-weighted combine, and the Switch load-balance aux loss.
+
+When a gradient is recorded the experts run under ``torch.utils.checkpoint``,
+as the reference's ``@jax.checkpoint`` expert: their hidden ``(E, C, d_ff)``
+is recomputed in the backward instead of kept, which changes no value. On
+the kernel impl the backward of each expert projection is one grouped
+``bc_matmul`` (dx) and one grouped ``bc_dw`` (dw) over all experts.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SWMConfig
 from repro_torch.nn.ffn import SwiGLU
@@ -103,7 +110,9 @@ class MoE(nn.Module):
         contrib = xt[:, None, :] * keep[..., None].to(x.dtype)      # (N,T,d)
         disp.index_put_((expert_idx, pos), contrib, accumulate=True)
 
-        y_exp = self._modules["experts"](disp)                     # (E, C, d)
+        experts = self._modules["experts"]
+        y_exp = (checkpoint(experts, disp, use_reentrant=False)
+                 if torch.is_grad_enabled() else experts(disp))    # (E, C, d)
 
         # combine: each token's expert outputs, gate-weighted
         y_tok = y_exp[expert_idx, pos]                             # (N, T, d)

@@ -14,9 +14,15 @@ norm scales exempt), installed in the model for that forward, while the
 grads are taken with respect to, and the optimizer updates, the
 full-precision masters.
 
+Every family the port serves trains here, as in the reference: ``lm``
+(tokens), ``vlm`` (an optional ``img`` prefix, the loss on the text
+positions only) and ``encdec`` (encoder ``frames``); the MoE layers'
+experts carry their gradients through the grouped kernels.
+
 Not in the port yet, and refused with ``NotImplementedError``: the
-structural audit (``audit_args``, which needs ``analysis/``). The mesh, sharding and the
-fault-tolerant restarts join with the port's ``dist``/``ft`` modules.
+structural audit (``audit_args``, which needs ``analysis/``). The mesh,
+sharding and the fault-tolerant restarts join with the port's
+``dist``/``ft`` modules.
 """
 
 from __future__ import annotations
@@ -79,17 +85,20 @@ def make_grad_step(loss_fn: Callable, lr: float = 0.1, audit_args=None):
 
 
 def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
-    """``loss_fn(params, batch) -> (loss, metrics)`` for ``batch =
-    {"tokens": (B, S+1)}``: installs ``params`` in ``model`` (the same
-    tensors, no copies), runs it to its final hidden states and takes the
-    chunked cross-entropy against the tied table. With ``tcfg.qat_bits``
-    it installs ``quantize_tree(params, qat_bits, qat_frac)`` instead
-    (``qat_frac_bits < 0`` means ``qat_bits - 4``): tensors computed from
-    the masters, so the gradient flows back to them through the clipped
-    straight-through estimator."""
-    if cfg.family != "lm":
-        raise NotImplementedError(
-            f"{cfg.family!r} losses are not ported yet (lm only)")
+    """``loss_fn(params, batch) -> (loss, metrics)``. Batch layouts, as the
+    reference's:
+
+    - lm: ``{"tokens": (B, S+1)}``;
+    - vlm: ``{"tokens": (B, S+1), "img": (B, P, D)}`` (``img`` optional);
+    - encdec: ``{"frames": (B, T, D), "tokens": (B, S+1)}``.
+
+    Installs ``params`` in ``model`` (the same tensors, no copies), runs it
+    to its final hidden states (a vlm's cut to the text positions after its
+    ``img`` prefix) and takes the chunked cross-entropy against the output
+    table. With ``tcfg.qat_bits`` it installs ``quantize_tree(params,
+    qat_bits, qat_frac)`` instead (``qat_frac_bits < 0`` means ``qat_bits -
+    4``): tensors computed from the masters, so the gradient flows back to
+    them through the clipped straight-through estimator."""
     qat_bits = int(tcfg.qat_bits or 0)
     qat_frac = int(tcfg.qat_frac_bits)
     if qat_frac < 0:
@@ -102,7 +111,19 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
         load_tree(model, params)
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
-        hidden, aux = model.forward_hidden(inp)
+        kwargs = {}
+        img = batch.get("img") if cfg.family == "vlm" else None
+        if img is not None:
+            kwargs["img_embeds"] = img
+        if cfg.family == "encdec":
+            if "frames" not in batch:
+                raise KeyError(
+                    f"{cfg.name!r} is an encoder-decoder model: its batches "
+                    f"carry 'frames' (B, T, d_model) beside 'tokens'")
+            kwargs["frames"] = batch["frames"]
+        hidden, aux = model.forward_hidden(inp, **kwargs)
+        if img is not None:
+            hidden = hidden[:, img.shape[1]:]            # loss on text only
         ce, metrics = chunked_cross_entropy(hidden, model.output_table(),
                                             labels, z_loss=tcfg.z_loss)
         loss = ce + tcfg.moe_aux_loss * aux

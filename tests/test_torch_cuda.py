@@ -522,3 +522,114 @@ def test_encdec_smoke_engine_on_card_matches_cpu(cuda):
                     * eng.stats.prefill_calls
                     + 6 * cfg.n_layers * eng.stats.decode_steps)
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# Grouped weight adjoints (G, B, P, Q, k): qwen3-moe-235b-a22b's experts
+# in a train step at batch 8 x seq 256 (128 experts, capacity 160 rows;
+# wi/wu 12 x 32, wo 32 x 12), a ragged case with a ragged last row chunk,
+# and small grids on both transform paths
+_GROUPED_DW = [(128, 160, 12, 32, 128), (128, 160, 32, 12, 128),
+               (3, 37, 12, 32, 128), (4, 9, 3, 2, 8), (2, 7, 2, 3, 7)]
+
+
+@pytest.mark.parametrize("G,B,P,Q,k", _GROUPED_DW)
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("freq_out", [False, True])
+def test_grouped_dw_kernel_matches_plain(cuda, G, B, P, Q, k, dtype,
+                                         freq_out):
+    """One launch for all G groups (the count moves by one), within the
+    plain version's tolerance, and a repeat launch bit-identical."""
+    gen = torch.Generator().manual_seed(G * 100 + B + k)
+    x = torch.randn(G, B, Q * k, generator=gen).to(cuda, dtype)
+    g = torch.randn(G, B, P * k, generator=gen).to(cuda, dtype)
+    n0 = kernel.LAUNCHES["bc_dw"]
+    got = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["bc_dw"] == n0 + 1
+    ref = kernel.bc_dw_plain(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    again = kernel.bc_dw(x, g, P=P, Q=Q, k=k, freq_out=freq_out)
+    for a, r, a2 in zip(*((t if freq_out else [t])
+                          for t in (got, ref, again))):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        assert _rel(a, r) <= _dw_tol(B)
+        assert torch.equal(a, a2)        # fixed-order reduction
+
+
+def test_grouped_dw_kernel_rejects_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError, match="must be"):
+        kernel.bc_dw(torch.zeros(3, 4, 16, device=cuda),
+                     torch.zeros(2, 4, 16, device=cuda), P=2, Q=2, k=8)
+    with pytest.raises(ValueError, match="groups"):
+        kernel.bc_dw(torch.zeros(0, 4, 16, device=cuda),
+                     torch.zeros(0, 4, 16, device=cuda), P=2, Q=2, k=8)
+
+
+@pytest.mark.parametrize("path", ["w", "w_freq"])
+def test_grouped_function_grads_on_card_match_cpu(cuda, path):
+    """The stacked-table Functions on the card: one grouped bc_matmul
+    forward and dx and one grouped bc_dw, grads within REL_TOL of the
+    CPU's."""
+    G, B, p, q, k = 4, 9, 3, 5, 16
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(G, B, q * k, generator=gen)
+    bias = torch.randn(G, p * k, generator=gen)
+    if path == "w":
+        tables = [torch.randn(G, p, q, k, generator=gen) * (q * k) ** -0.5]
+    else:
+        tables = [torch.randn(G, p, q, k // 2 + 1, generator=gen)
+                  for _ in range(2)]
+    cot = torch.randn(G, B, p * k, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in [x, *tables, bias]]
+        n0 = dict(kernel.LAUNCHES)
+        xs, *ts, b = leaves
+        y = ops.block_circulant_matmul(
+            xs, ts[0] if path == "w" else None, bias=b, activation="gelu",
+            w_freq=tuple(ts) if path == "w_freq" else None, k=k)
+        grads = torch.autograd.grad((y * cot.to(dev)).sum(), leaves)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert kernel.LAUNCHES["bc_matmul"] - n0["bc_matmul"] == 2
+            assert kernel.LAUNCHES["bc_dw"] - n0["bc_dw"] == 1
+        out[str(dev)] = (y.detach(), grads)
+    (yc, gc), (yg, gg) = out["cpu"], out[str(cuda)]
+    assert _rel(yg, yc) <= REL_TOL
+    for a, r in zip(gg, gc):
+        assert _rel(a, r) <= REL_TOL
+
+
+def test_moe_smoke_train_step_on_card_matches_cpu(cuda):
+    """qwen3-moe-235b-a22b's smoke config (f32, kernel impl, every layer an
+    8-expert MoE) takes one train step on the card and on the CPU from the
+    same params and batch: loss and grad norm within REL_TOL x 5 (two
+    layers of f32 sums in other orders), with the launches the layers
+    give: per layer 2 attention and 3 grouped expert projections, each
+    forward and dx, plus the experts' recompute; one bc_dw per
+    projection."""
+    from repro_torch.configs import qwen3_moe_235b as tm
+    from repro_torch.train.loop import make_train_step
+
+    cfg = dataclasses.replace(tm.SMOKE, swm=SWMConfig(block_size=8,
+                                                      impl="pallas"))
+    params = init_params(build_model(cfg, device="cpu").specs(), 0,
+                         device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 17)).astype(np.int32))
+    trees = {"cpu": params, cuda: _to(params, cuda)}    # copied first
+    out = {}
+    for dev in ("cpu", cuda):
+        state = init_train_state(trees[dev], TrainConfig())
+        step = make_train_step(build_model(cfg, device=dev), cfg,
+                               TrainConfig())
+        n0 = dict(kernel.LAUNCHES)
+        _, m = step(state, {"tokens": tokens.to(dev)})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert kernel.LAUNCHES["bc_matmul"] - n0["bc_matmul"] \
+                == cfg.n_layers * (2 * 5 + 3)
+            assert kernel.LAUNCHES["bc_dw"] - n0["bc_dw"] == cfg.n_layers * 5
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, nc), (lg, ng) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 5 * REL_TOL * abs(lc)
+    assert abs(ng - nc) <= 5 * REL_TOL * abs(nc)

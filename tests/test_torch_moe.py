@@ -8,8 +8,8 @@ their aux losses, at the jamba smoke config's MoE width; router rows with
 exact ties (``lax.top_k`` picks the lower index); the grouped
 ``bc_matmul_plain`` against G separate plain calls in f32 and int8, and
 against the dense oracle; the grouped op against the reference's vmapped
-kernel; ``freeze_params`` over expert-stacked tables; the grouped path's
-refusal of gradients.
+kernel; ``freeze_params`` over expert-stacked tables; the grouped int8
+path's refusal of gradients.
 """
 
 import jax
@@ -238,17 +238,25 @@ def test_grouped_op_matches_vmapped_reference(frozen):
 
 
 def test_grouped_op_refuses_gradients():
+    """Stacked int8 tables are primal-only, as the reference's
+    ``_bc_freq_quant2d`` under ``jax.vmap``: a gradient through them
+    raises. (Stacked f32 tables carry gradients through the grouped
+    backward: ``tests/test_torch_grouped_backward.py``.)"""
     G, p, q, k = 2, 2, 2, 8
     _, wr, wi = _stacked(G, p, q, k, 6)
-    wr.requires_grad_(True)
-    x = torch.zeros(G, 3, q * k)
+    sc = symmetric_scales(wr, wi)
+    qr, qi = quantize_symmetric(wr, sc), quantize_symmetric(wi, sc)
+    x = torch.zeros(G, 3, q * k, requires_grad=True)
+    y = tops.block_circulant_matmul(x, None, w_freq=(qr, qi), w_scale=sc,
+                                    k=k)
     with pytest.raises(NotImplementedError, match="no gradient"):
-        tops.block_circulant_matmul(x, None, w_freq=(wr, wi), k=k)
+        y.sum().backward()
     with torch.no_grad():
-        tops.block_circulant_matmul(x, None, w_freq=(wr, wi), k=k)
+        tops.block_circulant_matmul(x, None, w_freq=(qr, qi), w_scale=sc,
+                                    k=k)
     with pytest.raises(ValueError, match="groups"):
         tops.block_circulant_matmul(torch.zeros(G + 1, 3, q * k), None,
-                                    w_freq=(wr.detach(), wi), k=k)
+                                    w_freq=(wr, wi), k=k)
 
 
 @pytest.mark.parametrize("quantize", ["off", "int8"])
