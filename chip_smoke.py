@@ -105,26 +105,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block size 8 for 40 steps each on the card, losses finite and falling,
    launches held to the pinned counts (the MNIST example's shapes are
    checked in phase 8);
-13. training the MoE, vlm and enc-dec families (``train_family`` path):
-   qwen3-moe-235b-a22b (2 of 94 layers, full width: 128 experts, top-8,
-   untied head), paligemma-3b (18 layers, a seeded 256 x 2048 image prefix
-   per row) and seamless-m4t-medium (12 + 12 layers, seeded (256, 1024)
-   frames per row), each with ``impl="pallas"``, seeded random params,
-   AdamW, ``remat="block"`` and batch 8 x seq 256 in
+13. training every family (``train_family`` path): qwen3-moe-235b-a22b
+   (2 of 94 layers, full width: 128 experts, top-8, untied head),
+   paligemma-3b (18 layers, a seeded 256 x 2048 image prefix per row),
+   seamless-m4t-medium (12 + 12 layers, seeded (256, 1024) frames per
+   row), jamba-v0.1-52b and rwkv6-7b (32 layers each, their Mamba and WKV
+   scans under autograd) and arctic-480b (2 of 35 layers: attention, 128
+   experts and the dense residual), each with ``impl="pallas"``, seeded
+   random params, AdamW, ``remat="block"`` and batch 8 x seq 256 in
    ``launch.specs.batch_specs``' shapes through ``make_train_step``: one
-   warm-up step, then 4 counted steps with both kernels' launches held to
-   the pinned counts per step (36/10, 270/90, 432/144: the experts' grad
-   through one grouped ``bc_matmul`` dx and one grouped ``bc_dw`` per
-   projection), a profiled step (device busy and idle share), and one
-   step at batch 2 x seq 32 on the card against the CPU (loss and grad
-   norm); then ``bc_matmul`` against its plain version at every shape and
-   row count the path launches (the grouped G = 128 launches at the
-   capacity's 160 rows group by group against single launches), ``bc_dw``
-   against its plain version at every weight-adjoint shape it launches
-   (G = 128 grouped, both epilogues, f32 and bf16, bit-identical repeats)
-   and at a ragged grouped case (G = 3, 37 rows), and the times of every
-   shape beside the bound and ``torch.matmul``/``torch.bmm`` (for
-   ``bc_dw`` the dense weight gradient ``g^T @ x``).
+   warm-up step, then 4 counted steps (2 for jamba and rwkv6) with both
+   kernels' launches held to the pinned counts per step (36/10, 270/90,
+   432/144, 528/160, 768/256, 54/16: the experts' grad through one grouped
+   ``bc_matmul`` dx and one grouped ``bc_dw`` per projection), a profiled
+   step (device busy and idle share), peak memory, and one step at batch 2
+   x seq 32 on the card against the CPU (loss and grad norm; jamba and
+   rwkv6 on one 8-layer period); then ``bc_matmul`` against its
+   plain version at every shape and row count the path launches (the
+   grouped launches at the experts' capacity rows, G = 16 and 128, group
+   by group against single launches), ``bc_dw`` against its plain version
+   at every weight-adjoint shape it launches (grouped, both epilogues, f32
+   and bf16, bit-identical repeats) and at a ragged grouped case (G = 3,
+   37 rows), and the times of every shape beside the bound and
+   ``torch.matmul``/``torch.bmm`` (for ``bc_dw`` the dense weight gradient
+   ``g^T @ x``);
+14. the scans' per-chunk recompute (``scan_remat``): one train step's
+   forward and backward at batch 2 x seq 1024 of 2-layer full-width cuts
+   of jamba (one Mamba, one attention + MoE layer) and rwkv6, with the
+   recompute on and forced off: peak device memory of each, equal losses,
+   grads bit-identical (or within FP32_TOL beside a second run's spread),
+   launches pinned;
+15. the ``dft`` impl (``dft`` path): ``block_circulant_apply(impl="dft")``
+   forward and both grads against the ``freq`` impl at qwen3-0.6b's
+   projection shapes over 2048 rows, f32 and bf16, karatsuba off and on;
+   full-width qwen3-0.6b trained with ``impl="dft"`` (a timed and a
+   profiled step beside the kernel path's busy time, no kernel launched)
+   and one step against the CPU; the torch quickstart for 200 steps, its
+   loss dropping by more than 2 nats.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and in a
@@ -133,6 +150,7 @@ directory without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -501,8 +519,9 @@ def phase_train(torch, dev):
                              ProfilerActivity.CUDA]) as prof:
         step_fn(state, batch(TRAIN_STEPS + 1))
         torch.cuda.synchronize()
-    report_profile(torch, prof, 1, ms, f"train step (batch {TRAIN_BATCH} x "
-                   f"seq {TRAIN_SEQ}; wall = the median unprofiled step)")
+    busy = report_profile(torch, prof, 1, ms, f"train step (batch "
+                          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}; wall = the "
+                          f"median unprofiled step)")
 
     # every circulant table gets a finite, non-zero grad (outside the count)
     _, grads = value_and_grad(make_loss_fn(model, cfg, tcfg),
@@ -515,7 +534,7 @@ def phase_train(torch, dev):
         fail(f"circulant grads: {len(cg)} tables, not finite or zero at {bad}")
     print(f"train grads: {len(cg)} circulant tables, all finite and "
           f"non-zero; global grad norm {float(global_norm(grads))!r}")
-    return cfg, launches, ms, tokens
+    return cfg, launches, ms, tokens, busy
 
 
 def phase_cpu_vs_card(torch, cfg, engine, prompt_req):
@@ -1214,6 +1233,24 @@ def hybrid_launches(model):
         n += 3 * sum(name in layer._modules
                      for name in ("ffn_dense", "ffn_moe"))
     return n
+
+
+def cut_depth(cfg, n):
+    """``cfg`` cut to ``n`` layers: its ``n_layers``, or for a config that
+    lists its layers as one group of one kind (rwkv6) that group's
+    repeat."""
+    if cfg.groups is not None:
+        (group,) = cfg.groups
+        if len(group.layers) != 1:
+            fail(f"{cfg.name}: cannot cut a group of {len(group.layers)} "
+                 f"layer kinds")
+        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(
+            group, repeat=n),))
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    if len(cfg.layer_specs()) != n:
+        fail(f"{cfg.name}: the cut has {len(cfg.layer_specs())} layers, "
+             f"not {n}")
+    return cfg
 
 
 def serve_cfg(arch, depth=None):
@@ -2168,25 +2205,53 @@ def phase_examples(torch, kernel, dev):
 # are all one kind (attention + a 128-expert MoE) and its full model (235 B
 # params, with AdamW's moments) does not fit one card, so it trains a
 # 2-layer cut as its serve path does: every layer kind and every grouped
-# expert launch stay, at full width
+# expert launch stay, at full width. arctic-480b's 35 layers are all one
+# kind too (attention, the 128-expert MoE and its dense residual SwiGLU);
+# its full model stores 4.21 B params (launch.specs.count_params), whose
+# AdamW state is about 50 GB on the card and again in host memory for the
+# card-vs-CPU step, which runs the same cut. So it trains the 2-layer cut
+# that its serve path compares against the CPU. jamba-v0.1-52b (1.07 B
+# stored) and rwkv6-7b (0.65 B) train at full depth
 TRAIN_FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 2, "paligemma-3b": None,
-                      "seamless-m4t-medium": None}
-# (bc_matmul, bc_dw) launches per train step, pinned. remat="block" in all
-# three configs: each launch of a forward runs again in the layer's
+                      "seamless-m4t-medium": None, "jamba-v0.1-52b": None,
+                      "rwkv6-7b": None, "arctic-480b": 2}
+# (bc_matmul, bc_dw) launches per train step, pinned. remat="block" in
+# every config: each launch of a forward runs again in the layer's
 # recompute and once more as dx on the transposed grid (3 per projection),
 # a MoE layer's three grouped expert projections once more in the experts'
 # own recompute, and each projection takes one bc_dw. qwen3-moe 2 x (3 x 5
-# + 3) and 2 x 5; paligemma 3 x 90 and 90; seamless 3 x 144 and 144.
-# ``train_family_launches`` derives the same counts from the built model
+# + 3) and 2 x 5; paligemma 3 x 90 and 90; seamless 3 x 144 and 144; jamba
+# 3 x 160 + 3 x 16 MoE layers and 160; rwkv6 3 x 256 and 256; arctic 2 x
+# (3 x 8 + 3) and 2 x 8. ``train_family_launches`` derives the same counts
+# from the built model
 TRAIN_FAMILY_LAUNCHES = {"qwen3-moe-235b-a22b": (36, 10),
                          "paligemma-3b": (270, 90),
-                         "seamless-m4t-medium": (432, 144)}
+                         "seamless-m4t-medium": (432, 144),
+                         "jamba-v0.1-52b": (528, 160),
+                         "rwkv6-7b": (768, 256),
+                         "arctic-480b": (54, 16)}
 # batch 8 x seq 256: 2048 token rows; paligemma's 256-position image prefix
 # makes 8 x 512 = 4096; seamless's frames are min(256, enc_seq) = 256 per
-# row (launch.specs.batch_specs), 2048 encoder rows; qwen3-moe's capacity
-# C = int(2048 x 8 / 128 x 1.25) = 160 rows per expert
+# row (launch.specs.batch_specs), 2048 encoder rows; an expert's capacity
+# C = int(2048 x top_k / E x 1.25): qwen3-moe 160 rows (top 8 of 128),
+# jamba 320 (top 2 of 16), arctic 40 (top 2 of 128)
 TRAIN_FAMILY_BATCH = (8, 256)
+# counted steps where not TRAIN_STEPS: a full-depth step of jamba or rwkv6
+# takes 9-13 s of host time (their scans' ~260-330k small kernels per
+# step), so they count 2 steps after the warm-up instead of cutting depth
+TRAIN_FAMILY_STEPS = {"jamba-v0.1-52b": 2, "rwkv6-7b": 2}
 MOE_CAPACITY = 160
+# the depth of the card-vs-CPU train step where not the trained depth: one
+# step of jamba or rwkv6 at 32 layers takes 20-45 s on the host's CPU, so
+# it compares one 8-layer period (jamba's 7 Mamba + 1 attention layers, 4
+# with the MoE; rwkv6's single layer kind) at full width. rwkv6's bf16
+# backward also amplifies rounding with depth: on an NVIDIA H100 80GB HBM3
+# at 700 W its 32-layer bf16 grad norms read 9.1106 on the card and 8.5920
+# on the CPU (rel 6.0e-2; losses within 1e-4), where in f32 they agree to
+# 2.4e-6 and at 8 layers in bf16 to 1.5e-4 (PERF.md §6)
+TRAIN_FAMILY_CPU_DEPTH = {"jamba-v0.1-52b": 8, "rwkv6-7b": 8}
+JAMBA_CAPACITY = 320
+ARCTIC_CAPACITY = 40
 # per arch, (name, groups, p, q, rows, bc_matmul launches, bc_dw launches)
 # per step of every shape the path launches at k = 128: each projection's
 # (p, q) with its forward and recompute launches and its bc_dw, and its dx
@@ -2213,7 +2278,31 @@ TRAIN_FAMILY_SHAPES = {
         ("encdec.qkv.dx", 1, 8, 24, 2048, 24, 0),
         ("encdec.proj", 1, 8, 8, 2048, 216, 72),       # and their dx
         ("encdec.wi", 1, 32, 8, 2048, 72, 24),         # and wo's dx
-        ("encdec.wo", 1, 8, 32, 2048, 72, 24)]}        # and wi's dx
+        ("encdec.wo", 1, 8, 32, 2048, 72, 24)],        # and wi's dx
+    "jamba-v0.1-52b": [
+        ("jamba.qkv", 1, 48, 32, 2048, 8, 4),
+        ("jamba.qkv.dx", 1, 32, 48, 2048, 4, 0),
+        ("jamba.o", 1, 32, 32, 2048, 12, 4),            # o and its dx
+        ("jamba.in_proj", 1, 128, 32, 2048, 56, 28),
+        ("jamba.in_proj.dx", 1, 32, 128, 2048, 28, 0),
+        ("jamba.out_proj", 1, 32, 64, 2048, 56, 28),
+        ("jamba.out_proj.dx", 1, 64, 32, 2048, 28, 0),
+        ("jamba.wi_wu", 1, 112, 32, 2048, 80, 32),      # and wo's dx
+        ("jamba.wo", 1, 32, 112, 2048, 64, 16),         # and wi_wu's dx
+        ("jamba.expert.wi_wu", 16, 112, 32, JAMBA_CAPACITY, 112, 32),
+        ("jamba.expert.wo", 16, 32, 112, JAMBA_CAPACITY, 80, 16)],
+    "rwkv6-7b": [
+        ("rwkv.rkvgo_wr", 1, 32, 32, 2048, 576, 192),   # and their dx
+        ("rwkv.wk", 1, 112, 32, 2048, 96, 32),          # and wv's dx
+        ("rwkv.wv", 1, 32, 112, 2048, 96, 32)],         # and wk's dx
+    "arctic-480b": [
+        ("arctic.qkv", 1, 72, 56, 2048, 4, 2),
+        ("arctic.qkv.dx", 1, 56, 72, 2048, 2, 0),
+        ("arctic.o", 1, 56, 56, 2048, 6, 2),            # o and its dx
+        ("arctic.wi_wu", 1, 38, 56, 2048, 10, 4),       # and wo's dx
+        ("arctic.wo", 1, 56, 38, 2048, 8, 2),           # and wi_wu's dx
+        ("arctic.expert.wi_wu", 128, 38, 56, ARCTIC_CAPACITY, 14, 4),
+        ("arctic.expert.wo", 128, 56, 38, ARCTIC_CAPACITY, 10, 2)]}
 # the card-vs-CPU train step's batch (qwen3-0.6b's and each train_family
 # arch's): 2 x 32 tokens from other seeded params (a CPU pass at batch 8 x
 # 256 would take minutes); paligemma keeps its 256-position image prefix,
@@ -2266,11 +2355,16 @@ def train_step_card_vs_cpu(torch, cfg, dev, name):
     """One full-width train step at CPU_STEP_BATCH on the card and
     on the CPU from the same seeded params (seed 1) and batch
     (``family_batch``, seed 1): loss and grad norm within FULL_WIDTH_TOL.
+    Both are the step's readings before its optimizer update (the loss and
+    the norm ``clip_by_global_norm`` reports), so the step runs as far as
+    ``value_and_grad`` and ``global_norm``: the update, which neither
+    reading sees, would cost the CPU seconds over the full param tree.
     Returns (rel err of the loss, of the grad norm, CPU seconds)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.specs import build_model
-    from repro_torch.nn.module import init_params
-    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.train.loop import make_loss_fn, value_and_grad
 
     tcfg = TrainConfig()
     card_params = init_params(build_model(cfg, device=dev).specs(), seed=1,
@@ -2283,12 +2377,14 @@ def train_step_card_vs_cpu(torch, cfg, dev, name):
                              ("cpu", "cpu", cpu_params)):
         t = time.perf_counter()
         model = build_model(cfg, device=d)
-        state = init_train_state(params, tcfg, cfg.optimizer)
-        _, m = make_train_step(model, cfg, tcfg)(
-            state, {k: v.to(d) for k, v in batch.items()})
-        out[where] = (float(m["loss"]), float(m["grad_norm"]),
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        (loss, _), grads = value_and_grad(
+            make_loss_fn(model, cfg, tcfg), params,
+            {k: v.to(d) for k, v in batch.items()}, has_aux=True)
+        out[where] = (float(loss), float(global_norm(grads)),
                       time.perf_counter() - t)
-        del model, state, params
+        del model, params, grads
     del card_params
     torch.cuda.empty_cache()
     (lc, nc, _), (lp, npu, secs) = out["card"], out["cpu"]
@@ -2296,6 +2392,7 @@ def train_step_card_vs_cpu(torch, cfg, dev, name):
     depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.n_enc_layers
              else cfg.n_layers)
     print(f"{name} card vs cpu train step ({depth} layers at full width, "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, "
           f"batch {B} x seq {S}): loss {lc!r} vs {lp!r} (rel "
           f"{el:.3g}), grad norm {nc!r} vs {npu!r} (rel {en:.3g}); "
           f"tolerance {FULL_WIDTH_TOL}; cpu step {secs:.1f}s")
@@ -2309,10 +2406,11 @@ def phase_train_family(torch, kernel, dev, arch):
     """``arch`` trained on the card at full width through
     ``make_train_step`` with ``impl="pallas"`` (AdamW, its config's
     remat="block", batch TRAIN_FAMILY_BATCH from ``family_batch``): one
-    warm-up step, then 4 counted steps with both kernels' counts set to 0
-    just before and read just after, held to TRAIN_FAMILY_LAUNCHES; a
-    profiled step; then one step on the card against the CPU. Returns a
-    report row."""
+    warm-up step, then TRAIN_FAMILY_STEPS counted steps with both kernels'
+    counts set to 0 just before and read just after, held to
+    TRAIN_FAMILY_LAUNCHES; a profiled step (device kernels only: the CPU
+    side of a profile of the scans' ~400k kernels would take minutes);
+    then one step on the card against the CPU. Returns a report row."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import init_params, tree_leaves
@@ -2321,6 +2419,7 @@ def phase_train_family(torch, kernel, dev, arch):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = serve_cfg(arch, TRAIN_FAMILY_DEPTH[arch])
+    steps = TRAIN_FAMILY_STEPS.get(arch, TRAIN_STEPS)
     tcfg = TrainConfig()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
@@ -2333,7 +2432,7 @@ def phase_train_family(torch, kernel, dev, arch):
              f"per train step, expected {TRAIN_FAMILY_LAUNCHES[arch]}")
     B, S = TRAIN_FAMILY_BATCH
     batches = [family_batch(torch, cfg, B, S, i, dev)
-               for i in range(TRAIN_STEPS + 2)]
+               for i in range(steps + 2)]
     n_params = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize()
     built_s = time.perf_counter() - t0
@@ -2343,7 +2442,7 @@ def phase_train_family(torch, kernel, dev, arch):
     warm_s = time.perf_counter() - t
     kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
     losses, norms, step_ms = [], [], []
-    for i in range(1, TRAIN_STEPS + 1):
+    for i in range(1, steps + 1):
         t = time.perf_counter()
         state, m = step_fn(state, batches[i])
         losses.append(float(m["loss"]))          # waits for the device
@@ -2351,7 +2450,7 @@ def phase_train_family(torch, kernel, dev, arch):
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = dict(kernel.LAUNCHES)
     mm, dw = TRAIN_FAMILY_LAUNCHES[arch]
-    want = {"bc_matmul": mm * TRAIN_STEPS, "bc_dw": dw * TRAIN_STEPS}
+    want = {"bc_matmul": mm * steps, "bc_dw": dw * steps}
     if not all(math.isfinite(v) for v in losses + norms + [loss0]):
         fail(f"{arch}: non-finite train loss or grad norm: {losses} "
              f"{norms}")
@@ -2371,22 +2470,23 @@ def phase_train_family(torch, kernel, dev, arch):
           f"seq {S} = {tokens} tokens/step{'' if not extra else ' + '}"
           f"{extra or ''}; built in {built_s:.1f}s; "
           f"warm-up step {warm_s:.2f}s (loss {loss0!r}); steps 1..."
-          f"{TRAIN_STEPS}: losses {losses}, grad norms {norms}, ms/step "
+          f"{steps}: losses {losses}, grad norms {norms}, ms/step "
           f"{step_ms} (median {ms:.1f} = {tokens / ms * 1e3:.1f} tokens/s); "
           f"launches {launches} = {want}; peak device memory {peak}")
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_fn(state, batches[TRAIN_STEPS + 1])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batches[steps + 1])
         torch.cuda.synchronize()
     busy = report_profile(torch, prof, 1, ms, f"{arch} train step (batch "
                           f"{B} x seq {S}; wall = the median unprofiled "
                           f"step)")
     del state, params, model, step_fn, batches, prof
     torch.cuda.empty_cache()
-    el, en, secs = train_step_card_vs_cpu(torch, cfg, dev, arch)
+    el, en, secs = train_step_card_vs_cpu(
+        torch, cut_depth(cfg, TRAIN_FAMILY_CPU_DEPTH[arch])
+        if arch in TRAIN_FAMILY_CPU_DEPTH else cfg, dev, arch)
     return dict(model=arch, layers=cfg.n_layers,
                 enc_layers=cfg.n_enc_layers,
                 full_layers=get_full_depth(arch), batch=B, seq=S,
@@ -2398,7 +2498,9 @@ def phase_train_family(torch, kernel, dev, arch):
                     "bc_matmul": mm, "bc_dw": dw},
                 losses=losses, grad_norms=norms, params=n_params,
                 peak_device_memory=peak, cpu_vs_card_loss_rel_err=el,
-                cpu_vs_card_grad_norm_rel_err=en, cpu_seconds=secs)
+                cpu_vs_card_grad_norm_rel_err=en, cpu_seconds=secs,
+                cpu_vs_card_layers=TRAIN_FAMILY_CPU_DEPTH.get(
+                    arch, cfg.n_layers))
 
 
 def phase_train_family_dw(torch, kernel, dev):
@@ -2474,7 +2576,279 @@ def phase_dw_group_times(torch, kernel, dev, cases):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The scans' per-chunk recompute and the dft impl (the tenth slice's paths)
+# ---------------------------------------------------------------------------
+
+# one train step's forward and backward past 256 steps, with
+# chunked_time_scan's per-chunk recompute on (as the mixers ask at S > 256)
+# and forced off: 2-layer cuts at full width of jamba (layer 0 Mamba with
+# its dense SwiGLU, layer 1 attention with the 16-expert MoE:
+# attn_every=2, attn_offset=1) and rwkv6, batch 2 x seq 1024 (4 chunks of
+# 256 steps)
+REMAT_CUTS = {"jamba-v0.1-52b": dict(attn_every=2, attn_offset=1),
+              "rwkv6-7b": {}}
+REMAT_BATCH = (2, 1024)
+# the dft impl against the freq impl (torch.fft, f32 inside) at qwen3-0.6b's
+# projection shapes (SLICE_SHAPES) and its train rows. f32: FP32_TOL. bf16:
+# the dft impl rounds four stages to bf16 in series (x̂ and ŵ, the per-bin
+# sums, the inverse transform's output; the adjoints likewise), each by at
+# most one unit roundoff, 2^-8, of the magnitudes it is computed from,
+# where freq rounds once at its output: four unit roundoffs of the largest
+# magnitude
+DFT_ROWS = 2048
+DFT_BF16_TOL = 2.0 ** -6
+# the torch quickstart's steps on the card (its default), and the drop of
+# its loss the example promises
+QUICKSTART_STEPS = 200
+QUICKSTART_DROP = 2.0
+
+
+@contextlib.contextmanager
+def scan_recompute_off():
+    """The recurrent mixers' scans without the per-chunk recompute: both
+    call ``chunked_time_scan`` by the name they import, which this swaps for
+    a call with ``remat=False`` and puts back on the way out."""
+    from repro_torch.nn import rwkv, scan, ssm
+
+    def plain(step_fn, carry, xs, *, chunk=256, remat=True):
+        return scan.chunked_time_scan(step_fn, carry, xs, chunk=chunk,
+                                      remat=False)
+
+    saved = ssm.chunked_time_scan, rwkv.chunked_time_scan
+    ssm.chunked_time_scan = rwkv.chunked_time_scan = plain
+    try:
+        yield
+    finally:
+        ssm.chunked_time_scan, rwkv.chunked_time_scan = saved
+
+
+def phase_scan_remat(torch, kernel, dev):
+    """Peak device memory of one train step's forward and backward at
+    REMAT_BATCH (``value_and_grad`` of the train loss; the optimizer update
+    changes neither reading) with the scans' per-chunk recompute on and
+    off, for each of REMAT_CUTS. The two runs' losses must be equal and
+    their grads agree: bit for bit, or else within FP32_TOL with a second
+    run without the recompute read beside them; their launches must equal
+    ``train_family_launches``. Then the cut's recurrent layer alone
+    (forward and input grad): its peak must be lower with the recompute.
+    Returns report rows."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.train.loop import make_loss_fn, value_and_grad
+
+    B, S = REMAT_BATCH
+    rows = []
+    for arch, cut in REMAT_CUTS.items():
+        cfg = dataclasses.replace(cut_depth(serve_cfg(arch), 2), **cut)
+        tcfg = TrainConfig()
+        model = build_model(cfg, device=dev)
+        params = init_params(model.specs(), seed=0, device=dev)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss_fn = make_loss_fn(model, cfg, tcfg)
+        batch = family_batch(torch, cfg, B, S, 0, dev)
+        mm, dw = train_family_launches(model, cfg)
+        value_and_grad(loss_fn, params, batch, has_aux=True)   # warm-up
+        out = {}
+        for on in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+            t = time.perf_counter()
+            with contextlib.nullcontext() if on else scan_recompute_off():
+                (loss, _), grads = value_and_grad(loss_fn, params, batch,
+                                                  has_aux=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = dict(kernel.LAUNCHES)
+            if launches != {"bc_matmul": mm, "bc_dw": dw}:
+                fail(f"{arch} scan recompute {on}: launches {launches}, "
+                     f"expected {mm} and {dw}")
+            # the grads leave the card, so both runs start from one base
+            out[on] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                       peak, base, secs)
+            del grads
+        (l1, g1, p1, b1, s1), (l0, g0, p0, b0, s0) = out[True], out[False]
+        same = [torch.equal(a, b) for a, b in zip(g1, g0)]
+        mixers = [layer.mixer_kind for layer in model._modules["layers"]]
+        print(f"scan recompute, {arch} ({mixers}, full width, batch {B} x "
+              f"seq {S}, value_and_grad of the train loss): peak device "
+              f"memory {p1} B on, {p0} B off (above the {b1} B and {b0} B "
+              f"held before each: {p1 - b1} and {p0 - b0}), "
+              f"{(p0 - p1) / 2 ** 30:.3f} GiB saved; {s1:.2f}s on, "
+              f"{s0:.2f}s off (after a warm-up run); loss {l1!r} / {l0!r}; "
+              f"{sum(same)} of {len(same)} grads bit-identical; launches "
+              f"{mm} / {dw} per run")
+        on_off = max(rel_err(a, b) for a, b in zip(g1, g0))
+        rerun = None
+        if not all(same):
+            # the reading's reason: a second run without the recompute
+            # against the first shows how far the step itself repeats
+            with scan_recompute_off():
+                _, g2 = value_and_grad(loss_fn, params, batch, has_aux=True)
+            rerun = max(rel_err(a.cpu(), b)
+                        for a, b in zip(tree_leaves(g2), g0))
+            print(f"  grads on vs off: max rel {on_off!r}; off vs a second "
+                  f"off run: max rel {rerun!r} (limit {FP32_TOL})")
+            del g2
+        if on_off > FP32_TOL or l1 != l0:
+            fail(f"{arch}: the scan recompute changed the loss or a grad")
+        # the step's peak may be set elsewhere (the loss, attention); the
+        # recurrent layer's own forward and backward show what the scan
+        # keeps: its input grad alone, so no param grad is held
+        layer = model._modules["layers"][0]
+        x = torch.randn(B, S, cfg.d_model, device=dev).to(cfg.dtype)
+        lpeak = {}
+        for on in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            lbase = torch.cuda.memory_allocated(dev)
+            xi = x.clone().requires_grad_()
+            with contextlib.nullcontext() if on else scan_recompute_off():
+                y = layer(xi, None)[0]
+                torch.autograd.grad(y.float().square().mean(), xi)
+            torch.cuda.synchronize()
+            lpeak[on] = torch.cuda.max_memory_allocated(dev) - lbase
+            del y, xi
+        print(f"  its {layer.mixer_kind} layer alone (forward and input "
+              f"grad at batch {B} x seq {S}): peak {lpeak[True]} B above "
+              f"the held memory on, {lpeak[False]} B off "
+              f"({(lpeak[False] - lpeak[True]) / 2 ** 30:.3f} GiB saved)")
+        if not lpeak[True] < lpeak[False]:
+            fail(f"{arch}: the scan recompute did not lower its layer's "
+                 f"peak memory")
+        rows.append(dict(model=arch, layers=mixers, batch=B, seq=S,
+                         peak_on=p1, peak_off=p0, base_on=b1, base_off=b0,
+                         seconds_on=s1, seconds_off=s0, loss=l1,
+                         grads_bit_identical=sum(same), grads=len(same),
+                         grads_on_off_max_rel=on_off,
+                         grads_off_rerun_max_rel=rerun,
+                         layer_peak_on=lpeak[True],
+                         layer_peak_off=lpeak[False],
+                         launches={"bc_matmul": 2 * mm, "bc_dw": 2 * dw}))
+        del model, params, out, batch, g1, g0
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dft(torch, kernel, dev, pallas_busy):
+    """The dft impl on the card: ``block_circulant_apply(impl="dft")``
+    forward and both grads against the freq impl at SLICE_SHAPES x
+    DFT_ROWS rows, f32 and bf16, karatsuba off and on; full-width
+    qwen3-0.6b trained with ``impl="dft"`` (batch 8 x seq 256: one warm-up
+    and one timed step, a profiled step, no kernel of ours launched) and
+    one step against the CPU; then the torch quickstart for
+    QUICKSTART_STEPS steps, whose loss must drop by more than
+    QUICKSTART_DROP. Returns a report row."""
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.circulant import block_circulant_apply
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.examples import quickstart
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, p, q, _ in SLICE_SHAPES:
+        x32 = torch.randn(DFT_ROWS, q * K, generator=gen, device=dev)
+        w32 = torch.randn(p, q, K, generator=gen, device=dev) * (
+            q * K) ** -0.5
+        ct = torch.randn(DFT_ROWS, p * K, generator=gen, device=dev)
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, DFT_BF16_TOL)):
+            out = {}
+            for impl, kar in (("freq", False), ("dft", False),
+                              ("dft", True)):
+                x = x32.to(dtype).clone().requires_grad_()
+                w = w32.to(dtype).clone().requires_grad_()
+                y = block_circulant_apply(x, w, impl=impl, karatsuba=kar)
+                (y.float() * ct).sum().backward()
+                out[impl, kar] = (y.detach(), x.grad, w.grad)
+            for kar in (False, True):
+                errs = [rel_err(a, b) for a, b in zip(out["dft", kar],
+                                                      out["freq", False])]
+                if not max(errs) <= tol:
+                    fail(f"dft {name} {dtype} karatsuba={kar}: rel err "
+                         f"(y, dx, dw) {errs} > {tol}")
+                worst[dtype] = max(worst[dtype], *errs)
+    print(f"dft impl checks: forward, dx and dw against the freq impl at "
+          f"{[(n, p, q) for n, p, q, _ in SLICE_SHAPES]} x {DFT_ROWS} rows, "
+          f"k = {K}, karatsuba off and on: max rel err f32 "
+          f"{worst[torch.float32]!r} (<= {FP32_TOL}), bf16 "
+          f"{worst[torch.bfloat16]!r} (<= {DFT_BF16_TOL})")
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="dft"))
+    tcfg = TrainConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev)
+    state = init_train_state(init_params(model.specs(), seed=0, device=dev),
+                             tcfg, cfg.optimizer)
+    step_fn = make_train_step(model, cfg, tcfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=0)
+    batches = [{"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+        dev)} for i in range(3)]
+    state, m = step_fn(state, batches[0])               # warm-up
+    float(m["loss"])
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    t = time.perf_counter()
+    state, m = step_fn(state, batches[1])
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t) * 1e3
+    launches = dict(kernel.LAUNCHES)
+    if launches != {"bc_matmul": 0, "bc_dw": 0} or not math.isfinite(loss):
+        fail(f"dft train step: launches {launches}, loss {loss}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batches[2])
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy = report_profile(torch, prof, 1, ms, f"qwen3-0.6b dft train step "
+                          f"(batch {TRAIN_BATCH} x seq {TRAIN_SEQ})")
+    print(f"dft train: qwen3-0.6b full width, impl='dft', AdamW, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: step {ms:.1f} ms, loss "
+          f"{loss!r}, device busy {busy} ms (the pallas path's: "
+          f"{pallas_busy} ms), peak device memory {peak}; launches "
+          f"{launches}")
+    del state, model, step_fn, prof
+    torch.cuda.empty_cache()
+    el, en, secs = train_step_card_vs_cpu(torch, cfg, dev, "qwen3-0.6b dft")
+
+    t = time.perf_counter()
+    counts, losses = quickstart.run(QUICKSTART_STEPS, device=dev)
+    q_s = time.perf_counter() - t
+    drop = losses[0] - losses[-1]
+    print(f"quickstart on the card: {counts['stored']} stored params "
+          f"({counts['compression']:.2f}x), {QUICKSTART_STEPS} steps in "
+          f"{q_s:.1f}s, loss {losses[0]!r} -> {losses[-1]!r} (drop "
+          f"{drop:.3f}, must exceed {QUICKSTART_DROP})")
+    if not (all(math.isfinite(v) for v in losses)
+            and drop > QUICKSTART_DROP):
+        fail(f"quickstart: losses {losses[:3]} ... {losses[-3:]}")
+    return dict(max_rel_err_f32=worst[torch.float32],
+                max_rel_err_bf16=worst[torch.bfloat16], train_ms=ms,
+                train_loss=loss, device_busy_ms_per_step=busy,
+                pallas_device_busy_ms_per_step=pallas_busy,
+                peak_device_memory=peak, cpu_vs_card_loss_rel_err=el,
+                cpu_vs_card_grad_norm_rel_err=en, cpu_seconds=secs,
+                quickstart_seconds=q_s, quickstart_loss_first=losses[0],
+                quickstart_loss_last=losses[-1])
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2503,7 +2877,8 @@ def main() -> int:
     cfg, engine, params, reqs, serve_launches, step_ms, serve_rows = \
         phase_serve(torch, dev)
     phase_profile(torch, engine, reqs, step_ms)
-    train_cfg, train_launches, train_ms, train_rows = phase_train(torch, dev)
+    train_cfg, train_launches, train_ms, train_rows, train_busy = \
+        phase_train(torch, dev)
     max_abs = phase_kernels(torch, kernel, quant, dev,
                             sorted({1, 4, 512, train_rows} | serve_rows))
     dw_abs = phase_dw(torch, kernel, dev,
@@ -2605,6 +2980,10 @@ def main() -> int:
         torch, kernel, dev, [(n, G, p, q, B, dw)
                              for n, G, p, q, B, _, dw in tf_shapes if dw])
     tf_launches = {r["model"]: r["launches"] for r in tf_rows}
+    remat_rows = phase_scan_remat(torch, kernel, dev)
+    remat_launches = {name: sum(r["launches"][name] for r in remat_rows)
+                      for name in ("bc_matmul", "bc_dw")}
+    dft_row = phase_dft(torch, kernel, dev, train_busy)
 
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
@@ -2619,7 +2998,8 @@ def main() -> int:
                      + sum(family_launches.values())
                      + encdec_row["launches"]
                      + example_launches["bc_matmul"]
-                     + sum(v["bc_matmul"] for v in tf_launches.values())),
+                     + sum(v["bc_matmul"] for v in tf_launches.values())
+                     + remat_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
@@ -2629,7 +3009,8 @@ def main() -> int:
                              "encdec": encdec_row["launches"],
                              "examples": example_launches["bc_matmul"],
                              **{f"train_family {a}": v["bc_matmul"]
-                                for a, v in tf_launches.items()}},
+                                for a, v in tf_launches.items()},
+                             "scan_remat": remat_launches["bc_matmul"]},
         "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs,
                            encdec_abs, tf_abs),
         "ms": main_row["ms"],
@@ -2648,12 +3029,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
         "launches": (train_launches["bc_dw"] + paper_launches["bc_dw"]
                      + example_launches["bc_dw"]
-                     + sum(v["bc_dw"] for v in tf_launches.values())),
+                     + sum(v["bc_dw"] for v in tf_launches.values())
+                     + remat_launches["bc_dw"]),
         "launches_by_path": {"train": train_launches["bc_dw"],
                              "paper": paper_launches["bc_dw"],
                              "examples": example_launches["bc_dw"],
                              **{f"train_family {a}": v["bc_dw"]
-                                for a, v in tf_launches.items()}},
+                                for a, v in tf_launches.items()},
+                             "scan_remat": remat_launches["bc_dw"]},
         "max_abs_err": max(dw_abs, paper_dw_abs, tf_dw_abs),
         "ms": dw_row["ms"],
         "plain_ms": dw_row["plain_ms"],
@@ -2669,7 +3052,9 @@ def main() -> int:
                   "tokens_per_s": train_rows / train_ms * 1e3},
         "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
         "family": family_rows, "encdec": encdec_row,
-        "examples": example_rows, "train_family": tf_rows}
+        "examples": example_rows, "train_family": tf_rows,
+        "scan_remat": remat_rows, "dft": dft_row}
+    print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,9 +36,13 @@ class SWMConfig:
     """Block-circulant compression settings (paper §3/§4).
 
     block_size: k. 0 or 1 disables (dense baseline).
-    impl: 'paper' | 'freq' | 'pallas' (see core.circulant). In the port
-      'pallas' names the hand-written CUDA kernel path, which replaces the
-      reference's Pallas TPU kernel.
+    impl: 'paper' | 'freq' | 'dft' | 'pallas' (see core.circulant). In
+      the port 'pallas' names the hand-written CUDA kernel path, which
+      replaces the reference's Pallas TPU kernel; 'dft' runs the transforms
+      as dense matmuls in stock torch ops. 'freq_shmap' (transforms sharded
+      over a device mesh) waits for the distribution layer.
+    karatsuba: the 'dft' impl's complex contraction in 3 real einsums
+      instead of 4; other impls ignore it.
     targets: which projection families are compressed.
     """
 

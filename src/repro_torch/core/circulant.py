@@ -13,6 +13,11 @@ Forward implementations, selectable per layer (``impl=``):
                  time domain (the paper's ASIC dataflow, §5.2);
   * ``freq``   — accumulate in the frequency domain, one inverse transform
                  per output block;
+  * ``dft``    — the rDFT of a length-k block as a dense matmul against
+                 real cos/sin bases and the frequency contraction as
+                 per-bin real einsums (``karatsuba`` takes 3 instead of 4),
+                 in stock torch ops with a hand-written backward that keeps
+                 only ``(x, w)``;
   * ``pallas`` — the fused kernel path (``kernels.block_circulant``): the
                  hand-written CUDA kernel on the card, its plain PyTorch
                  version on the CPU.
@@ -35,7 +40,9 @@ __all__ = [
     "valid_block_size",
     "block_circulant_matvec_paper",
     "block_circulant_matvec_freq",
+    "block_circulant_matvec_dft",
     "block_circulant_apply",
+    "block_circulant_apply_pair",
     "block_circulant_apply_fused",
     "block_circulant_apply_multi",
     "dequantize_freq_pair",
@@ -43,6 +50,9 @@ __all__ = [
     "split_outputs",
     "dft_bases",
     "dft_bases_adjoint",
+    "dense_to_blocks_lstsq",
+    "dense_flops",
+    "swm_flops",
 ]
 
 
@@ -59,6 +69,21 @@ def blocks_to_dense(w: torch.Tensor) -> torch.Tensor:
     idx = (a[:, None] - a[None, :]) % k
     blocks = w[:, :, idx]                                   # (p, q, k, k)
     return blocks.permute(0, 2, 1, 3).reshape(p * k, q * k)
+
+
+def dense_to_blocks_lstsq(W: torch.Tensor, k: int) -> torch.Tensor:
+    """The nearest block-circulant table (Frobenius) to a dense ``W (m,
+    n)``: each k×k block's circulant fit is the mean over its circulant
+    diagonals, ``w[d] = mean_a B[a, (a - d) mod k]``. Initializes SWM
+    layers from dense checkpoints."""
+    m, n = W.shape
+    if m % k or n % k:
+        raise ValueError(f"dims ({m},{n}) not divisible by k={k}")
+    p, q = m // k, n // k
+    blocks = W.reshape(p, k, q, k).permute(0, 2, 1, 3)     # (p, q, k, k)
+    a = torch.arange(k, device=W.device)
+    cols = (a[None, :] - a[:, None]) % k                   # (d, a) -> col
+    return blocks[:, :, a[None, :], cols].mean(-1)         # (p, q, k)
 
 
 def valid_block_size(requested: int, *dims: int) -> int:
@@ -188,22 +213,177 @@ def dft_bases_adjoint(k: int, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
+# DFT-as-matmul path
+# ---------------------------------------------------------------------------
+#
+# Products take operands in the compute dtype ``cdt`` (the input's) and
+# accumulate in f32, as the reference's ``preferred_element_type=f32``: the
+# operands go up to f32 (exact for bf16) before each matmul or einsum, and
+# a sum of two accumulated terms is taken in f32 before it is cast to cdt.
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a.float(), b.float())
+
+
+def _ein(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _bases(k: int, cdt: torch.dtype, device):
+    return tuple(b.to(cdt) for b in dft_bases(k, device))
+
+
+def _freq(t: torch.Tensor, C: torch.Tensor, S: torch.Tensor, cdt):
+    """Real and imaginary rDFT of the last axis, each cast to cdt."""
+    return _mm(t, C).to(cdt), _mm(t, S).to(cdt)
+
+
+def _dft_fwd_math(x: torch.Tensor, w: torch.Tensor, karatsuba: bool,
+                  cdt: torch.dtype) -> torch.Tensor:
+    p, q, k = w.shape
+    C, S, Ci, Si = _bases(k, cdt, x.device)
+    xr, xi = _freq(_split_blocks(x, k).to(cdt), C, S, cdt)    # (..., q, K)
+    wr, wi = _freq(w.to(cdt), C, S, cdt)                      # (p, q, K)
+    eq = "...qf,pqf->...pf"
+    if karatsuba:
+        # (xr + i·xi)(wr + i·wi): t1 = xr·wr, t2 = xi·wi,
+        # yr = t1 - t2, yi = (xr+xi)(wr+wi) - t1 - t2
+        t1, t2 = _ein(eq, xr, wr), _ein(eq, xi, wi)
+        t3 = _ein(eq, xr + xi, wr + wi)
+        yr, yi = (t1 - t2).to(cdt), (t3 - t1 - t2).to(cdt)
+    else:
+        yr = (_ein(eq, xr, wr) - _ein(eq, xi, wi)).to(cdt)
+        yi = (_ein(eq, xr, wi) + _ein(eq, xi, wr)).to(cdt)
+    yb = _mm(yr, Ci) + _mm(yi, Si)                            # (..., p, k)
+    return yb.reshape(*x.shape[:-1], p * k).to(x.dtype)
+
+
+def _dft_bwd(x2d: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """(dx, dw) of the DFT path: the circulant adjoints with operands in
+    x's dtype and f32 accumulation; the frequency operands are recomputed
+    from ``(x2d, w)``."""
+    p, q, k = w.shape
+    cdt = x2d.dtype
+    C, S, Ci, Si = _bases(k, cdt, x2d.device)
+    xr, xi = _freq(_split_blocks(x2d, k).to(cdt), C, S, cdt)
+    wr, wi = _freq(w.to(cdt), C, S, cdt)
+    gb = g.reshape(*g.shape[:-1], p, k).to(cdt)
+    # adjoint of the inverse rDFT (y = yr@Ci + yi@Si)
+    gyr, gyi = _freq(gb, Ci.T, Si.T, cdt)                     # (..., p, K)
+    # adjoints of the per-bin complex GEMM
+    ex, ew = "...pf,pqf->...qf", "...pf,...qf->pqf"
+    dxr = (_ein(ex, gyr, wr) + _ein(ex, gyi, wi)).to(cdt)
+    dxi = (_ein(ex, gyi, wr) - _ein(ex, gyr, wi)).to(cdt)
+    dwr = _ein(ew, gyr, xr) + _ein(ew, gyi, xi)
+    dwi = _ein(ew, gyi, xr) - _ein(ew, gyr, xi)
+    # adjoint of the forward rDFT (xr = x@C, xi = x@S)
+    dx = (_mm(dxr, C.T) + _mm(dxi, S.T)).reshape(x2d.shape).to(x2d.dtype)
+    dw = (_mm(dwr.to(cdt), C.T) + _mm(dwi.to(cdt), S.T)).to(w.dtype)
+    return dx, dw
+
+
+class _DftOp(torch.autograd.Function):
+    """2-D core of the DFT path, ``x2d (N, q·k)``, ``w (p, q, k)``. Its
+    backward (:func:`_dft_bwd`) saves only ``(x2d, w)`` and recomputes the
+    frequency operands instead of keeping them."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, karatsuba):
+        ctx.save_for_backward(x2d, w)
+        return _dft_fwd_math(x2d, w, karatsuba, x2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        dx, dw = _dft_bwd(x2d, w, g)
+        return dx, dw, None
+
+
+def block_circulant_matvec_dft(x: torch.Tensor, w: torch.Tensor, *,
+                               karatsuba: bool = False,
+                               compute_dtype: Optional[torch.dtype] = None
+                               ) -> torch.Tensor:
+    """rDFT as a dense matmul, per-bin complex GEMM, inverse matmul. x
+    (..., q·k), w (p, q, k) -> (..., p·k) in x's dtype (after the cast to
+    ``compute_dtype`` when given). ``karatsuba=True`` takes the complex
+    contraction in 3 real einsums instead of 4."""
+    if compute_dtype is not None and compute_dtype != x.dtype:
+        x = x.to(compute_dtype)
+    lead = x.shape[:-1]
+    y = _DftOp.apply(x.reshape(-1, x.shape[-1]), w, bool(karatsuba))
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _dft_pair_fwd_math(x2d, w1, w2):
+    k = w1.shape[-1]
+    cdt = x2d.dtype
+    C, S, Ci, Si = _bases(k, cdt, x2d.device)
+    xr, xi = _freq(_split_blocks(x2d, k).to(cdt), C, S, cdt)  # shared
+
+    def one(w):
+        wr, wi = _freq(w.to(cdt), C, S, cdt)
+        eq = "...qf,pqf->...pf"
+        yr = (_ein(eq, xr, wr) - _ein(eq, xi, wi)).to(cdt)
+        yi = (_ein(eq, xr, wi) + _ein(eq, xi, wr)).to(cdt)
+        y = _mm(yr, Ci) + _mm(yi, Si)
+        return y.reshape(x2d.shape[0], w.shape[0] * k).to(x2d.dtype)
+
+    return one(w1), one(w2)
+
+
+class _DftPairOp(torch.autograd.Function):
+    """Two circulant projections of one ``x2d`` sharing its forward DFT
+    (SwiGLU's gate and up); each backward is :func:`_dft_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x2d, w1, w2):
+        ctx.save_for_backward(x2d, w1, w2)
+        return _dft_pair_fwd_math(x2d, w1, w2)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x2d, w1, w2 = ctx.saved_tensors
+        dx1, dw1 = _dft_bwd(x2d, w1, g1)
+        dx2, dw2 = _dft_bwd(x2d, w2, g2)
+        return dx1 + dx2, dw1, dw2
+
+
+def block_circulant_apply_pair(x: torch.Tensor, w1: torch.Tensor,
+                               w2: torch.Tensor):
+    """(y1, y2) = (BC(w1)·x, BC(w2)·x) on the DFT path with one shared
+    forward transform of x."""
+    lead = x.shape[:-1]
+    y1, y2 = _DftPairOp.apply(x.reshape(-1, x.shape[-1]), w1, w2)
+    return (y1.reshape(*lead, y1.shape[-1]),
+            y2.reshape(*lead, y2.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
 # Unified entry points
 # ---------------------------------------------------------------------------
 
 
 def block_circulant_apply(x: torch.Tensor, w: torch.Tensor, *,
-                          impl: str = "freq") -> torch.Tensor:
-    """Dispatch on implementation. x (..., q·k), w (p, q, k) -> (..., p·k)."""
+                          impl: str = "freq",
+                          karatsuba: bool = False) -> torch.Tensor:
+    """Dispatch on implementation. x (..., q·k), w (p, q, k) -> (..., p·k).
+    ``karatsuba`` reaches the ``dft`` impl only."""
     if impl == "paper":
         return block_circulant_matvec_paper(x, w)
     if impl == "freq":
         return block_circulant_matvec_freq(x, w)
+    if impl == "dft":
+        return block_circulant_matvec_dft(x, w, karatsuba=karatsuba)
     if impl == "pallas":
         from repro_torch.kernels.block_circulant import ops as bc_ops
 
         return bc_ops.block_circulant_matmul(x, w)
-    raise NotImplementedError(f"impl {impl!r} is not ported yet")
+    if impl == "freq_shmap":
+        raise NotImplementedError(
+            "impl 'freq_shmap' shards the transforms over a device mesh; it "
+            "belongs to the distribution layer, which is not ported yet")
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def _epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
@@ -241,6 +421,7 @@ def block_circulant_apply_fused(
     w_freq: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     w_scale: Optional[torch.Tensor] = None,
     k: Optional[int] = None,
+    karatsuba: bool = False,
 ) -> torch.Tensor:
     """One projection with the bias/activation epilogue and (optionally)
     frozen frequency weights ``w_freq=(wr, wi)``.
@@ -260,7 +441,7 @@ def block_circulant_apply_fused(
         y = block_circulant_matvec_freq(x, w, w_freq=_as_complex(wr, wi),
                                         k=k)
     else:
-        y = block_circulant_apply(x, w, impl=impl)
+        y = block_circulant_apply(x, w, impl=impl, karatsuba=karatsuba)
     return _epilogue(y, bias, activation)
 
 
@@ -298,6 +479,7 @@ def block_circulant_apply_multi(
     splits: Optional[Tuple[int, ...]] = None,
     bias_cat: Optional[torch.Tensor] = None,
     k: Optional[int] = None,
+    karatsuba: bool = False,
 ):
     """N projections sharing one input -> one stacked-p launch, any impl.
 
@@ -336,7 +518,29 @@ def block_circulant_apply_multi(
     else:
         ps = [w.shape[0] for w in ws]
         k = ws[0].shape[-1]
-        y = block_circulant_apply(x, torch.cat(list(ws), 0), impl=impl)
+        y = block_circulant_apply(x, torch.cat(list(ws), 0), impl=impl,
+                                  karatsuba=karatsuba)
     return [_epilogue(o, biases[i] if biases is not None else None,
                       activation)
             for i, o in enumerate(split_outputs(y, ps, k))]
+
+
+# ---------------------------------------------------------------------------
+# FLOP accounting
+# ---------------------------------------------------------------------------
+
+
+def dense_flops(batch: int, m: int, n: int) -> int:
+    return 2 * batch * m * n
+
+
+def swm_flops(batch: int, m: int, n: int, k: int, impl: str = "freq") -> int:
+    """Analytic FLOPs of one SWM layer application (forward): ~5k·log2 k
+    per length-k transform, 8 per complex multiply-add of the contraction,
+    one inverse transform per (i, j) block for ``paper``, per output block
+    otherwise."""
+    p, q, K = m // k, n // k, k // 2 + 1
+    fft = 5 * k * int(np.log2(max(k, 2)))
+    contraction = 8 * p * q * K
+    iffts = p * q if impl == "paper" else p
+    return batch * (q * fft + contraction + iffts * fft)

@@ -91,7 +91,8 @@ class SWMLSTM(nn.Module):
                 xy, None, impl=self.swm.impl,
                 w_freq_cat=(fb["wr"], fb["wi"]),
                 w_scale_cat=fb.get("w_scale"),
-                splits=(self.d_cell // k,) * 4, bias_cat=fb["bias"], k=k)
+                splits=(self.d_cell // k,) * 4, bias_cat=fb["bias"], k=k,
+                karatsuba=self.swm.karatsuba)
         pairs = [(m[f"W{g}x"], m[f"W{g}r"]) for g in _GATES]
         if all(px.frozen_freq() is not None and pr.frozen_freq() is not None
                for px, pr in pairs):
@@ -112,7 +113,8 @@ class SWMLSTM(nn.Module):
             w_freqs = None
         return circ.block_circulant_apply_multi(
             xy, ws, biases=[buf[f"b{g}"] for g in _GATES],
-            impl=self.swm.impl, w_freqs=w_freqs, k=k)
+            impl=self.swm.impl, w_freqs=w_freqs, k=k,
+            karatsuba=self.swm.karatsuba)
 
     def step(self, x_t, y_prev, c_prev):
         """One LSTM step (eq. 1a–1g). x (B, di), y (B, dp), c (B, dc) ->

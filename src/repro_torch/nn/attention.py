@@ -180,7 +180,8 @@ class Attention(nn.Module):
             return circ.block_circulant_apply_multi(
                 x, None, impl=impl, w_freq_cat=(fb["wr"], fb["wi"]),
                 w_scale_cat=fb.get("w_scale"),
-                splits=tuple(p.out_dim // kb for p in projs), k=kb)
+                splits=tuple(p.out_dim // kb for p in projs), k=kb,
+                karatsuba=self.cfg.swm.karatsuba)
         frozen = all(p.frozen_freq() is not None for p in projs)
         return circ.block_circulant_apply_multi(
             x, None if frozen else [p._buffers["w"] for p in projs],
@@ -190,7 +191,7 @@ class Attention(nn.Module):
             w_freqs=([circ.dequantize_freq_pair(*p.frozen_freq(),
                                                 p.frozen_scale())
                       for p in projs] if frozen else None),
-            k=kb)
+            k=kb, karatsuba=self.cfg.swm.karatsuba)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 cache: Optional[dict] = None,

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import SWMConfig
+from repro_torch.core.circulant import block_circulant_apply_pair
 from repro_torch.nn.linear import Linear
 
 __all__ = ["SwiGLU", "MLP"]
@@ -18,7 +19,12 @@ class SwiGLU(nn.Module):
 
     ``expert_dims=(E,)`` holds E experts' tables stacked (a MoE layer's
     ``experts``): x (E, C, d) -> (E, C, d), expert e on rows x[e], as
-    three grouped launches (wi, wu, wo) on the kernel impl."""
+    three grouped launches (wi, wu, wo) on the kernel impl.
+
+    On the ``dft`` impl with both gate and up circulant at one block size,
+    no expert axis and time-domain tables (not a frozen serve tree), the
+    two take one shared forward DFT of x
+    (``circulant.block_circulant_apply_pair``)."""
 
     def __init__(self, d_model: int, d_ff: int,
                  swm: Optional[SWMConfig] = None, family: str = "ffn",
@@ -35,8 +41,16 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._modules
-        g = torch.nn.functional.silu(m["wi"](x))
-        return m["wo"](g * m["wu"](x))
+        wi, wu = m["wi"], m["wu"]
+        if (wi.is_circulant and wu.is_circulant
+                and wi.block_size == wu.block_size
+                and wi.swm.impl == "dft" and not wi.expert_dims
+                and "w" in wi._buffers):
+            gi, u = block_circulant_apply_pair(x, wi._buffers["w"],
+                                               wu._buffers["w"])
+        else:
+            gi, u = wi(x), wu(x)
+        return m["wo"](torch.nn.functional.silu(gi) * u)
 
 
 class MLP(nn.Module):

@@ -111,7 +111,8 @@ class Linear(nn.Module):
             return circ.block_circulant_apply_fused(
                 x, b.get("w"), impl=self.swm.impl, bias=bias,
                 activation=activation, w_freq=self.frozen_freq(b),
-                w_scale=self.frozen_scale(b), k=self.block_size)
+                w_scale=self.frozen_scale(b), k=self.block_size,
+                karatsuba=self.swm.karatsuba)
         w = b["w"].to(x.dtype)
         if self.expert_dims:       # x (E, ..., in) @ w (E, in, out)
             w = w.reshape(w.shape[:1] + (1,) * (x.dim() - 3) + w.shape[1:])
@@ -132,5 +133,6 @@ class Linear(nn.Module):
                 x[e], pick(b.get("w"), e), impl=self.swm.impl,
                 bias=pick(bias, e), activation=activation,
                 w_freq=None if wf is None else (wf[0][e], wf[1][e]),
-                w_scale=pick(sc, e), k=self.block_size)
+                w_scale=pick(sc, e), k=self.block_size,
+                karatsuba=self.swm.karatsuba)
             for e in range(self.expert_dims[0])])

@@ -147,7 +147,8 @@ def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw"):
 def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
                     audit_args=None):
     """``train_step(state, batch) -> (state, metrics)``: grads (averaged
-    over ``tcfg.microbatch`` slices of the batch when > 1), global-norm
+    over ``tcfg.microbatch`` equal slices of the batch when > 1; a batch
+    that ``microbatch`` does not divide raises ``ValueError``), global-norm
     clip, then AdamW or Adafactor by ``cfg.optimizer``; the state is
     updated in place and returned."""
     _refuse_audit(audit_args)
@@ -156,8 +157,14 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     def compute_grads(params, batch):
         n = tcfg.microbatch
         if n and n > 1:
-            micro = [{k: v.chunk(n)[i] for k, v in batch.items()}
-                     for i in range(n)]
+            B = next(iter(batch.values())).shape[0]
+            if B % n:
+                # the reference reshapes to (n, B // n, ...) and refuses
+                # too: unequal slices weighted 1/n would skew the gradient
+                raise ValueError(f"batch {B} does not split into "
+                                 f"microbatch={n} equal slices")
+            micro = [{k: v.reshape(n, B // n, *v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(n)]
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                  device=p.device), params)
             loss, metrics = 0.0, []

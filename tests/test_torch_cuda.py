@@ -633,3 +633,74 @@ def test_moe_smoke_train_step_on_card_matches_cpu(cuda):
     (lc, nc), (lg, ng) = out["cpu"], out[str(cuda)]
     assert abs(lg - lc) <= 5 * REL_TOL * abs(lc)
     assert abs(ng - nc) <= 5 * REL_TOL * abs(nc)
+
+
+# 2^-7: one bf16 ulp at the largest magnitude. The dft impl rounds the
+# same intermediates to bf16 on both devices; f32 sums in other orders
+# (cuBLAS vs the CPU's) can flip one such rounding
+_DFT_BF16_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("karatsuba", [False, True])
+def test_dft_impl_on_card_matches_cpu(cuda, dtype, karatsuba):
+    """``block_circulant_apply(impl="dft")`` and the shared-DFT pair on
+    the card against the CPU: values and both grads, qwen3-0.6b's fused
+    QKV shape at k = 128."""
+    from repro_torch.core import circulant as circ
+
+    gen = torch.Generator().manual_seed(21)
+    p, q, k, N = 32, 8, 128, 256
+    x = torch.randn(N, q * k, generator=gen).to(dtype)
+    w = (torch.randn(p, q, k, generator=gen) / (q * k) ** 0.5).to(dtype)
+    w2 = (torch.randn(p, q, k, generator=gen) / (q * k) ** 0.5).to(dtype)
+    ct = torch.randn(N, p * k, generator=gen)
+    tol = REL_TOL if dtype == _F32 else _DFT_BF16_TOL
+    out = {}
+    for dev in ("cpu", cuda):
+        xs, ws, w2s = (t.to(dev, copy=True).requires_grad_()
+                       for t in (x, w, w2))
+        y = circ.block_circulant_apply(xs, ws, impl="dft",
+                                       karatsuba=karatsuba)
+        y1, y2 = circ.block_circulant_apply_pair(xs, ws, w2s)
+        c = ct.to(dev)
+        ((y.float() * c).sum() + (y1.float() * c).sum()
+         + (y2.float() * c).sum()).backward()
+        out[str(dev)] = [t.detach().float().cpu()
+                         for t in (y, y1, y2, xs.grad, ws.grad, w2s.grad)]
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert _rel(a, b) <= tol
+
+
+def test_scan_recompute_grads_on_card_equal_plain_loop(cuda):
+    """``chunked_time_scan`` past 256 steps on the card: the per-chunk
+    recompute gives the plain loop's grads bit for bit, and its forward
+    keeps fewer bytes (only the chunk boundaries)."""
+    from repro_torch.nn.scan import chunked_time_scan
+
+    gen = torch.Generator().manual_seed(22)
+    T, B, D, N = 515, 2, 64, 16
+    h0 = torch.randn(B, D, N, generator=gen)
+    dt = torch.rand(T, B, D, generator=gen)
+    u = torch.randn(T, B, N, generator=gen)
+    A = -torch.rand(D, N, generator=gen)
+
+    def step(h, t):
+        dt_t, u_t, a = t
+        h = torch.exp(dt_t[..., None] * a) * h + dt_t[..., None] * u_t[:, None]
+        return h, torch.einsum("bdn,bn->bd", h, u_t)
+
+    grads, kept = {}, {}
+    for remat in (False, True):
+        leaves = [t.to(cuda).requires_grad_() for t in (h0, dt, u, A)]
+        xs = (leaves[1], leaves[2], leaves[3].expand(T, D, N))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        h, ys = chunked_time_scan(step, leaves[0], xs, chunk=256,
+                                  remat=remat)
+        kept[remat] = torch.cuda.memory_allocated(cuda) - base
+        (h.square().sum() + ys.sin().sum()).backward()
+        grads[remat] = [t.grad for t in leaves]
+    for g1, g0 in zip(grads[True], grads[False]):
+        assert torch.equal(g1, g0)
+    assert kept[True] < kept[False]
