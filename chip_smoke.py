@@ -29,11 +29,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches (``bc_matmul`` on the transposed shapes) and ``bc_dw`` in both
    epilogues at the train rows, 512, one row and a row count that leaves
    a ragged last chunk, f32 and bf16, plus ragged shapes;
-5. the first request's prefill logits on the card (kernels) against the
+5. the resilient serving tier (``serve_resilient`` phase, run after phase
+   2 so its row counts join phase 4's checks): (a) full-width qwen3-0.6b
+   (bf16, ``impl="pallas"``) through ``ServeEngine(batch=4,
+   cache_len=256, prefix_cache=True)``: 8 greedy requests of 16 tokens,
+   one seeded 128-token head plus seeded 4-20-token tails, all submitted
+   at once; prefix hits, lookups and saved tokens held to the prediction
+   (4, 8, 512), ``bc_matmul`` held to 140 launches per forward, every
+   prefill timed (the CUDA-event span and the profiler's device busy
+   time) against the same requests through a ``prefix_cache=False``
+   engine on the same model, and the token streams compared; (b) the f32
+   prefix check at 2 layers: a donor-seeded tail prefill's first-token
+   logits against a full prefill of the same prompt, held to 2e-5, then a
+   planted fault (the seed masks the head's last row) that must read
+   above it; (c) the NaN guard at 2 layers with an untied head and one
+   NaN embedding row: a prompt carrying the poison fails in prefill, a
+   victim fails in decode, both with the reference's errors, their slots
+   scrubbed to fresh rows, the four clean requests bit-identical to a
+   fault-free run (twice, the second over the scrubbed slots), then one
+   deadline expiry and one cancel on a ``ManualClock``, and no leaks;
+6. the first request's prefill logits on the card (kernels) against the
    same params on the CPU (plain versions), and one full-width train step
    (batch 2 x seq 32) on the card against the CPU: loss and grad norm;
-6. a short int8-table engine pass and its resident table bytes;
-7. kernel, plain-version and yardstick device times at the slice's shapes
+7. a short int8-table engine pass and its resident table bytes;
+8. kernel, plain-version and yardstick device times at qwen3-0.6b's shapes
    (``torch.matmul`` with the dense-equivalent matrix for ``bc_matmul``
    and the dense weight gradient ``g.T @ x`` for ``bc_dw``, both calls the
    port never makes), beside the least time the card could take for the
@@ -41,7 +60,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launch geometry and transform path (``bc_dw``: its tile, row splits and
    chunk, beside the first version's time), and the wrapper's host time
    per call;
-8. the paper's own models (``paper`` phase), built on the card from seeded
+9. the paper's own models (``paper`` phase), built on the card from seeded
    generators at the paper benchmarks' widths and batches:
    ``SWMMLP((784, 512, 512, 10), 64, quant_bits=12, impl="pallas")`` at
    B = 64, the ASIC net ``SWMMLP((512, 512, 512, 64, 10), 64, 12,
@@ -53,10 +72,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per forward, then images/s or frames/s; one ``SWMCNN`` train step at
    batch 128 (launches (2, 1)) on the card against the CPU, then counted
    steps; both kernels against their plain versions at every new shape,
-   the MNIST example's (phase 12) included (``bc_dw`` at P = 8, Q = 100,
+   the MNIST example's (phase 13) included (``bc_dw`` at P = 8, Q = 100,
    k = 8 over 8192 rows and at P = 32, Q = 98 and 32, k = 8 over 128),
    and their times;
-9. the recurrent hybrids (``hybrid`` and ``rwkv`` paths): full-width
+10. the recurrent hybrids (``hybrid`` and ``rwkv`` paths): full-width
    jamba-v0.1-52b (Mamba + attention + MoE) and rwkv6-7b with
    ``impl="pallas"`` and seeded random params, each served like phase 2
    (8 greedy requests x 16 tokens, ``batch=4, cache_len=128``) through
@@ -69,7 +88,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches (f32 and int8, bit for bit), and the times of every new shape
    beside ``torch.bmm``/``torch.matmul`` on the dense equivalent and the
    bound;
-10. the rest of the decoder family (``family`` paths), all with
+11. the rest of the decoder family (``family`` paths), all with
    ``impl="pallas"``, seeded random params and full width: gemma3-27b (62
    layers, 52 sliding-window local and 10 global) served with
    ``cache_len=2048`` to 6 short requests and prompts of 1015 and 1400
@@ -88,7 +107,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version at every new shape and row count (128-expert grouped launches
    group by group against single launches) and the times of every new
    shape;
-11. the enc-dec family (``encdec`` path): full-width seamless-m4t-medium
+12. the enc-dec family (``encdec`` path): full-width seamless-m4t-medium
    (12 encoder + 12 decoder layers, bidirectional encoder, cross attention
    over a stashed encoder K/V) with ``impl="pallas"`` and seeded random
    params, served through ``make_runner`` -> ``EncDecRunner`` to the short
@@ -101,11 +120,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    twice on the card (bit-identical) and against the CPU at full depth;
    bc_matmul against its plain version at its four shapes and every row
    count launched (int8 too), and their times at 4 to 16,384 rows;
-12. the paper's two examples (``repro_torch.examples``): ``train_one`` at
+13. the paper's two examples (``repro_torch.examples``): ``train_one`` at
    block size 8 for 40 steps each on the card, losses finite and falling,
    launches held to the pinned counts (the MNIST example's shapes are
-   checked in phase 8);
-13. training every family (``train_family`` path): qwen3-moe-235b-a22b
+   checked in phase 9);
+14. training every family (``train_family`` path): qwen3-moe-235b-a22b
    (2 of 94 layers, full width: 128 experts, top-8, untied head),
    paligemma-3b (18 layers, a seeded 256 x 2048 image prefix per row),
    seamless-m4t-medium (12 + 12 layers, seeded (256, 1024) frames per
@@ -129,13 +148,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    37 rows), and the times of every shape beside the bound and
    ``torch.matmul``/``torch.bmm`` (for ``bc_dw`` the dense weight gradient
    ``g^T @ x``);
-14. the scans' per-chunk recompute (``scan_remat``): one train step's
+15. the scans' per-chunk recompute (``scan_remat``): one train step's
    forward and backward at batch 2 x seq 1024 of 2-layer full-width cuts
    of jamba (one Mamba, one attention + MoE layer) and rwkv6, with the
    recompute on and forced off: peak device memory of each, equal losses,
    grads bit-identical (or within FP32_TOL beside a second run's spread),
    launches pinned;
-15. the ``dft`` impl (``dft`` path): ``block_circulant_apply(impl="dft")``
+16. the ``dft`` impl (``dft`` path): ``block_circulant_apply(impl="dft")``
    forward and both grads against the ``freq`` impl at qwen3-0.6b's
    projection shapes over 2048 rows, f32 and bf16, karatsuba off and on;
    full-width qwen3-0.6b trained with ``impl="dft"`` (a timed and a
@@ -756,6 +775,398 @@ def phase_profile(torch, engine, reqs, step_ms):
     engine.drain(rids)
     return report_profile(torch, prof, n, step_ms,
                           "decode step at 4 active slots")
+
+
+# ---------------------------------------------------------------------------
+# The resilient serving tier: prefix cache, NaN guard, deadlines, cancel
+# ---------------------------------------------------------------------------
+
+# part (a): qwen3-0.6b at full depth behind a 256-row cache; 8 greedy
+# requests of 16 tokens, each one seeded 128-token head plus a seeded tail
+# of 4-20 tokens, all submitted at once, so requests 5-8 find resident
+# donors
+RESILIENT_CACHE_LEN = 256
+RESILIENT_HEAD = 128
+RESILIENT_TAILS = (4, 21)
+RESILIENT_SEED = 7
+# part (b): hit vs full prefill logits in f32 (2 of 28 layers), held to
+# the conformance tolerance; the planted fault masks the head's last row
+PREFIX_TOL = FP32_TOL
+# part (c): the NaN guard at 2 layers, untied head, 8 slots with one
+# decode bucket so every launch keeps its shape whatever fails
+NAN_SLOTS = 8
+NAN_MAX_NEW = 8
+NAN_CACHE_LEN = 64
+
+
+def resilient_requests(cfg, n=8, max_new=16):
+    """Part (a)'s traffic: one seeded 128-token head, ``n`` seeded tails of
+    4-20 tokens. Predicted counters: every request after the first
+    ``batch`` admissions matches a resident donor on the whole head (the
+    tails' first tokens differ, so no match runs past it): 4 hits of 128
+    tokens over 8 lookups."""
+    from repro_torch.serve.engine import Request
+    import numpy as np
+
+    rng = np.random.default_rng(RESILIENT_SEED)
+    head = rng.integers(0, cfg.vocab, size=RESILIENT_HEAD).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab, size=int(rng.integers(
+        *RESILIENT_TAILS))).astype(np.int32) for _ in range(n)]
+    if len({int(t[0]) for t in tails}) != n:
+        fail("serve_resilient: two tails share their first token")
+    return [Request(np.concatenate([head, t]), max_new=max_new)
+            for t in tails]
+
+
+def timed_prefills(torch, runner, log):
+    """Wrap ``runner.prefill`` so each call appends (shape, span ms, busy
+    ms) to ``log``: the span between CUDA events around the call, and the
+    device busy time of its kernels (``torch.profiler``). The forward
+    blocks the host on the device (a device sleep ahead of the call never
+    outlasts the enqueue), so the span includes the device's waits for
+    the host. Returns the undo."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inner = runner.prefill
+
+    def prefill(tokens, *args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a.record()
+            out = inner(tokens, *args, **kw)
+            b.record()
+            b.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        log.append((tuple(tokens.shape), a.elapsed_time(b), busy))
+        return out
+
+    runner.prefill = prefill
+    return lambda: delattr(runner, "prefill")
+
+
+def serve_resilient_run(torch, kernel, engine, reqs, name):
+    """``reqs`` through ``engine`` with bc_matmul counted from 0 and every
+    prefill timed; held to 5 launches per layer per forward and every
+    request's ``max_new`` tokens.
+    Returns (tokens, launches, forwards, prefill log)."""
+    s = engine.stats
+    f0 = s.prefill_calls + s.decode_steps
+    log = []
+    undo = timed_prefills(torch, engine.runner, log)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    try:
+        rids = [engine.submit(r) for r in reqs]
+        outs = engine.drain(rids)
+    finally:
+        torch.cuda.synchronize()
+        undo()
+    launches = kernel.LAUNCHES["bc_matmul"]
+    forwards = s.prefill_calls + s.decode_steps - f0
+    per = 5 * engine.cfg.n_layers
+    if [len(outs[r]) for r in rids] != [r.max_new for r in reqs]:
+        fail(f"{name}: token counts {[len(outs[r]) for r in rids]}")
+    if launches != per * forwards:
+        fail(f"{name}: bc_matmul launches {launches} != {per} x {forwards}")
+    return [outs[r] for r in rids], launches, forwards, log
+
+
+def prefix_f32_check(torch, cfg, dev):
+    """Part (b): 2 layers at full width in f32. A donor prompt (head +
+    its own tail) fills slot 0; the consumer (head + another tail)
+    prefills only its tail into slot 1 from slot 0's rows (the engine's
+    layout), against a full prefill of the consumer's prompt. Then the
+    planted fault: the seed masks the head's last row. Returns (sound,
+    planted) rel errs."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServeEngine, pick_bucket
+    import numpy as np
+
+    cfg = dataclasses.replace(cut_depth(cfg, 2), param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    eng = ServeEngine(model, cfg, init_params(model.specs(), seed=0,
+                                              device=dev),
+                      batch=2, cache_len=RESILIENT_CACHE_LEN)
+    r, C = eng.runner, RESILIENT_CACHE_LEN
+    donor, consumer = (np.asarray(q.prompt, np.int64)
+                       for q in resilient_requests(cfg)[:2])
+    m = RESILIENT_HEAD
+    T = consumer.shape[0] - m
+    Sb = pick_bucket(T, eng.prompt_buckets)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    def left_padded(p):
+        S = pick_bucket(p.shape[0], eng.prompt_buckets)
+        toks = np.zeros((1, S), np.int64)
+        toks[0, S - p.shape[0]:] = p
+        return t(toks), t(np.arange(S, dtype=np.int32)[None]
+                          - (S - p.shape[0]))
+
+    tok = np.zeros((1, Sb), np.int64)
+    tok[0, Sb - T:] = consumer[m:]
+    pos = np.zeros((1, Sb), np.int32)
+    pos[0, Sb - T:] = m + np.arange(T)
+    pos[0, :Sb - T] = m + T + np.arange(Sb - T) - C
+    zero, one = t(np.asarray([0])), t(np.asarray([1]))
+
+    def hit():
+        state = r.prefill(*left_padded(donor), r.init_state(2), zero)[2]
+        return r.prefill(t(tok), t(pos), state, one, donor_idx=zero,
+                         match_len=t(np.asarray([m], np.int32)))[0]
+
+    full = r.prefill(*left_padded(consumer), r.init_state(1), zero)[0]
+    sound = rel_err(hit(), full)
+    seed = type(r)._seed_state
+    r._seed_state = lambda s, d, ml: seed(r, s, d, ml - 1)
+    try:
+        planted = rel_err(hit(), full)
+    finally:
+        del r._seed_state
+    torch.cuda.synchronize()
+    print(f"serve_resilient prefix check (f32, 2 layers at full width): "
+          f"{T}-token tail after a {m}-token head copied from a donor slot "
+          f"(bucket {Sb}) vs a full prefill of {consumer.shape[0]} tokens: "
+          f"rel err {sound!r} (tolerance {PREFIX_TOL}); planted fault "
+          f"(seed masks the head's last row) rel err {planted!r}")
+    if not sound <= PREFIX_TOL:
+        fail(f"prefix check rel err {sound:.3g} > {PREFIX_TOL}")
+    if not planted > PREFIX_TOL:
+        fail(f"planted prefix fault reads {planted:.3g}, not above "
+             f"{PREFIX_TOL}")
+    return sound, planted
+
+
+def nan_guard_check(torch, kernel, cfg, dev):
+    """Part (c): 2 layers at full width with an untied head and one NaN
+    embedding row. A fault-free run of the mix picks the poison: the
+    victim's first generated token, which no clean request carries or
+    emits. Then the poisoned run: one request carries the poison in its
+    prompt (fails in prefill), the victim feeds it back (fails in decode);
+    the four clean requests' tokens must equal the fault-free run's bit
+    for bit, the scrubbed slots hold fresh rows, a second pass reuses the
+    scrubbed slots with the same results, nothing leaks; then one cancel
+    and one deadline expiry on a ManualClock."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.guard import ManualClock
+    import numpy as np
+
+    cfg = dataclasses.replace(cut_depth(cfg, 2), tie_embeddings=False)
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    rng = np.random.default_rng(RESILIENT_SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(9, 17))
+                            ).astype(np.int32) for _ in range(8)]
+
+    def engine(p, clock=None):
+        # prefix_block past every prompt: no match, so each prefill seeds
+        # from its own slot's rows (match 0) — the path a scrub protects
+        return ServeEngine(model, cfg, p, batch=NAN_SLOTS,
+                           cache_len=NAN_CACHE_LEN, prefix_cache=True,
+                           prefix_block=NAN_CACHE_LEN,
+                           decode_buckets=(NAN_SLOTS,),
+                           clock=clock or time.monotonic)
+
+    def mix(carrier_tok, victim):
+        # [carrier, victim, 4 clean]: the carrier's middle token is the
+        # poison (or, fault-free, its clean stand-in)
+        carrier = prompts[0].copy()
+        carrier[len(carrier) // 2] = carrier_tok
+        clean = [p for i, p in enumerate(prompts[1:]) if i != victim][:4]
+        return [Request(p, max_new=NAN_MAX_NEW)
+                for p in [carrier, prompts[1 + victim]] + clean]
+
+    base_eng = engine(params)
+    for victim in range(7):
+        reqs = mix(int(prompts[0][len(prompts[0]) // 2]), victim)
+        base = base_eng.generate(reqs)
+        poison = base[1][0]
+        clean = {int(x) for r, o in zip(reqs[2:], base[2:])
+                 for x in list(r.prompt) + o}
+        if (poison not in clean and poison not in reqs[1].prompt
+                and poison not in reqs[0].prompt and poison not in base[0]):
+            break
+    else:
+        fail("nan guard: no victim whose first token is unused elsewhere")
+    table = params["embed"]["table"].clone()
+    table[poison] = float("nan")
+    poisoned = dict(params, embed=dict(params["embed"], table=table))
+    clk = ManualClock()
+    eng = engine(poisoned, clk)
+    bad = mix(poison, victim)
+    fresh = eng.runner.init_state(1)
+    scrubbed = []
+    scrub = eng._scrub_slot
+
+    def checked_scrub(slot):
+        # the rows must equal fresh rows right after the scrub (a later pad
+        # lane of the same step may write into the freed slot)
+        scrub(slot)
+        rows = eng.runner.gather_state(
+            eng.cache, torch.as_tensor([slot], device=dev))
+        if not all(torch.equal(got[n], want[n])
+                   for got, want in zip(rows, fresh) for n in want):
+            fail(f"nan guard: scrubbed slot {slot} is not blank")
+        scrubbed.append(slot)
+
+    eng._scrub_slot = checked_scrub
+    kernel.LAUNCHES["bc_matmul"] = 0
+    rids = [eng.submit(r) for r in bad]
+    while eng.step():
+        pass
+    launches = kernel.LAUNCHES["bc_matmul"]
+    forwards = eng.stats.prefill_calls + eng.stats.decode_steps
+    if launches != 10 * forwards:
+        fail(f"nan guard: bc_matmul launches {launches} != 10 x {forwards}")
+    states = [eng.poll(r) for r in rids]
+    want = [("FAILED", "non-finite logits in prefill (request aborted; "
+             "batch continues)"), ("FAILED", "non-finite logits in decode "
+                                   "(request aborted; batch continues)")]
+    if [(s.status, s.error) for s in states[:2]] != want:
+        fail(f"nan guard: poisoned requests ended "
+             f"{[(s.status, s.error) for s in states[:2]]}")
+    if sorted(scrubbed) != [0, 1] or states[1].tokens != (poison,):
+        fail(f"nan guard: scrubbed slots {scrubbed}, victim tokens "
+             f"{states[1].tokens}")
+    first_scrubs = sorted(scrubbed)
+    got = [list(s.tokens) for s in states[2:]]
+    if got != base[2:] or any(s.status != "FINISHED" for s in states[2:]):
+        fail(f"nan guard: clean tokens {got} != fault-free {base[2:]}")
+    eng.drain(rids)
+    # second pass over the scrubbed slots, the carrier now clean: it must
+    # give the fault-free tokens from slot 0; the victim fails again
+    again = [eng.submit(q) for q in mix(int(prompts[0][len(prompts[0])
+                                                        // 2]), victim)]
+    while eng.step():
+        pass
+    again = [eng.poll(r) for r in again]
+    if [list(s.tokens) for s in again[:1] + again[2:]] != \
+            base[:1] + base[2:] or [s.status for s in again] != \
+            ["FINISHED", "FAILED"] + ["FINISHED"] * 4:
+        fail(f"nan guard: the second pass differs: "
+             f"{[(s.status, s.error) for s in again]}")
+    eng.drain()
+    # one deadline expiry and one cancel on the manual clock
+    doomed = eng.submit(Request(prompts[2], max_new=NAN_MAX_NEW,
+                                deadline_ms=5.0))
+    victim_c = eng.submit(Request(prompts[3], max_new=NAN_MAX_NEW))
+    eng.step()
+    clk.advance(0.010)
+    eng.cancel(victim_c)
+    while eng.step():
+        pass
+    ends = [(eng.poll(r).status, eng.poll(r).error)
+            for r in (doomed, victim_c)]
+    if ends != [("EXPIRED", "deadline_ms=5.0 exceeded at step boundary"),
+                ("CANCELLED", "cancelled by caller")]:
+        fail(f"nan guard: deadline/cancel ended {ends}")
+    eng.drain()
+    if eng._active.any() or (eng._slot_refs != 0).any() or eng._rid_slot \
+            or len(eng._sched):
+        fail("nan guard: a slot, pin or queue entry leaked")
+    st = eng.stats
+    print(f"serve_resilient nan guard (2 layers at full width, untied head, "
+          f"poison token {poison}): prefill carrier and decode victim "
+          f"FAILED with the reference's errors, slots {first_scrubs} "
+          f"scrubbed to fresh rows, 4 clean requests bit-identical to the "
+          f"fault-free run twice, the clean carrier's too from its "
+          f"scrubbed slot (the victim's second end: {again[1].error!r}); "
+          f"bc_matmul launches {launches} = 10 x "
+          f"{forwards}; then EXPIRED and CANCELLED as expected; aborted "
+          f"{st.aborted}, expired {st.expired}, cancelled {st.cancelled}, "
+          f"no leaks")
+    rows = ({b * t for b, t in st.prefill_shapes}
+            | set(st.decode_shapes))
+    return rows, dict(poison=poison, aborted=st.aborted,
+                      expired=st.expired, cancelled=st.cancelled,
+                      launches=launches)
+
+
+def phase_serve_resilient(torch, kernel, dev):
+    """The resilient serving tier on the card: (a) full-width qwen3-0.6b
+    with the prefix cache against the same requests without it, (b) the
+    f32 prefix check, (c) the NaN guard with cancel and deadline. Returns
+    (report row, bc_matmul row counts launched)."""
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    model = build_model(cfg, device=dev)
+    params = init_params(model.specs(), seed=0, device=dev)
+    reqs = resilient_requests(cfg)
+    runs = {}
+    for on in (False, True):
+        eng = ServeEngine(model, cfg, params, batch=4,
+                          cache_len=RESILIENT_CACHE_LEN, prefix_cache=on)
+        outs, launches, forwards, log = serve_resilient_run(
+            torch, kernel, eng, reqs, f"serve_resilient prefix_cache={on}")
+        runs[on] = (eng, outs, launches, forwards, log)
+    on_eng, on_outs, launches, forwards, on_log = runs[True]
+    off_eng, off_outs, _, _, off_log = runs[False]
+    s = on_eng.stats
+    want = (len(reqs) - on_eng.batch, RESILIENT_HEAD
+            * (len(reqs) - on_eng.batch), len(reqs))
+    got = (s.prefix_hits, s.prefill_tokens_saved, s.prefix_lookups)
+    if got != want:
+        fail(f"serve_resilient: (hits, saved, lookups) {got} != predicted "
+             f"{want}")
+    # the first admission round misses on both engines; the rest of the
+    # prefills serve requests 5-8: hits on one engine, full prompts on the
+    # other
+    hit_ms, hit_busy = (sum(x[i] for x in on_log[1:]) for i in (1, 2))
+    miss_ms, miss_busy = (sum(x[i] for x in off_log[1:]) for i in (1, 2))
+    agree = sum(a == b for a, b in zip(on_outs, off_outs))
+    print(f"serve_resilient (qwen3-0.6b, {cfg.n_layers} layers, bf16, "
+          f"batch 4, cache_len {RESILIENT_CACHE_LEN}, 8 requests = "
+          f"{RESILIENT_HEAD}-token shared head + 4-20-token tails, 16 new "
+          f"tokens each): prefix hits {s.prefix_hits} of {s.prefix_lookups} "
+          f"lookups (hit rate {s.prefix_hit_rate!r}), prefill tokens saved "
+          f"{s.prefill_tokens_saved} (as predicted); bc_matmul launches "
+          f"{launches} = {5 * cfg.n_layers} x {forwards} forwards; prefill "
+          f"shapes {sorted(s.prefill_shapes)} (cache off: "
+          f"{sorted(off_eng.stats.prefill_shapes)})")
+    for name, log in (("prefix cache", on_log), ("no prefix cache",
+                                                 off_log)):
+        print(f"  {name}: prefill launches (B, S): span ms (CUDA events) / "
+              f"device busy ms (profiler): " + ", ".join(
+                  f"{sh}: {e!r} / {b!r}" for sh, e, b in log))
+    print(f"  requests 5-8 prefill: {hit_busy!r} ms device busy with the "
+          f"prefix cache, {miss_busy!r} ms without (ratio "
+          f"{miss_busy / hit_busy!r}); spans {hit_ms!r} and {miss_ms!r} ms; "
+          f"token streams equal in {agree} of {len(reqs)} (bf16: tail and "
+          f"full prefill take different attention paths)")
+    sound, planted = prefix_f32_check(torch, cfg, dev)
+    nan_rows, nan = nan_guard_check(torch, kernel, cfg, dev)
+    rows = nan_rows
+    for e in (on_eng, off_eng):
+        rows |= {b * t for b, t in e.stats.prefill_shapes}
+        rows |= set(e.stats.decode_shapes)
+    print(f"serve_resilient phase: {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=launches, forwards=forwards,
+                prefix_hits=s.prefix_hits,
+                prefix_lookups=s.prefix_lookups,
+                prefix_hit_rate=s.prefix_hit_rate,
+                prefill_tokens_saved=s.prefill_tokens_saved,
+                prefill_shapes=sorted(s.prefill_shapes),
+                prefill_log=[list(x) for x in on_log],
+                prefill_log_off=[list(x) for x in off_log],
+                hit_prefill_ms=hit_ms, hit_prefill_busy_ms=hit_busy,
+                miss_prefill_ms=miss_ms, miss_prefill_busy_ms=miss_busy,
+                streams_equal=agree,
+                f32_rel_err=sound,
+                f32_planted_rel_err=planted, nan_guard=nan), rows
 
 
 # ---------------------------------------------------------------------------
@@ -2877,10 +3288,12 @@ def main() -> int:
     cfg, engine, params, reqs, serve_launches, step_ms, serve_rows = \
         phase_serve(torch, dev)
     phase_profile(torch, engine, reqs, step_ms)
+    resilient, resilient_rows = phase_serve_resilient(torch, kernel, dev)
     train_cfg, train_launches, train_ms, train_rows, train_busy = \
         phase_train(torch, dev)
-    max_abs = phase_kernels(torch, kernel, quant, dev,
-                            sorted({1, 4, 512, train_rows} | serve_rows))
+    max_abs = phase_kernels(
+        torch, kernel, quant, dev,
+        sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows))
     dw_abs = phase_dw(torch, kernel, dev,
                       sorted({512, train_rows, *DW_EXTRA_ROWS}))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
@@ -2992,7 +3405,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_matmul.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
-        "launches": (serve_launches + train_launches["bc_matmul"]
+        "launches": (serve_launches + resilient["launches"]
+                     + train_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
@@ -3001,6 +3415,7 @@ def main() -> int:
                      + sum(v["bc_matmul"] for v in tf_launches.values())
                      + remat_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
+                             "serve_resilient": resilient["launches"],
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
@@ -3053,7 +3468,8 @@ def main() -> int:
         "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
         "family": family_rows, "encdec": encdec_row,
         "examples": example_rows, "train_family": tf_rows,
-        "scan_remat": remat_rows, "dft": dft_row}
+        "scan_remat": remat_rows, "dft": dft_row,
+        "serve_resilient": resilient}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,12 @@ d_model)`` in place of the stubbed speech frontend.
 The circulant implementation (``impl``) comes from the config. The engine
 freezes the frequency tables once at load, rounds prefill launches to
 (batch-bucket, prompt-bucket) shapes and compacts decode launches to the
-smallest decode bucket holding the active slots. ``--device`` defaults to
+smallest decode bucket holding the active slots. ``--prefix-cache on``
+reuses resident KV rows across requests sharing a prompt head (the demo
+prompts then share two seeded heads); ``--deadline-ms``, ``--max-queue``
+and ``--shed-policy`` set the request lifecycle's deadlines and load
+shedding; ``--stream`` drives the open-ended submit()/step()/poll()/drain()
+API instead of the closed generate() call. ``--device`` defaults to
 ``cuda`` and fails without a card; ``--device cpu`` runs the plain
 PyTorch path.
 """
@@ -36,6 +41,7 @@ from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.serve.engine import (Request, SamplingParams, Scheduler,
                                       ServeEngine)
+from repro_torch.serve.guard import QueueFullError
 
 
 def _parse_buckets(ap: argparse.ArgumentParser, text: str, flag: str):
@@ -46,6 +52,34 @@ def _parse_buckets(ap: argparse.ArgumentParser, text: str, flag: str):
         return tuple(int(tok) for tok in text.split(","))
     except ValueError:
         ap.error(f"{flag} must be comma-separated ints, got {text!r}")
+
+
+def _parse_pos_int(ap: argparse.ArgumentParser, text: str, flag: str,
+                   default: int) -> int:
+    """Positive-int flag value (``default`` when unset; ap.error
+    otherwise)."""
+    if not text:
+        return default
+    try:
+        v = int(text)
+    except ValueError:
+        ap.error(f"{flag} must be a positive int, got {text!r}")
+    if v < 1:
+        ap.error(f"{flag} must be a positive int, got {text!r}")
+    return v
+
+
+def _parse_pos_float(ap: argparse.ArgumentParser, text: str, flag: str):
+    """Positive-float flag value (None when unset; ap.error otherwise)."""
+    if not text:
+        return None
+    try:
+        v = float(text)
+    except ValueError:
+        ap.error(f"{flag} must be a positive number, got {text!r}")
+    if v <= 0:
+        ap.error(f"{flag} must be a positive number, got {text!r}")
+    return v
 
 
 def main(argv=None):
@@ -66,6 +100,28 @@ def main(argv=None):
     ap.add_argument("--decode-buckets", default="",
                     help="comma-separated decode batch buckets, e.g. 1,2,4 "
                          "(default: powers of two up to --batch)")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the streaming submit()/step()/poll()/drain() "
+                         "API: requests trickle in while the engine runs")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
+                    help="reuse resident KV rows across requests sharing a "
+                         "prompt head: admission copies the matched rows "
+                         "from a donor slot and prefills only the tail")
+    ap.add_argument("--prefix-capacity", default="",
+                    help="max entries in the prefix index (LRU; default "
+                         "256). Forgetting an entry never frees slot rows.")
+    ap.add_argument("--deadline-ms", default="",
+                    help="per-request time to live in milliseconds: a "
+                         "step-boundary watchdog EXPIREs overdue requests "
+                         "and recycles their slots")
+    ap.add_argument("--max-queue", default="",
+                    help="bound the admission queue: submissions at the "
+                         "bound are load-shed per --shed-policy (default "
+                         "unbounded)")
+    ap.add_argument("--shed-policy", choices=Scheduler.SHED_POLICIES,
+                    default="reject",
+                    help="at the --max-queue bound: 'reject' new work "
+                         "(backpressure) or 'drop-oldest' queued request")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
@@ -84,6 +140,16 @@ def main(argv=None):
     arch = (args.model or args.arch).strip().lower().replace("_", "-")
     if arch not in ARCHS:
         ap.error(f"unknown model {arch!r}; choices: {sorted(ARCHS)}")
+    prefix_cache = args.prefix_cache == "on"
+    prefix_capacity = _parse_pos_int(ap, args.prefix_capacity,
+                                     "--prefix-capacity", 256)
+    if args.prefix_capacity and not prefix_cache:
+        ap.error("--prefix-capacity has no effect without --prefix-cache on")
+    deadline_ms = _parse_pos_float(ap, args.deadline_ms, "--deadline-ms")
+    max_queue = (_parse_pos_int(ap, args.max_queue, "--max-queue", 0)
+                 if args.max_queue else None)
+    if args.shed_policy != "reject" and max_queue is None:
+        ap.error("--shed-policy has no effect without --max-queue")
     device = resolve_device(args.device)
     cfg = get_smoke(arch) if args.smoke else get_config(arch)
     model = build_model(cfg, device=device)
@@ -97,9 +163,13 @@ def main(argv=None):
                                           "--prompt-buckets"),
             decode_buckets=_parse_buckets(ap, args.decode_buckets,
                                           "--decode-buckets"),
-            policy=args.policy, quantize=args.quantize)
+            policy=args.policy, prefix_cache=prefix_cache,
+            prefix_capacity=prefix_capacity, max_queue=max_queue,
+            shed_policy=args.shed_policy, quantize=args.quantize)
     except ValueError as e:
-        if "_buckets" in str(e):
+        # misconfiguration (bad bucket lists, prefix cache against a runner
+        # that cannot donate rows) is a usage error, not a crash
+        if "_buckets" in str(e) or "prefix_cache" in str(e):
             ap.error(str(e))
         raise
     print(f"buckets: batch={engine.batch_buckets} "
@@ -121,15 +191,63 @@ def main(argv=None):
         enc_len = cfg.enc_seq or args.cache_len
         return rng.standard_normal((enc_len, cfg.d_model)).astype(np.float32)
 
-    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
-                                 ).astype(np.int32),
-                    max_new=args.max_new, stop_tokens=tuple(args.stop_token),
-                    sampling=sampling, extra=_extra())
-            for _ in range(args.n_requests)]
+    # with the prefix cache on, draw prompts from a few shared heads so the
+    # reuse path fires (head length clipped to leave decode room)
+    head_len = min(args.cache_len // 4,
+                   max(0, args.cache_len - args.max_new - 8))
+    heads = []
+    if prefix_cache and head_len >= 8:
+        heads = [rng.integers(0, cfg.vocab, size=head_len).astype(np.int32)
+                 for _ in range(2)]
+
+    def _prompt(i):
+        tail = rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(3, 9))).astype(np.int32)
+        if heads:
+            return np.concatenate([heads[i % len(heads)], tail])
+        return tail
+
+    reqs = [Request(_prompt(i), max_new=args.max_new,
+                    stop_tokens=tuple(args.stop_token), sampling=sampling,
+                    deadline_ms=deadline_ms, extra=_extra())
+            for i in range(args.n_requests)]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    outs = engine.generate(reqs)
+    if args.stream:
+        # open-ended serving: submissions trickle in while the engine
+        # steps. A submit rejected at the --max-queue bound is
+        # backpressure: step while the engine's retry_after_hint elapses
+        rids = []
+        for r in reqs:
+            while True:
+                try:
+                    rid = engine.submit(r)
+                    break
+                except QueueFullError as e:
+                    print(f"backpressure: {e}")
+                    hold = time.perf_counter() + (e.retry_after_hint or 0.0)
+                    engine.step()
+                    while time.perf_counter() < hold and engine.step():
+                        pass
+            rids.append(rid)
+            engine.step()
+            v = engine.poll(rid)
+            print(f"submitted req {rid} (prompt_len={r.prompt_len}); "
+                  f"poll -> status={v.status} tokens={list(v.tokens)}")
+        while engine.step():
+            pass
+        # poll before drain: an EXPIRED/FAILED/CANCELLED terminal prints
+        # as such rather than as a short finish
+        for rid in rids:
+            v = engine.poll(rid)
+            if v.status != "FINISHED":
+                print(f"req {rid}: {v.status}"
+                      + (f" ({v.error})" if v.error else ""))
+        done = engine.drain(rids)
+        outs = [done[rid] for rid in rids]
+    else:
+        outs = engine.generate(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -137,11 +255,21 @@ def main(argv=None):
         print(f"request {i}: {o}")
     n_tok = sum(len(o) for o in outs)
     s = engine.stats
+    extra = ""
+    if prefix_cache:
+        extra += (f" prefix-hit-rate={s.prefix_hit_rate:.2f}"
+                  f" prefill-tokens-saved={s.prefill_tokens_saved}")
+    if s.rejected or s.expired or s.aborted or s.cancelled:
+        extra += (f" rejected={s.rejected} expired={s.expired}"
+                  f" aborted={s.aborted} cancelled={s.cancelled}")
+    if s.ttft_ms.count:
+        extra += (f" ttft-p50={s.ttft_ms.p50:.3g}ms"
+                  f" ttft-p99={s.ttft_ms.p99:.3g}ms")
     print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s); "
           f"prefill shapes={sorted(s.prefill_shapes)} "
-          f"decode shapes={sorted(s.decode_shapes)} "
+          f"decode-shapes={sorted(s.decode_shapes)} "
           f"tokens/decode-step={s.tokens_per_decode_step:.2f} "
-          f"decode-rows/token={s.decode_rows_per_token:.2f}")
+          f"decode-rows/token={s.decode_rows_per_token:.2f}{extra}")
     return outs
 
 

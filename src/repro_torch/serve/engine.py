@@ -21,7 +21,28 @@ FFT → ∘ → IFFT. The engine applies that split at three levels:
   Admission order is a :class:`Scheduler` policy (fifo or sjf); each
   request carries its own :class:`SamplingParams` and stop tokens.
   ``submit`` / ``step`` / ``poll`` / ``drain`` serve an open-ended stream;
-  ``generate(list)`` is a thin wrapper over that loop.
+  ``cancel`` ends a queued or running request; ``generate(list)`` is a thin
+  wrapper over that loop.
+* **Shared-prefix KV reuse** (``prefix_cache=True``) — prompt heads another
+  request already prefilled are not recomputed:
+
+  1. *match* — admission looks the new prompt's block-aligned prefixes
+     (multiples of ``prefix_block``, longest first) up in a host-side index
+     of resident slot rows; a hit names a donor slot and a match length
+     ``m`` (capped so the tail still produces the first-token logits and
+     ``m + tail_bucket <= cache_len``, so the tail's pad writes stay clear
+     of the copied rows);
+  2. *copy rows* — the prefill gathers the donor's rows and masks every
+     entry at position ``>= m`` (``pos -> -1``): a row copy instead of
+     ``m`` tokens of recomputation (``EngineStats.prefill_tokens_saved``);
+  3. *tail prefill* — only the unmatched tail runs through the model,
+     bucket-shaped as usual, at positions ``m..L-1``;
+  4. *pin* — a matched donor's rows are pinned (``_slot_refs``) until the
+     launch that copies them has run: a pinned free slot is never handed
+     to a new request and never borrowed as a decode pad lane;
+  5. *evict* — rows leave the index when their slot is reassigned, is
+     borrowed as a pad lane (least-recently-used donors first) or is
+     scrubbed, or when the LRU index exceeds ``prefix_capacity``.
 
 Padding: bucketed prefill left-pads prompts and numbers the pad positions
 negatively, so attention masks them (and recurrent mixers skip them) and
@@ -29,39 +50,74 @@ greedy outputs are the same at every bucket shape. Decode compaction is a
 pure permutation of slot rows, over every state leaf the runner holds (KV
 caches, Mamba's conv and SSM states, RWKV's shift and WKV states).
 
+Failure semantics (see :mod:`repro_torch.serve.guard`):
+
+* **Terminal states** — every submitted request ends in exactly one of
+  ``FINISHED``, ``FAILED`` (isolated error: launch fault or non-finite
+  logits), ``EXPIRED`` (``deadline_ms`` exceeded) or ``CANCELLED``
+  (``cancel()`` or load shedding); ``poll`` surfaces the state and the
+  ``error`` reason, ``drain`` claims the (possibly partial) tokens.
+* **Deadlines** — a step-boundary watchdog expires overdue requests,
+  queued or running (the clock starts at ``submit``; ``clock`` is
+  injectable, e.g. a :class:`~repro_torch.serve.guard.ManualClock`).
+* **Error isolation** — every launch is wrapped and the error classified
+  (``guard.classify_error``): a fault raised before the launch touched the
+  state aborts only its chunk's requests (decode launches retry once);
+  anything else is engine-fatal and the engine refuses further work. The
+  port has no donated buffers — ``place_state`` writes the slot state in
+  place — and keeps the split all the same: a failure after
+  ``place_state`` began may leave a half-written cache. Non-finite logits
+  are caught by the runner's per-row ``ok`` flag: only the poisoned row's
+  request is ``FAILED``, its slot rows are scrubbed back to blank (a
+  masked NaN still reaches attention through ``0·NaN``), and every other
+  row continues unchanged.
+* **Load shedding** — ``max_queue`` bounds admission; ``shed_policy``
+  rejects new work (``QueueFullError`` with a ``retry_after_hint``) or
+  cancels the longest-queued request (``drop-oldest``). ``generate``
+  absorbs backpressure (step and retry).
+* **SLO instrumentation** — ``EngineStats.ttft_ms`` (submit to first
+  token) and ``tok_ms`` (inter-token gap) are :class:`LatencyHistogram`s.
+
 Everything model-shaped sits behind a :mod:`repro_torch.serve.runner`
 runner. Requests of a family whose runner ``requires_extra`` (the enc-dec
 family) carry their conditioning as ``Request.extra``, the encoder frames
 ``(enc_seq, d_model)``: the runner's ``validate_request`` checks it at
 ``submit``/``generate`` (decoder families refuse it), and a prefill
-chunk's frames go to the runner stacked as f32. The reference engine's
-prefix cache, deadlines/cancel/shedding, snapshot/restore, tenants and
-audit are not ported yet; without its per-request NaN guard, non-finite
-logits raise ``FloatingPointError``.
+chunk's frames go to the runner stacked as f32. Not ported yet:
+``snapshot``/``restore`` (with ``ft/checkpoint.py``), the prefix store and
+``adopt_prefixes``, tenants with the ``fair`` policy and per-tenant stats
+(``Request.tenant`` is validated and reaches the fault injector's audit),
+``prewarm``, ``audit`` and ``WaveEngine``.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import heapq
+import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.ft.driver import StragglerWatchdog
 from repro_torch.kernels.block_circulant.plan import (_check_quantize,
                                                       freeze_params,
                                                       frozen_table_bytes)
 from repro_torch.nn.module import load_tree
+from repro_torch.serve.guard import (CANCELLED, EXPIRED, FAILED, FINISHED,
+                                     QUEUED, RUNNING, TERMINAL_STATES,
+                                     EngineFatalError, QueueFullError,
+                                     classify_error)
 from repro_torch.serve.runner import make_runner
 
 __all__ = ["SamplingParams", "Request", "RequestState", "Scheduler",
-           "EngineStats", "ServeEngine", "pow2_buckets", "pick_bucket",
-           "batch_split", "validate_buckets", "QUEUED", "RUNNING",
-           "FINISHED"]
-
-QUEUED, RUNNING, FINISHED = "QUEUED", "RUNNING", "FINISHED"
+           "LatencyHistogram", "EngineStats", "ServeEngine", "pow2_buckets",
+           "pick_bucket", "batch_split", "validate_buckets", "QUEUED",
+           "RUNNING", "FINISHED", "FAILED", "EXPIRED", "CANCELLED"]
 
 
 # ---------------------------------------------------------------------------
@@ -164,21 +220,33 @@ def _sample_token(logits: np.ndarray, sp: SamplingParams,
 
 @dataclasses.dataclass
 class Request:
-    """``extra``: per-request conditioning for families whose runner
+    """``deadline_ms``: time to live from ``submit``; the step-boundary
+    watchdog EXPIREs the request (queued or running) once it elapses.
+    ``None`` means no deadline.
+
+    ``extra``: per-request conditioning for families whose runner
     declares ``requires_extra`` — for enc-dec configs, the encoder frame
     embeddings with shape ``(enc_seq, d_model)``. Decoder-only families
     must leave it ``None`` (the runner's ``validate_request`` enforces
-    both ways)."""
+    both ways).
+
+    ``tenant``: the tenant the request bills to (a non-empty string); it
+    reaches the fault injector's audit log."""
 
     prompt: np.ndarray
     max_new: int = 16
     stop_tokens: Tuple[int, ...] = ()
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
+    deadline_ms: Optional[float] = None
     extra: Optional[np.ndarray] = None
+    tenant: str = "default"
 
     def __post_init__(self):
         self.stop_tokens = tuple(int(t) for t in self.stop_tokens)
+        self.tenant = str(self.tenant)
+        if not self.tenant:
+            raise ValueError("tenant must be a non-empty string")
 
     @property
     def prompt_len(self) -> int:
@@ -187,12 +255,15 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class RequestState:
-    """``poll`` snapshot: tokens so far, terminal flag and status."""
+    """``poll`` snapshot: tokens so far, terminal flag, lifecycle
+    ``status`` and, for failed terminals, the ``error`` reason. ``done`` is
+    True exactly when ``status`` is terminal."""
 
     req_id: int
     done: bool
     tokens: Tuple[int, ...]
     status: str = QUEUED
+    error: Optional[str] = None
 
 
 def _validate_request(r: Request, cache_len: int) -> None:
@@ -202,6 +273,10 @@ def _validate_request(r: Request, cache_len: int) -> None:
         raise ValueError("empty prompt")
     if r.max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {r.max_new}")
+    if r.deadline_ms is not None and r.deadline_ms <= 0:
+        raise ValueError(
+            f"deadline_ms must be > 0 (or None for no deadline), "
+            f"got {r.deadline_ms}")
     if L > cache_len:
         raise ValueError(
             f"prompt length {L} exceeds cache_len={cache_len}: the KV cache "
@@ -218,36 +293,172 @@ def _validate_request(r: Request, cache_len: int) -> None:
 class Scheduler:
     """Admission queue: ``fifo`` or ``sjf`` (shortest-prompt-first).
     Per-request outputs are identical under every policy — slots are
-    independent — only the admission order changes."""
+    independent — only the admission order changes.
+
+    ``max_queue`` bounds the queue depth (load shedding): a ``submit`` at
+    the bound either raises :class:`QueueFullError` (``shed_policy
+    "reject"`` — the item is NOT enqueued; it carries ``retry_hint()``
+    when wired) or sheds the longest-queued item to make room
+    (``"drop-oldest"``, returned to the caller to finalize). ``None``
+    keeps the queue unbounded.
+
+    Live items sit in ``_entries`` (seq -> entry); the policy heap and the
+    arrival-order heap behind ``drop_oldest`` hold seqs and delete lazily
+    (dead seqs are skipped when popped)."""
 
     POLICIES = ("fifo", "sjf")
+    SHED_POLICIES = ("reject", "drop-oldest")
 
-    def __init__(self, policy: str = "fifo"):
+    def __init__(self, policy: str = "fifo",
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject",
+                 retry_hint=None):
         if policy not in self.POLICIES:
             raise ValueError(
                 f"unknown scheduler policy {policy!r}; one of {self.POLICIES}")
+        if shed_policy not in self.SHED_POLICIES:
+            raise ValueError(
+                f"unknown shed policy {shed_policy!r}; one of "
+                f"{self.SHED_POLICIES}")
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError(f"max_queue must be >= 1 (or None for "
+                             f"unbounded), got {max_queue}")
         self.policy = policy
-        self._heap: list = []             # (key, seq, item)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self.retry_hint = retry_hint     # zero-arg callable -> seconds|None
+        # seq -> (key, item, tenant, prompt_len)
+        self._entries: Dict[int, Tuple[int, object, str, int]] = {}
+        self._order: list = []           # lazy heap of (key, seq)
+        self._arrival: list = []         # lazy min-heap of seq [drop_oldest]
         self._seq = 0
+        self._front = 0
 
-    def submit(self, item, prompt_len: int) -> None:
-        key = prompt_len if self.policy == "sjf" else 0
-        heapq.heappush(self._heap, (key, self._seq, item))
+    def _key(self, prompt_len: int) -> int:
+        return prompt_len if self.policy == "sjf" else 0
+
+    def _insert(self, seq: int, key: int, item, tenant: str,
+                prompt_len: int) -> None:
+        self._entries[seq] = (key, item, tenant, prompt_len)
+        heapq.heappush(self._arrival, seq)
+        heapq.heappush(self._order, (key, seq))
+
+    def submit(self, item, prompt_len: int, tenant: str = "default"):
+        """Enqueue; returns the item shed to make room (``drop-oldest`` at
+        the bound) or None. Raises :class:`QueueFullError` at the bound
+        under ``reject``."""
+        dropped = None
+        if self.max_queue is not None \
+                and len(self._entries) >= self.max_queue:
+            if self.shed_policy == "reject":
+                hint = self.retry_hint() if self.retry_hint else None
+                raise QueueFullError(len(self._entries), self.max_queue,
+                                     retry_after_hint=hint)
+            dropped = self.drop_oldest()
+        self._insert(self._seq, self._key(prompt_len), item, str(tenant),
+                     prompt_len)
         self._seq += 1
+        return dropped
+
+    def drop_oldest(self):
+        """Remove and return the longest-queued item (smallest sequence
+        number — arrival order, regardless of policy)."""
+        while self._arrival:
+            seq = heapq.heappop(self._arrival)
+            e = self._entries.pop(seq, None)
+            if e is not None:
+                return e[1]
+        raise IndexError("drop_oldest on an empty queue")
+
+    def purge(self, keep) -> int:
+        """Drop every queued item for which ``keep(item)`` is false
+        (requests cancelled or expired while queued). Returns the number
+        dropped; heap references die lazily."""
+        dead = [seq for seq, e in self._entries.items() if not keep(e[1])]
+        for seq in dead:
+            del self._entries[seq]
+        return len(dead)
+
+    def put_front(self, item, prompt_len: int,
+                  tenant: str = "default") -> None:
+        """Re-enqueue ahead of every same-key item (a request deferred out
+        of an admission round goes back to the head of the line)."""
+        self._front -= 1
+        self._insert(self._front, self._key(prompt_len), item, str(tenant),
+                     prompt_len)
 
     def take(self, n: int) -> list:
         out = []
-        while self._heap and len(out) < n:
-            out.append(heapq.heappop(self._heap)[2])
+        while self._order and len(out) < n:
+            _, seq = heapq.heappop(self._order)
+            e = self._entries.pop(seq, None)
+            if e is not None:
+                out.append(e[1])
         return out
 
     def __len__(self) -> int:
-        return len(self._heap)
+        return len(self._entries)
 
 
 # ---------------------------------------------------------------------------
 # Stats
 # ---------------------------------------------------------------------------
+
+
+class LatencyHistogram:
+    """Streaming latency histogram over FIXED log-spaced millisecond
+    buckets (1-2-5 series, 10µs..100s, plus overflow): p50/p99 read in
+    O(buckets) and memory is constant. Quantiles return the upper bound of
+    the covering bucket — an upper estimate within the bucket spacing."""
+
+    BOUNDS_MS: Tuple[float, ...] = tuple(
+        m * (10.0 ** e) for e in range(-2, 5) for m in (1.0, 2.0, 5.0)
+    ) + (1e5,)
+
+    def __init__(self, counts: Optional[Sequence[int]] = None):
+        n = len(self.BOUNDS_MS) + 1          # + overflow bucket
+        if counts is None:
+            self.counts = [0] * n
+        else:
+            if len(counts) != n:
+                raise ValueError(
+                    f"LatencyHistogram needs {n} bucket counts, "
+                    f"got {len(counts)} — snapshot from a different "
+                    f"bucket layout")
+            self.counts = [int(c) for c in counts]
+
+    @property
+    def count(self) -> int:
+        return sum(self.counts)
+
+    def observe(self, ms: float) -> None:
+        self.counts[bisect.bisect_left(self.BOUNDS_MS, float(ms))] += 1
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Upper bound of the bucket containing the q-quantile (``None``
+        on an empty histogram; ``inf`` when it falls in overflow)."""
+        total = self.count
+        if total == 0:
+            return None
+        target = q * total
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= target:
+                return (self.BOUNDS_MS[i] if i < len(self.BOUNDS_MS)
+                        else float("inf"))
+        return float("inf")
+
+    @property
+    def p50(self) -> Optional[float]:
+        return self.quantile(0.50)
+
+    @property
+    def p99(self) -> Optional[float]:
+        return self.quantile(0.99)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"count": self.count, "p50_ms": self.p50, "p99_ms": self.p99}
 
 
 @dataclasses.dataclass
@@ -261,9 +472,22 @@ class EngineStats:
     padded_prompt_tokens: int = 0          # bucket-padding waste
     slot_steps_active: int = 0             # Σ over decode steps of active slots
     decode_rows: int = 0                   # Σ over decode steps of rows launched
+    prefix_lookups: int = 0                # admissions probed against the index
+    prefix_hits: int = 0                   # admissions seeded from a donor
+    prefill_tokens_saved: int = 0          # Σ matched prefix tokens never rerun
+    rejected: int = 0                      # load-shed submissions (both policies)
+    aborted: int = 0                       # FAILED terminals (isolated errors)
+    expired: int = 0                       # EXPIRED terminals (deadline_ms)
+    cancelled: int = 0                     # CANCELLED terminals (cancel/shed)
+    launch_retries: int = 0                # transient decode launches retried
+    slow_steps: int = 0                    # straggler-watchdog flagged steps
     prefill_shapes: Set[Tuple[int, int]] = dataclasses.field(
         default_factory=set)
     decode_shapes: Set[int] = dataclasses.field(default_factory=set)
+    ttft_ms: LatencyHistogram = dataclasses.field(
+        default_factory=LatencyHistogram)      # submit -> first token
+    tok_ms: LatencyHistogram = dataclasses.field(
+        default_factory=LatencyHistogram)      # inter-token (decode) gap
 
     @property
     def tokens_per_decode_step(self) -> float:
@@ -280,6 +504,13 @@ class EngineStats:
             return 0.0
         return self.decode_rows / self.tokens_generated
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prefix-index probes that found a usable donor."""
+        if self.prefix_lookups == 0:
+            return 0.0
+        return self.prefix_hits / self.prefix_lookups
+
 
 # ---------------------------------------------------------------------------
 # The continuous-batching engine
@@ -292,15 +523,29 @@ class ServeEngine:
     ``params`` is the model's param tree (``model.specs()`` layout). The
     engine freezes it (``quantize`` "off" or "int8") and installs the
     frozen tree in ``model`` — one engine per model. Caches live on
-    ``model.device``.
+    ``model.device``. ``prefix_cache``/``prefix_block``/``prefix_capacity``
+    configure shared-prefix reuse, ``max_queue``/``shed_policy`` load
+    shedding, ``fault_injector`` the chaos hooks (a
+    :class:`~repro_torch.serve.guard.ServeFaultInjector`) and ``clock``
+    the deadline and latency clock (seconds, ``time.monotonic`` by
+    default); see the module docstring.
     """
 
     def __init__(self, model, cfg: ModelConfig, params, batch: int,
                  cache_len: int, *,
                  prompt_buckets: Optional[Sequence[int]] = None,
                  decode_buckets: Optional[Sequence[int]] = None,
-                 policy: str = "fifo", quantize: str = "off"):
-        Scheduler(policy)              # fail fast on an unknown policy
+                 policy: str = "fifo",
+                 prefix_cache: bool = False,
+                 prefix_block: int = 8,
+                 prefix_capacity: int = 256,
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject",
+                 fault_injector=None,
+                 clock=time.monotonic,
+                 quantize: str = "off"):
+        # fail fast on unknown policies / bad bounds (before param freeze)
+        Scheduler(policy, max_queue=max_queue, shed_policy=shed_policy)
         _check_quantize(quantize)
         if quantize != "off" and not cfg.swm.enabled:
             raise ValueError(
@@ -308,6 +553,21 @@ class ServeEngine:
                 "has swm disabled")
         self.batch, self.cache_len = int(batch), int(cache_len)
         self.runner = make_runner(model, cfg, self.cache_len)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_block = int(prefix_block)
+        self.prefix_capacity = int(prefix_capacity)
+        if self.prefix_cache:
+            if self.prefix_block < 1:
+                raise ValueError(
+                    f"prefix_block must be >= 1, got {prefix_block}")
+            if self.prefix_capacity < 1:
+                raise ValueError(
+                    f"prefix_capacity must be >= 1, got {prefix_capacity}")
+            if not self.runner.supports_prefix_cache:
+                raise ValueError(
+                    f"prefix_cache=True is unsupported for "
+                    f"{type(self.runner).__name__}: "
+                    f"{self.runner.prefix_cache_unsupported_reason}")
         if cfg.swm.enabled:
             params = freeze_params(self.runner.specs(), params,
                                    quantize=quantize)
@@ -327,20 +587,33 @@ class ServeEngine:
         self.decode_buckets = validate_buckets(
             "decode_buckets", decode_buckets, self.batch)
         self.stats = EngineStats()
-        self._sched = Scheduler(policy)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self.faults = fault_injector
+        self._clock_fn = clock
+        self._watchdog = StragglerWatchdog()
+        self._fatal: Optional[str] = None
+        self._step_count = 0
+        # drain-rate estimate (terminals/s EWMA) behind retry_after_hint;
+        # per-rid submit/last-token times feed the latency histograms
+        self._drain_rate = 0.0
+        self._prev_step_t: Optional[float] = None
+        self._prev_terminals = 0
+        self._terminals = 0
+        self._submit_t: Dict[int, float] = {}
+        self._last_tok_t: Dict[int, float] = {}
+        self._sched = Scheduler(policy, max_queue=self.max_queue,
+                                shed_policy=self.shed_policy,
+                                retry_hint=self.retry_after_hint)
         self._next_rid = 0
         self._req: Dict[int, Request] = {}
         self._out: Dict[int, List[int]] = {}
         self._finished: Dict[int, List[int]] = {}
+        self._status: Dict[int, str] = {}
+        self._error: Dict[int, Optional[str]] = {}
+        self._deadline: Dict[int, float] = {}
         self._rid_slot: Dict[int, int] = {}
-        B = self.batch
-        self.cache = self.runner.init_state(B)
-        self._active = np.zeros(B, bool)
-        self._slot_req: List[Optional[int]] = [None] * B
-        self._slot_rng: List[Optional[np.random.Generator]] = [None] * B
-        self._slot_pos = np.zeros(B, np.int64)
-        self._slot_last = np.zeros(B, np.int64)
-        self._slot_left = np.zeros(B, np.int64)
+        self._reset_slots()
 
     # -- launch-shape accounting --------------------------------------------
     @property
@@ -366,83 +639,425 @@ class ServeEngine:
         int8 scales included)."""
         return frozen_table_bytes(self.params)
 
-    # -- host-side request state ---------------------------------------------
+    # -- host-side slot state -------------------------------------------------
+    def _reset_slots(self) -> None:
+        B = self.batch
+        self.cache = self.runner.init_state(B)
+        self._active = np.zeros(B, bool)
+        self._slot_req: List[Optional[int]] = [None] * B
+        self._slot_rng: List[Optional[np.random.Generator]] = [None] * B
+        self._slot_pos = np.zeros(B, np.int64)
+        self._slot_last = np.zeros(B, np.int64)
+        self._slot_left = np.zeros(B, np.int64)
+        # prefix-cache state: resident prompt per slot, block-aligned
+        # prefix index (LRU), donor pins, recency clock
+        self._slot_prompt: List[Optional[np.ndarray]] = [None] * B
+        self._slot_refs = np.zeros(B, np.int64)
+        self._slot_touch = np.zeros(B, np.int64)
+        self._prefix_index: "OrderedDict[Tuple[int, bytes], int]" = \
+            OrderedDict()
+        self._clock = 0
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _finalize(self, rid: int) -> None:
+    # -- prefix index ---------------------------------------------------------
+    def _index_drop_slot(self, slot: int) -> None:
+        """Evict a slot's rows from the prefix index — called exactly when
+        the rows are about to be overwritten (slot reassigned, borrowed as
+        a decode pad lane, or scrubbed). Pinned rows never get here."""
+        assert self._slot_refs[slot] == 0, (
+            f"evicting donor slot {slot} with {self._slot_refs[slot]} "
+            f"in-flight references")
+        if self._slot_prompt[slot] is None:
+            return
+        self._slot_prompt[slot] = None
+        for key in [k for k, s in self._prefix_index.items() if s == slot]:
+            del self._prefix_index[key]
+
+    def _index_insert(self, slot: int, prompt: np.ndarray) -> None:
+        """Register a freshly prefilled slot as a donor: every block-aligned
+        prefix of its prompt maps to the slot, LRU-bounded by
+        ``prefix_capacity`` (forgetting an entry never frees slot rows).
+        Inert unless the runner supports prefix reuse."""
+        if not self.prefix_cache or not self.runner.supports_prefix_cache:
+            return
+        self._slot_prompt[slot] = prompt
+        self._clock += 1
+        self._slot_touch[slot] = self._clock
+        raw = prompt.tobytes()
+        for m in range(self.prefix_block, prompt.shape[0] + 1,
+                       self.prefix_block):
+            key = (m, raw[: m * prompt.itemsize])
+            self._prefix_index[key] = slot
+            self._prefix_index.move_to_end(key)
+        while len(self._prefix_index) > self.prefix_capacity:
+            self._prefix_index.popitem(last=False)
+
+    def _match_prefix(self, prompt: np.ndarray) -> Tuple[Optional[int], int]:
+        """Longest usable indexed prefix of ``prompt``: a multiple of
+        ``prefix_block``, at most ``L - 1`` (the tail must produce the
+        first-token logits) and with ``m + tail_bucket <= cache_len`` (the
+        tail's pad writes stay clear of the copied rows). Returns
+        ``(donor_slot, m)`` or ``(None, 0)``."""
+        if not self.prefix_cache or not self.runner.supports_prefix_cache \
+                or not self._prefix_index:
+            return None, 0
+        L = int(prompt.shape[0])
+        raw = prompt.tobytes()
+        m = ((L - 1) // self.prefix_block) * self.prefix_block
+        while m >= self.prefix_block:
+            key = (m, raw[: m * prompt.itemsize])
+            slot = self._prefix_index.get(key)
+            if slot is not None:
+                Sb = pick_bucket(L - m, self.prompt_buckets)
+                if m + Sb <= self.cache_len:
+                    self._prefix_index.move_to_end(key)
+                    self._clock += 1
+                    self._slot_touch[slot] = self._clock
+                    return int(slot), m
+            m -= self.prefix_block
+        return None, 0
+
+    # -- backpressure ---------------------------------------------------------
+    def retry_after_hint(self) -> Optional[float]:
+        """Estimated seconds until a queue slot frees: queue depth over the
+        observed drain rate (terminals/s EWMA across step boundaries).
+        ``None`` until the engine has observed any drain."""
+        if self._drain_rate <= 0.0:
+            return None
+        depth = max(1, len(self._sched))
+        return float(min(60.0, max(1e-3, depth / self._drain_rate)))
+
+    def _observe_drain(self, now: float) -> None:
+        """EWMA the terminal-completion rate at each step boundary.
+        Terminals accumulate until the clock advances (dt > 0), so a burst
+        finishing inside one clock tick still registers."""
+        if self._prev_step_t is None:
+            self._prev_step_t = now
+            return
+        dt = now - self._prev_step_t
+        if dt <= 0:
+            return
+        rate = (self._terminals - self._prev_terminals) / dt
+        a = 0.2
+        self._drain_rate = (rate if self._drain_rate == 0.0
+                            else a * rate + (1 - a) * self._drain_rate)
+        self._prev_step_t = now
+        self._prev_terminals = self._terminals
+
+    def _validate(self, r: Request) -> None:
+        _validate_request(r, self.cache_len)
+        self.runner.validate_request(r)
+
+    # -- lifecycle --------------------------------------------------------------
+    def _check_alive(self) -> None:
+        if self._fatal is not None:
+            raise EngineFatalError(
+                f"engine is dead ({self._fatal}); build a replacement "
+                f"engine (snapshot/restore is not ported yet: it comes "
+                f"with ft/checkpoint.py)")
+
+    def _die(self, e: Exception) -> None:
+        """Engine-fatal error: a launch may have written the slot state
+        partway, so no device state can be trusted. Mark the engine dead
+        (every later submit/step refuses) and raise."""
+        self._fatal = f"{type(e).__name__}: {e}"
+        raise EngineFatalError(
+            f"engine-fatal serving error ({self._fatal}): the slot state "
+            f"cannot be trusted after a mid-launch failure — the engine is "
+            f"dead; build a replacement engine (snapshot/restore is not "
+            f"ported yet: it comes with ft/checkpoint.py)") from e
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Overwrite a slot's rows with blank (fresh) rows. Needed after a
+        non-finite launch row: NaN k/v contaminate any later read through
+        attention even when masked (``0 · NaN = NaN``), including the
+        no-match self-donor seed of the next prefill."""
+        self.cache = self.runner.reset_rows(
+            self.cache, self._tensor(np.asarray([slot], np.int64)))
+
+    def _finalize(self, rid: int, status: str,
+                  error: Optional[str] = None, *,
+                  scrub: bool = False) -> None:
+        """Move a request to a terminal state: free its slot if admitted
+        (donor pins are zero whenever this runs), keep the slot's
+        prefix-index entries unless ``scrub`` (non-finite rows: drop them
+        from the index and blank the rows), bump the matching counter. The
+        (possibly partial) tokens stay claimable via ``drain``."""
+        assert status in TERMINAL_STATES, status
         slot = self._rid_slot.pop(rid, None)
         if slot is not None:
             self._active[slot] = False
             self._slot_req[slot] = None
             self._slot_rng[slot] = None
+            if scrub:
+                self._index_drop_slot(slot)
+                self._scrub_slot(slot)
         self._req.pop(rid, None)
         self._finished[rid] = self._out.pop(rid, [])
-        self.stats.requests_completed += 1
+        self._deadline.pop(rid, None)
+        self._submit_t.pop(rid, None)
+        self._last_tok_t.pop(rid, None)
+        self._status[rid] = status
+        self._error[rid] = error
+        self._terminals += 1
+        if status == FINISHED:
+            self.stats.requests_completed += 1
+        elif status == FAILED:
+            self.stats.aborted += 1
+        elif status == EXPIRED:
+            self.stats.expired += 1
+        elif status == CANCELLED:
+            self.stats.cancelled += 1
+
+    def _expire_overdue(self) -> None:
+        """Step-boundary deadline watchdog: EXPIRE every request (queued or
+        running) whose ``deadline_ms`` has elapsed. Donor pins are zero at
+        a step boundary, so the slot's prefix-index entries stay valid."""
+        if not self._deadline:
+            return
+        now = self._clock_fn()
+        for rid in [r for r, t in self._deadline.items() if now >= t]:
+            r = self._req.get(rid)
+            ms = None if r is None else r.deadline_ms
+            self._finalize(rid, EXPIRED,
+                           f"deadline_ms={ms} exceeded at step boundary")
 
     def _push_token(self, slot: int, logits_row: np.ndarray) -> None:
         rid = self._slot_req[slot]
         r = self._req[rid]
         tok = _sample_token(logits_row, r.sampling, self._slot_rng[slot])
         if r.stop_tokens and tok in r.stop_tokens:
-            self._finalize(rid)
+            self._finalize(rid, FINISHED)
             return
+        # the first token closes the TTFT window (submit -> first token);
+        # later tokens feed the inter-token gap
+        now = self._clock_fn()
+        if not self._out[rid]:
+            t0 = self._submit_t.get(rid)
+            if t0 is not None:
+                self.stats.ttft_ms.observe((now - t0) * 1e3)
+        else:
+            tprev = self._last_tok_t.get(rid)
+            if tprev is not None:
+                self.stats.tok_ms.observe((now - tprev) * 1e3)
+        self._last_tok_t[rid] = now
         self._out[rid].append(tok)
         self.stats.tokens_generated += 1
         self._slot_last[slot] = tok
         self._slot_left[slot] -= 1
         if self._slot_left[slot] <= 0:
-            self._finalize(rid)
+            self._finalize(rid, FINISHED)
 
-    # -- admission ------------------------------------------------------------
+    # -- admission --------------------------------------------------------------
+    def _resolve_placement(self, rids: List[int],
+                           match: Dict[int, Tuple[Optional[int], int]],
+                           free: List[int]):
+        """This round's slot placement under donor pins.
+
+        The placement pool is the free slots with no pins. When pinned free
+        donors starve it: a donor with a SINGLE consumer hosts that
+        consumer itself (copy and overwrite happen in one launch); other
+        consumers are DEFERRED to the next round (``put_front``: they
+        re-match against the same resident donors); if the round would
+        still fall short, matches are dropped — progress wins over reuse.
+
+        Returns ``(keep, avail, self_place)``: the requests to admit, an
+        ordered slot pool covering them, and per-request self-placement.
+        Every remaining pin belongs to a kept request's match and is
+        released right after the launch that consumes it."""
+        n = len(rids)
+        avail = [i for i in free if self._slot_refs[i] == 0]
+        self_place: Dict[int, int] = {}
+        if len(avail) >= n:
+            return rids, avail, self_place
+        keep = list(rids)
+        deferred: List[int] = []
+        for rid in reversed(rids):
+            if len(avail) + len(self_place) >= len(keep):
+                break
+            donor, _ = match[rid]
+            if donor is None or self._active[donor]:
+                continue
+            if self._slot_refs[donor] == 1:
+                self_place[rid] = donor            # sole consumer: host it
+                continue
+            if len(keep) == 1:
+                continue
+            keep.remove(rid)
+            deferred.append(rid)
+            match.pop(rid)
+            self._slot_refs[donor] -= 1
+            if self._slot_refs[donor] == 0:
+                avail.append(donor)
+        if len(avail) + len(self_place) < len(keep):
+            # still starved: give up matches (full prefill) so the round
+            # still admits
+            for rid in keep:
+                donor, _ = match[rid]
+                if donor is None or self._active[donor] \
+                        or rid in self_place:
+                    continue
+                self._slot_refs[donor] -= 1
+                match[rid] = (None, 0)
+                if self._slot_refs[donor] == 0:
+                    avail.append(donor)
+                if len(avail) + len(self_place) >= len(keep):
+                    break
+        # deferred holds latest-taken first; pushing in that order leaves
+        # the earliest-taken at the queue head
+        for rid in deferred:
+            self._sched.put_front(rid, self._req[rid].prompt_len,
+                                  tenant=self._req[rid].tenant)
+        return keep, avail, self_place
+
+    def _on_launch(self, kind: str, index: int, rids) -> None:
+        """Fault-injection hook; passes the sorted tenants riding in the
+        launch to injectors that take them (``accepts_tenants``)."""
+        if self.faults is None:
+            return
+        if getattr(self.faults, "accepts_tenants", False):
+            tenants = tuple(sorted({self._req[rid].tenant for rid in rids
+                                    if rid in self._req}))
+            self.faults.on_launch(kind, index, tenants=tenants)
+        else:
+            self.faults.on_launch(kind, index)
+
     def _admit(self) -> None:
         free = [i for i in range(self.batch) if not self._active[i]]
         if not free:
             return
-        rids = self._sched.take(len(free))
+        # take from the queue, skipping stale entries (requests cancelled
+        # or expired while queued stay in the heap until taken here)
+        rids: List[int] = []
+        while len(rids) < len(free) and len(self._sched):
+            for rid in self._sched.take(len(free) - len(rids)):
+                if rid in self._finished:
+                    continue
+                rids.append(rid)
         if not rids:
             return
+        # match against the RESIDENT index (donors placed in earlier
+        # rounds); a matched donor is pinned until its copy has run
+        match: Dict[int, Tuple[Optional[int], int]] = {}
+        for rid in rids:
+            p = np.asarray(self._req[rid].prompt, np.int32).reshape(-1)
+            donor, m = self._match_prefix(p)
+            match[rid] = (donor, m)
+            if donor is not None:
+                self._slot_refs[donor] += 1
+        rids, avail, self_place = self._resolve_placement(rids, match, free)
+        if self.prefix_cache:
+            # lookups count ADMITTED requests only (deferred ones re-match
+            # next round)
+            self.stats.prefix_lookups += len(rids)
         by_bucket: Dict[int, List[int]] = {}
         for rid in rids:
-            Sb = pick_bucket(self._req[rid].prompt_len, self.prompt_buckets)
+            tail = self._req[rid].prompt_len - match[rid][1]
+            Sb = pick_bucket(tail, self.prompt_buckets)
             by_bucket.setdefault(Sb, []).append(rid)
         for Sb in sorted(by_bucket):
             rids_b = by_bucket[Sb]
             for Bb in batch_split(len(rids_b), self.batch_buckets):
                 chunk, rids_b = rids_b[:Bb], rids_b[Bb:]
-                slots = [free.pop(0) for _ in chunk]
-                toks = np.zeros((Bb, Sb), np.int64)
-                pos = np.zeros((Bb, Sb), np.int32)
-                for j, rid in enumerate(chunk):
-                    p = np.asarray(self._req[rid].prompt,
-                                   np.int64).reshape(-1)
-                    T = p.shape[0]
-                    toks[j, Sb - T:] = p
-                    # pads get negative positions -> attention-masked
-                    pos[j] = np.arange(Sb, dtype=np.int32) - (Sb - T)
-                    self.stats.padded_prompt_tokens += Sb - T
-                extra = None
-                if self.runner.requires_extra:
-                    extra = self._tensor(np.stack([
-                        np.asarray(self._req[rid].extra, np.float32)
-                        for rid in chunk]))
-                logits, ok, self.cache = self.runner.prefill(
-                    self._tensor(toks), self._tensor(pos), self.cache,
-                    self._tensor(np.asarray(slots, np.int64)), extra=extra)
-                self.stats.prefill_calls += 1
-                self.stats.prefill_shapes.add((Bb, Sb))
-                lg = logits.float().cpu().numpy()
-                if not bool(ok.all()):
-                    raise FloatingPointError("non-finite logits in prefill")
-                for j, (slot, rid) in enumerate(zip(slots, chunk)):
-                    r = self._req[rid]
-                    self._slot_req[slot] = rid
-                    self._rid_slot[rid] = slot
-                    self._slot_rng[slot] = r.sampling.make_rng()
-                    self._slot_pos[slot] = r.prompt_len
-                    self._slot_left[slot] = r.max_new
-                    self._active[slot] = True
-                    self._push_token(slot, lg[j])
+                self._launch_prefill(chunk, Bb, Sb, match, avail,
+                                     self_place)
+
+    def _launch_prefill(self, chunk, Bb, Sb, match, avail, self_place):
+        """One bucket-shaped prefill launch for ``chunk``; a transient
+        fault fails only this chunk's requests."""
+        slots = []
+        for rid in chunk:
+            s = self_place.get(rid)
+            if s is None:
+                s = avail.pop(0)
+            else:
+                # the consumer's own pin; released before eviction so
+                # _index_drop_slot sees an unreferenced slot
+                self._slot_refs[s] -= 1
+            slots.append(s)
+        toks = np.zeros((Bb, Sb), np.int64)
+        pos = np.zeros((Bb, Sb), np.int32)
+        donor_idx = np.asarray(slots, np.int64)
+        mlen = np.zeros(Bb, np.int32)
+        prompts: List[np.ndarray] = []
+        for j, rid in enumerate(chunk):
+            p = np.asarray(self._req[rid].prompt, np.int32).reshape(-1)
+            prompts.append(p)
+            donor, m = match[rid]
+            T = p.shape[0] - m
+            toks[j, Sb - T:] = p[m:]
+            if m > 0:
+                # tail at positions m..m+T-1; pad writes park on ring slots
+                # m+T..m+Sb-1 with NEGATIVE stored positions (masked),
+                # clear of the copied donor rows [0, m)
+                pos[j, Sb - T:] = m + np.arange(T, dtype=np.int32)
+                pos[j, : Sb - T] = (m + T + np.arange(Sb - T, dtype=np.int32)
+                                    - self.cache_len)
+                donor_idx[j] = donor
+                mlen[j] = m
+                self.stats.prefix_hits += 1
+                self.stats.prefill_tokens_saved += int(m)
+            else:
+                # pads get negative positions -> attention-masked
+                pos[j] = np.arange(Sb, dtype=np.int32) - (Sb - T)
+            self.stats.padded_prompt_tokens += Sb - T
+        for slot in slots:
+            self._index_drop_slot(slot)           # rows being overwritten
+        kw = {}
+        if self.prefix_cache:
+            kw["donor_idx"] = self._tensor(donor_idx)
+            kw["match_len"] = self._tensor(mlen)
+        if self.runner.requires_extra:
+            kw["extra"] = self._tensor(np.stack([
+                np.asarray(self._req[rid].extra, np.float32)
+                for rid in chunk]))
+        try:
+            self._on_launch("prefill", self.stats.prefill_calls, chunk)
+            logits, ok, self.cache = self.runner.prefill(
+                self._tensor(toks), self._tensor(pos), self.cache,
+                self._tensor(np.asarray(slots, np.int64)), **kw)
+        except Exception as e:
+            if classify_error(e) != "request":
+                self._die(e)
+            # transient fault BEFORE the launch: state intact, slot rows
+            # untouched (still free, already out of the index). Release
+            # this chunk's donor pins and FAIL only its requests.
+            for rid in chunk:
+                donor, _ = match[rid]
+                if donor is not None and rid not in self_place:
+                    self._slot_refs[donor] -= 1
+                self._finalize(rid, FAILED, f"prefill launch failed: {e}")
+            return
+        # copies landed: release this chunk's donor pins (self-placed
+        # consumers already released theirs)
+        for rid in chunk:
+            donor, _ = match[rid]
+            if donor is not None and rid not in self_place:
+                self._slot_refs[donor] -= 1
+        self.stats.prefill_calls += 1
+        self.stats.prefill_shapes.add((Bb, Sb))
+        lg = logits.float().cpu().numpy()
+        okh = ok.cpu().numpy()
+        for j, (slot, rid) in enumerate(zip(slots, chunk)):
+            if not okh[j]:
+                # poisoned row: its NaN k/v already landed in the slot —
+                # scrub back to blank rows and never index or activate it
+                self._scrub_slot(slot)
+                self._finalize(rid, FAILED,
+                               "non-finite logits in prefill "
+                               "(request aborted; batch continues)")
+                continue
+            r = self._req[rid]
+            self._index_insert(slot, prompts[j])
+            self._slot_req[slot] = rid
+            self._rid_slot[rid] = slot
+            self._slot_rng[slot] = r.sampling.make_rng()
+            self._slot_pos[slot] = r.prompt_len
+            self._slot_left[slot] = r.max_new
+            self._active[slot] = True
+            self._push_token(slot, lg[j])
 
     # -- decode -----------------------------------------------------------------
     def _decode_step(self) -> None:
@@ -452,59 +1067,143 @@ class ServeEngine:
             return
         Bb = pick_bucket(n, self.decode_buckets)
         # pad lanes borrow distinct free slot rows: the place-back has no
-        # duplicate indices and pad writes land on dead rows that the next
-        # admission's prefill overwrites
+        # duplicate indices and pad writes land on dead rows. With the
+        # prefix cache on, borrow non-donor rows first and evict (least
+        # recently used first) any donor that must be borrowed — its rows
+        # are about to take an unmasked pad write.
         idx = act
         if Bb > n:
             free = np.nonzero(~self._active)[0]
-            idx = np.concatenate([act, free[: Bb - n]])
-        logits, ok, self.cache = self.runner.decode(
-            self._tensor(self._slot_last[idx][:, None]), self.cache,
-            self._tensor(self._slot_pos[idx]), self._tensor(idx))
+            if self.prefix_cache:
+                plain = [int(i) for i in free
+                         if self._slot_prompt[i] is None]
+                donors = sorted((int(i) for i in free
+                                 if self._slot_prompt[i] is not None),
+                                key=lambda s: self._slot_touch[s])
+                borrow = (plain + donors)[: Bb - n]
+                for s in borrow:
+                    self._index_drop_slot(s)
+                idx = np.concatenate([act, np.asarray(borrow, act.dtype)])
+            else:
+                idx = np.concatenate([act, free[: Bb - n]])
+        # ONE retry for a transient (pre-launch) fault: the injector fires
+        # a scheduled fault once, so the retry runs the same launch on
+        # intact state. A second failure, or any other error, is fatal.
+        attempt = 0
+        while True:
+            try:
+                self._on_launch("decode", self.stats.decode_steps,
+                                [self._slot_req[int(s)] for s in act])
+                logits, ok, self.cache = self.runner.decode(
+                    self._tensor(self._slot_last[idx][:, None]), self.cache,
+                    self._tensor(self._slot_pos[idx]), self._tensor(idx))
+                break
+            except Exception as e:
+                if classify_error(e) != "request" or attempt >= 1:
+                    self._die(e)
+                attempt += 1
+                self.stats.launch_retries += 1
         self.stats.decode_steps += 1
         self.stats.slot_steps_active += int(n)
         self.stats.decode_rows += int(Bb)
         self.stats.decode_shapes.add(int(Bb))
         self._slot_pos[act] += 1
         lg = logits[:n].float().cpu().numpy()
-        if not bool(ok[:n].all()):
-            raise FloatingPointError("non-finite logits in decode")
+        okh = ok[:n].cpu().numpy()
         for j, slot in enumerate(act):
-            self._push_token(int(slot), lg[j])
+            slot = int(slot)
+            if not okh[j]:
+                # poisoned row: abort just this request, scrub its rows and
+                # drop it from the prefix index; other rows continue
+                self._finalize(self._slot_req[slot], FAILED,
+                               "non-finite logits in decode "
+                               "(request aborted; batch continues)",
+                               scrub=True)
+                continue
+            self._push_token(slot, lg[j])
 
     # -- public API ---------------------------------------------------------------
     def submit(self, request: Request) -> int:
-        """Enqueue one request; returns its request id."""
-        _validate_request(request, self.cache_len)
-        self.runner.validate_request(request)
+        """Enqueue one request; returns its request id. With ``max_queue``
+        set, a submit at the bound raises :class:`QueueFullError`
+        (``reject``: nothing enqueued, ``stats.rejected`` counts it) or
+        sheds the longest-queued request as CANCELLED (``drop-oldest``).
+        The deadline clock starts now."""
+        self._check_alive()
+        self._validate(request)
+        if self._sched.max_queue is not None:
+            # stale entries (cancelled/expired while queued) must not count
+            # against the bound
+            self._sched.purge(lambda rid: rid not in self._finished)
         rid = self._next_rid
+        try:
+            dropped = self._sched.submit(rid, request.prompt_len,
+                                         tenant=request.tenant)
+        except QueueFullError:
+            self.stats.rejected += 1
+            raise
         self._next_rid += 1
-        self._sched.submit(rid, request.prompt_len)
         self._req[rid] = request
         self._out[rid] = []
+        self._submit_t[rid] = self._clock_fn()
+        if request.deadline_ms is not None:
+            self._deadline[rid] = (self._clock_fn()
+                                   + request.deadline_ms / 1000.0)
+        if dropped is not None:
+            self.stats.rejected += 1
+            self._finalize(dropped, CANCELLED,
+                           "load shed (drop-oldest): queue at max_queue="
+                           f"{self._sched.max_queue}")
         return rid
 
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a queued or running request: its slot (if any) is
+        recycled and its partial tokens stay claimable via ``drain``.
+        Returns True if this call cancelled it, False if it was already
+        terminal; raises ``KeyError`` for unknown or claimed ids."""
+        if req_id in self._finished:
+            return False
+        if req_id not in self._out:
+            raise KeyError(f"unknown or already-claimed request id {req_id}")
+        self._finalize(req_id, CANCELLED, "cancelled by caller")
+        return True
+
     def step(self) -> bool:
-        """Admit queued requests into free slots (bucketed prefill), then
-        run one compacted decode step. True while work remains."""
+        """Expire overdue deadlines, admit queued requests into free slots
+        (bucketed prefill), then run one compacted decode step. True while
+        work remains. Raises :class:`EngineFatalError` (and marks the
+        engine dead) on an unrecoverable launch error."""
+        self._check_alive()
+        t0 = self._clock_fn()
+        if self.faults is not None:
+            self.faults.on_step(self._step_count)
+        self._expire_overdue()
         self._admit()
         self._decode_step()
+        self._step_count += 1
+        now = self._clock_fn()
+        self._observe_drain(now)
+        if self._watchdog.observe(self._step_count, now - t0) != "ok":
+            self.stats.slow_steps += 1
         return bool(self._active.any() or len(self._sched))
 
     def poll(self, req_id: int) -> RequestState:
-        """Progress of a submitted request, without consuming it."""
+        """Progress of a submitted request, without consuming it: tokens so
+        far, lifecycle ``status`` and the ``error`` of failed terminals."""
         if req_id in self._finished:
             return RequestState(req_id, True, tuple(self._finished[req_id]),
-                                FINISHED)
+                                self._status.get(req_id, FINISHED),
+                                self._error.get(req_id))
         if req_id in self._out:
             status = RUNNING if req_id in self._rid_slot else QUEUED
             return RequestState(req_id, False, tuple(self._out[req_id]),
-                                status)
+                                status, None)
         raise KeyError(f"unknown or already-claimed request id {req_id}")
 
     def drain(self, req_ids: Optional[Sequence[int]] = None
               ) -> Dict[int, List[int]]:
-        """Step until idle, then claim finished outputs (default: all)."""
+        """Step until idle, then claim terminal outputs (default: all) —
+        partial tokens for FAILED/EXPIRED/CANCELLED terminals."""
         while self.step():
             pass
         rids = list(self._finished) if req_ids is None else list(req_ids)
@@ -514,13 +1213,26 @@ class ServeEngine:
             if rid not in self._finished:
                 raise KeyError(
                     f"request id {rid} is not a finished unclaimed request")
-        return {rid: self._finished.pop(rid) for rid in rids}
+        out = {}
+        for rid in rids:
+            out[rid] = self._finished.pop(rid)
+            self._status.pop(rid, None)
+            self._error.pop(rid, None)
+        return out
 
     def generate(self, requests: List[Request]) -> List[List[int]]:
-        """Serve a list of requests; per-request tokens in request order."""
+        """Serve a list of requests; per-request tokens in request order.
+        A submit rejected at the ``max_queue`` bound steps the engine and
+        retries."""
         for r in requests:
-            _validate_request(r, self.cache_len)
-            self.runner.validate_request(r)
-        rids = [self.submit(r) for r in requests]
+            self._validate(r)
+        rids = []
+        for r in requests:
+            while True:
+                try:
+                    rids.append(self.submit(r))
+                    break
+                except QueueFullError:
+                    self.step()
         done = self.drain(rids)
         return [done[rid] for rid in rids]

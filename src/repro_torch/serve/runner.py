@@ -5,20 +5,25 @@ model-shaped lives behind a runner, which owns the per-slot *state* (the
 KV caches) and exposes the operations the engine composes:
 
 * ``init_state(batch)`` — fresh state with one row per slot;
-* ``prefill(tokens, positions, state, slot_idx, extra=None)`` — run a
-  bucket-shaped prompt group on fresh rows and place them into ``state``
-  at ``slot_idx``; returns ``(last_logits, ok, state)``. ``extra`` is the
-  chunk's stacked per-request conditioning (the enc-dec encoder frames);
-  decoder runners take none;
+* ``prefill(tokens, positions, state, slot_idx, donor_idx=None,
+  match_len=None, extra=None)`` — run a bucket-shaped prompt group and
+  place its rows into ``state`` at ``slot_idx``; returns ``(last_logits,
+  ok, state)``. Without ``donor_idx`` the group starts from fresh rows;
+  with it (the prefix cache) row j starts from a copy of slot
+  ``donor_idx[j]``'s rows with every entry at a position ``>=
+  match_len[j]`` masked, and ``tokens`` carry only the unmatched tail.
+  ``extra`` is the chunk's stacked per-request conditioning (the enc-dec
+  encoder frames); decoder runners take none;
 * ``decode(tokens, state, pos, slot_idx)`` — gather the rows named by
   ``slot_idx``, decode one token, place them back; returns
   ``(logits, ok, state)``;
-* ``gather_state`` / ``place_state`` — row surgery.
+* ``gather_state`` / ``place_state`` / ``reset_rows`` — row surgery (slot
+  compaction, scrubbing a poisoned slot back to blank rows).
 
-``ok[j]`` flags that row j's logits are all finite. State tensors are
-preallocated once per engine and updated in place (``place_state`` is an
-indexed copy into them); gathered rows are fresh copies the model may
-write into.
+``ok[j]`` flags that row j's logits are all finite: the engine's
+per-request NaN guard reads it. State tensors are preallocated once per
+engine and updated in place (``place_state`` is an indexed copy into
+them); gathered rows are fresh copies the model may write into.
 
 **Pad contract.** Prefill buckets are LEFT-padded: real tokens sit
 rightmost, pad lanes carry negative positions. Attention masks every key
@@ -30,15 +35,14 @@ at any bucket shape. Every forward dispatches MoE layers with
 its own row only).
 
 **Capability flags.** ``supports_prefix_cache`` records whether state rows
-are position-sliceable (a donor's rows for positions ``[0, m)`` could seed
+are position-sliceable (a donor's rows for positions ``[0, m)`` can seed
 another request), with ``prefix_cache_unsupported_reason`` saying why not:
-full-length KV caches are, recurrent state and enc-dec cross-attention
-state are not. The engine's prefix cache itself is not ported yet, nor the
-reference's refusal for short local-attention rings (``DecoderRunner``
-keeps the flag True for gemma3); the flags mirror the reference's runners
-otherwise. ``requires_extra`` marks families whose requests carry
-per-request conditioning (``Request.extra``: the enc-dec encoder frames),
-and ``validate_request`` checks a request against it both ways.
+full-length KV caches are; recurrent state, enc-dec cross-attention state
+and local-attention rings shorter than ``cache_len`` (donor rows past the
+window are overwritten) are not. ``requires_extra`` marks families whose
+requests carry per-request conditioning (``Request.extra``: the enc-dec
+encoder frames), and ``validate_request`` checks a request against it both
+ways.
 
 :func:`make_runner` picks the runner for a config: :class:`EncDecRunner`
 for the enc-dec family, :class:`RecurrentRunner` when recurrent mixers are
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.decoder import local_attn_cache_len
 
 __all__ = ["ModelRunner", "DecoderRunner", "RecurrentRunner",
            "EncDecRunner", "make_runner", "recurrent_mixer_names"]
@@ -90,7 +95,8 @@ class ModelRunner:
     def init_state(self, batch: int):
         raise NotImplementedError
 
-    def prefill(self, tokens, positions, state, slot_idx, extra=None):
+    def prefill(self, tokens, positions, state, slot_idx, donor_idx=None,
+                match_len=None, extra=None):
         raise NotImplementedError
 
     def decode(self, tokens, state, pos, slot_idx):
@@ -101,6 +107,11 @@ class ModelRunner:
 
     def place_state(self, state, sub, idx):
         raise NotImplementedError
+
+    def reset_rows(self, state, idx):
+        """Overwrite the rows named by ``idx`` with fresh (blank) rows."""
+        return self.place_state(state, self.init_state(int(idx.shape[0])),
+                                idx)
 
     def validate_request(self, r) -> None:
         """Family-specific admission checks beyond the engine's shared
@@ -115,22 +126,67 @@ class ModelRunner:
 
 class DecoderRunner(ModelRunner):
     """Runner over :class:`HybridDecoderLM`. State: the model's cache, a
-    list with one dict per layer, every leaf with the slot axis at 0."""
+    list with one dict per layer, every leaf with the slot axis at 0.
+
+    Prefix reuse is supported unless an ``attn_local`` layer keeps a ring
+    shorter than ``cache_len``: such a ring has already overwritten a
+    donor's rows past the window."""
 
     supports_prefix_cache = True
+
+    def __init__(self, model, cfg: ModelConfig, cache_len: int):
+        super().__init__(model, cfg, cache_len)
+        if any(lspec.mixer == "attn_local" for lspec in cfg.layer_specs()):
+            ring = local_attn_cache_len(cfg, self.cache_len)
+            if ring < self.cache_len:
+                self.supports_prefix_cache = False
+                self.prefix_cache_unsupported_reason = (
+                    f"prefix_cache needs full-length KV caches, but "
+                    f"'attn_local' layers keep a ring of {ring} < "
+                    f"cache_len={self.cache_len} entries: donor rows "
+                    f"past the window are overwritten and the shared "
+                    f"head cannot be copied")
 
     def init_state(self, batch: int) -> List[dict]:
         return self.model.init_cache(batch, self.cache_len)
 
     @torch.no_grad()
-    def prefill(self, tokens, positions, state, slot_idx, extra=None):
-        fresh = self.init_state(tokens.shape[0])
+    def prefill(self, tokens, positions, state, slot_idx, donor_idx=None,
+                match_len=None, extra=None):
+        """Prefill a bucket-shaped group from fresh rows, or (``donor_idx``
+        given: the prefix cache) from donor rows seeded by
+        :meth:`_seed_state`; a missing match passes the row's own slot
+        with ``match_len`` 0, whose fully masked seed acts as fresh rows."""
+        if donor_idx is None:
+            seed = self.init_state(tokens.shape[0])
+        else:
+            seed = self._seed_state(state, donor_idx, match_len)
         logits, filled = self.model.forward(tokens, positions=positions,
-                                            cache=fresh, logits_mode="last",
+                                            cache=seed, logits_mode="last",
                                             moe_no_drop=True)
         last = logits[:, -1]
         ok = torch.isfinite(last).all(dim=-1)
         return last, ok, self.place_state(state, filled, slot_idx)
+
+    def _seed_state(self, state, donor_idx, match_len):
+        """Bucket-shaped rows copied from the donor slots: entries at
+        positions ``>= match_len`` (the donor's tail and decode rows) get
+        ``pos -> -1`` so only the matched head survives the attention mask,
+        and the k/v of every entry outside the head (pads included) are
+        blanked. The reference leaves those k/v in place; a masked NaN
+        there still reaches attention (``0 · NaN``), and a decode pad lane
+        that feeds a failed request's last token back writes NaN rows into
+        its freed slot, which the next request seeded from that slot (a
+        miss seeds from its own slot) would read."""
+        m = match_len[:, None]
+        out = []
+        for layer in self.gather_state(state, donor_idx):
+            pos = layer["pos"]
+            head = ((pos >= 0) & (pos < m))[..., None, None]
+            out.append({"pos": pos.masked_fill(pos >= m, -1),
+                        "k": layer["k"].masked_fill(~head, 0),
+                        "v": layer["v"].masked_fill(~head, 0)})
+        return out
 
     @torch.no_grad()
     def decode(self, tokens, state, pos, slot_idx):
@@ -200,7 +256,8 @@ class EncDecRunner(ModelRunner):
         return self.model.init_cache(batch, self.cache_len)
 
     @torch.no_grad()
-    def prefill(self, tokens, positions, state, slot_idx, extra=None):
+    def prefill(self, tokens, positions, state, slot_idx, donor_idx=None,
+                match_len=None, extra=None):
         """``extra`` (Bb, enc_len, d_model) are the chunk's stacked encoder
         frames; the encoder pass runs here and its cross K/V are placed
         into the slot state with the rest of the rows."""
