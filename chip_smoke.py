@@ -48,6 +48,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    scrubbed to fresh rows, the four clean requests bit-identical to a
    fault-free run (twice, the second over the scrubbed slots), then one
    deadline expiry and one cancel on a ``ManualClock``, and no leaks;
+5b. the durable tier (``durable`` phase, after ``serve_resilient``; its
+   row counts join phase 4's checks; its files live under one temporary
+   directory, removed at the end): (a) full-width qwen3-0.6b behind
+   ``ServeEngine(batch=4, cache_len=256, prefix_cache=True,
+   snapshot_dir=...)`` serves phase 5's 8 requests and 2 seeded requests
+   sampled at T = 0.8, top_k = 50, snapshots after 6 steps and runs on; a
+   replacement engine on a fresh model from the same seeded params
+   restores and drains: its cache equals the first's at the snapshot bit
+   for bit, all 10 streams equal the first's, 140 launches per forward,
+   the bytes written, ``snapshot()``/``restore()`` wall ms and the
+   restored decode step's busy ms; (b) a ``PrefixStore`` (256 MiB) on a
+   prefix-cache engine: phase 5's traffic, then 4 requests on another
+   seeded head evict and spill its donors; ``save()``, ``load()`` into a
+   fresh store, a cold engine on a fresh model ``adopt_prefixes()`` and
+   serves requests 5-8 again: adopted rows equal the spilled ones bit for
+   bit, hits equal the requests that reach an adopted prompt, tokens equal
+   the first engine's; phase 5's NaN guard again with a store attached:
+   a scrub spills nothing; (c) ``TrainDriver`` on qwen3-0.6b cut to 2
+   layers (full width), batch 8 x seq 256, AdamW, ``remat="block"``,
+   checkpoints every 2 steps and a fault before step 3: one restart, 7
+   step executions, launches held to 7 x (30, 10) (derived from the
+   modules), the model's tensors aliased to the state's after the
+   restore, losses and final params and moments against an uninterrupted
+   run (bit-identical, else within 1e-5), the checkpoint bytes and the
+   host-copy, write and restore ms;
 6. the first request's prefill logits on the card (kernels) against the
    same params on the CPU (plain versions), and one full-width train step
    (batch 2 x seq 32) on the card against the CPU: loss and grad norm;
@@ -230,6 +255,11 @@ DW_EXTRA_ROWS = (1, 37)
 # this run measured
 DW_FIRST_MS = {"qkv": 3.269904, "o": 1.648368, "wi_wu": 2.457136,
                "wo": 2.458400}
+
+
+# the card's name and power limit as nvidia-smi prints them, set by main and
+# printed beside every time and size the durable phase reports
+CARD = ["card not read"]
 
 
 def fail(msg: str) -> None:
@@ -799,7 +829,7 @@ NAN_MAX_NEW = 8
 NAN_CACHE_LEN = 64
 
 
-def resilient_requests(cfg, n=8, max_new=16):
+def resilient_requests(cfg, n=8, max_new=16, seed=RESILIENT_SEED):
     """Part (a)'s traffic: one seeded 128-token head, ``n`` seeded tails of
     4-20 tokens. Predicted counters: every request after the first
     ``batch`` admissions matches a resident donor on the whole head (the
@@ -808,7 +838,7 @@ def resilient_requests(cfg, n=8, max_new=16):
     from repro_torch.serve.engine import Request
     import numpy as np
 
-    rng = np.random.default_rng(RESILIENT_SEED)
+    rng = np.random.default_rng(seed)
     head = rng.integers(0, cfg.vocab, size=RESILIENT_HEAD).astype(np.int32)
     tails = [rng.integers(0, cfg.vocab, size=int(rng.integers(
         *RESILIENT_TAILS))).astype(np.int32) for _ in range(n)]
@@ -818,18 +848,18 @@ def resilient_requests(cfg, n=8, max_new=16):
             for t in tails]
 
 
-def timed_prefills(torch, runner, log):
-    """Wrap ``runner.prefill`` so each call appends (shape, span ms, busy
-    ms) to ``log``: the span between CUDA events around the call, and the
-    device busy time of its kernels (``torch.profiler``). The forward
-    blocks the host on the device (a device sleep ahead of the call never
-    outlasts the enqueue), so the span includes the device's waits for
-    the host. Returns the undo."""
+def timed_calls(torch, runner, log, attr="prefill"):
+    """Wrap ``runner.prefill`` (or ``runner.decode``) so each call appends
+    (shape, span ms, busy ms) to ``log``: the span between CUDA events
+    around the call, and the device busy time of its kernels
+    (``torch.profiler``). The forward blocks the host on the device (a
+    device sleep ahead of the call never outlasts the enqueue), so the
+    span includes the device's waits for the host. Returns the undo."""
     from torch.profiler import ProfilerActivity, profile
 
-    inner = runner.prefill
+    inner = getattr(runner, attr)
 
-    def prefill(tokens, *args, **kw):
+    def timed(tokens, *args, **kw):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -842,8 +872,8 @@ def timed_prefills(torch, runner, log):
         log.append((tuple(tokens.shape), a.elapsed_time(b), busy))
         return out
 
-    runner.prefill = prefill
-    return lambda: delattr(runner, "prefill")
+    setattr(runner, attr, timed)
+    return lambda: delattr(runner, attr)
 
 
 def serve_resilient_run(torch, kernel, engine, reqs, name):
@@ -854,7 +884,7 @@ def serve_resilient_run(torch, kernel, engine, reqs, name):
     s = engine.stats
     f0 = s.prefill_calls + s.decode_steps
     log = []
-    undo = timed_prefills(torch, engine.runner, log)
+    undo = timed_calls(torch, engine.runner, log)
     torch.cuda.synchronize()
     kernel.LAUNCHES["bc_matmul"] = 0
     try:
@@ -942,7 +972,7 @@ def prefix_f32_check(torch, cfg, dev):
     return sound, planted
 
 
-def nan_guard_check(torch, kernel, cfg, dev):
+def nan_guard_check(torch, kernel, cfg, dev, store=None):
     """Part (c): 2 layers at full width with an untied head and one NaN
     embedding row. A fault-free run of the mix picks the poison: the
     victim's first generated token, which no clean request carries or
@@ -951,7 +981,9 @@ def nan_guard_check(torch, kernel, cfg, dev):
     the four clean requests' tokens must equal the fault-free run's bit
     for bit, the scrubbed slots hold fresh rows, a second pass reuses the
     scrubbed slots with the same results, nothing leaks; then one cancel
-    and one deadline expiry on a ManualClock."""
+    and one deadline expiry on a ManualClock. With a prefix ``store`` on
+    the poisoned engine: every eviction of a scrubbed slot spills nothing,
+    and no poisoned prompt reaches the store."""
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import init_params
     from repro_torch.serve.engine import Request, ServeEngine
@@ -965,14 +997,15 @@ def nan_guard_check(torch, kernel, cfg, dev):
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(9, 17))
                             ).astype(np.int32) for _ in range(8)]
 
-    def engine(p, clock=None):
+    def engine(p, clock=None, prefix_store=None):
         # prefix_block past every prompt: no match, so each prefill seeds
         # from its own slot's rows (match 0) — the path a scrub protects
         return ServeEngine(model, cfg, p, batch=NAN_SLOTS,
                            cache_len=NAN_CACHE_LEN, prefix_cache=True,
                            prefix_block=NAN_CACHE_LEN,
                            decode_buckets=(NAN_SLOTS,),
-                           clock=clock or time.monotonic)
+                           clock=clock or time.monotonic,
+                           prefix_store=prefix_store)
 
     def mix(carrier_tok, victim):
         # [carrier, victim, 4 clean]: the carrier's middle token is the
@@ -999,8 +1032,16 @@ def nan_guard_check(torch, kernel, cfg, dev):
     table[poison] = float("nan")
     poisoned = dict(params, embed=dict(params["embed"], table=table))
     clk = ManualClock()
-    eng = engine(poisoned, clk)
+    eng = engine(poisoned, clk, store)
     bad = mix(poison, victim)
+    drops = []                 # (slot, spill, rows indexed) per eviction
+    drop = eng._index_drop_slot
+
+    def logged_drop(slot, *, spill=True):
+        drops.append((slot, spill, eng._slot_prompt[slot] is not None))
+        drop(slot, spill=spill)
+
+    eng._index_drop_slot = logged_drop
     fresh = eng.runner.init_state(1)
     scrubbed = []
     scrub = eng._scrub_slot
@@ -1084,9 +1125,28 @@ def nan_guard_check(torch, kernel, cfg, dev):
           f"no leaks")
     rows = ({b * t for b, t in st.prefill_shapes}
             | set(st.decode_shapes))
-    return rows, dict(poison=poison, aborted=st.aborted,
-                      expired=st.expired, cancelled=st.cancelled,
-                      launches=launches)
+    out = dict(poison=poison, aborted=st.aborted, expired=st.expired,
+               cancelled=st.cancelled, launches=launches)
+    if store is not None:
+        poisoned_prompts = {np.asarray(q.prompt, np.int32).tobytes()
+                            for q in bad[:2]}
+        stored = {p.tobytes() for p, _ in store.hottest()}
+        scrub_drops = [d for d in drops if not d[1]]
+        spilled = sum(1 for d in drops if d[1] and d[2])
+        if not scrub_drops or poisoned_prompts & stored \
+                or st.prefix_spills != spilled \
+                or store.spills != spilled or not spilled:
+            fail(f"nan guard with a prefix store: scrub evictions "
+                 f"{scrub_drops}, {st.prefix_spills} spills of {spilled} "
+                 f"indexed evictions, poisoned prompts stored: "
+                 f"{len(poisoned_prompts & stored)}")
+        print(f"durable (b) nan guard with a prefix store: "
+              f"{len(scrub_drops)} scrub evictions of the decode victim "
+              f"(slots {sorted({d[0] for d in scrub_drops})}) spilled "
+              f"nothing (the prefill carrier was never indexed); {spilled} "
+              f"clean donors spilled; no poisoned prompt stored")
+        out.update(store_spills=spilled, scrub_evictions=len(scrub_drops))
+    return rows, out
 
 
 def phase_serve_resilient(torch, kernel, dev):
@@ -1167,6 +1227,467 @@ def phase_serve_resilient(torch, kernel, dev):
                 streams_equal=agree,
                 f32_rel_err=sound,
                 f32_planted_rel_err=planted, nan_guard=nan), rows
+
+
+# ---------------------------------------------------------------------------
+# The durable tier: snapshot/restore, the prefix store, TrainDriver
+# ---------------------------------------------------------------------------
+
+# part (a): serve_resilient's 8 requests plus 2 seeded ones sampled at
+# temperature 0.8, top_k 50 (their numpy RNG states ride in the snapshot);
+# the snapshot after 6 steps
+DURABLE_SAMPLED = (0.8, 50)
+DURABLE_SNAPSHOT_AT = 6
+# part (b): the store's byte budget (one spilled qwen3-0.6b slot at
+# cache_len 256 is 28 layers x (K, V) x 256 x 8 x 128 x 2 B = 28 MiB); wave
+# 2 is one admission round of 4 requests on another seeded head, so it
+# evicts (spills) wave 1's 4 resident donors and none of its own
+DURABLE_STORE_BYTES = 256 << 20
+DURABLE_WAVE2 = (4, RESILIENT_SEED + 2)
+# part (c): 2 layers at full width, 6 steps, a fault before step 3,
+# checkpoints every 2 steps; the resumed run against an uninterrupted one:
+# bit-identical expected, held to RESUME_TOL (an embedding backward's
+# atomics may reorder sums)
+DURABLE_TRAIN_LAYERS = 2
+DURABLE_TRAIN_STEPS = 6
+DURABLE_FAIL_AT = 3
+DURABLE_CKPT_EVERY = 2
+RESUME_TOL = 1e-5
+
+
+def durable_requests(cfg):
+    """Part (a)'s traffic: serve_resilient's 8 greedy requests and two
+    seeded prompts of 8-40 tokens sampled at ``DURABLE_SAMPLED``."""
+    from repro_torch.serve.engine import Request, SamplingParams
+    import numpy as np
+
+    rng = np.random.default_rng(RESILIENT_SEED + 3)
+    t, k = DURABLE_SAMPLED
+    return resilient_requests(cfg) + [
+        Request(rng.integers(0, cfg.vocab, size=int(rng.integers(8, 41)))
+                .astype(np.int32), max_new=16,
+                sampling=SamplingParams(t, k, seed=i + 1)) for i in range(2)]
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def rows_equal(torch, a, b):
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k].cpu())
+        for k in a)
+
+
+def fresh_engine(cfg, dev, **kw):
+    """An engine on a model built anew from the seeded params, as a
+    replacement process would build it."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    model = build_model(cfg, device=dev)
+    return ServeEngine(model, cfg, init_params(model.specs(), seed=0,
+                                               device=dev), **kw)
+
+
+def durable_snapshot(torch, kernel, cfg, dev, model, params, tmp):
+    """Part (a): engine A serves ``durable_requests`` and snapshots after
+    ``DURABLE_SNAPSHOT_AT`` steps; engine B, on a fresh model, restores
+    and drains. B's restored cache must equal A's at the snapshot bit for
+    bit and all ten streams A's; 140 launches per forward on both."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.guard import flatten_state_tree
+
+    reqs = durable_requests(cfg)
+    kw = dict(batch=4, cache_len=RESILIENT_CACHE_LEN, prefix_cache=True,
+              snapshot_dir=tmp)
+    per = 5 * cfg.n_layers
+    a = ServeEngine(model, cfg, params, **kw)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    rids = [a.submit(r) for r in reqs]
+    for _ in range(DURABLE_SNAPSHOT_AT):
+        a.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = a.snapshot()
+    snap_ms = (time.perf_counter() - t) * 1e3
+    kept = {k: v.clone() for k, v in flatten_state_tree(a.cache).items()}
+    cache_bytes = sum(v.numel() * v.element_size() for v in kept.values())
+    live = sum(1 for r in rids if not a.poll(r).done)
+    while a.step():
+        pass
+    torch.cuda.synchronize()
+    forwards_a = a.stats.prefill_calls + a.stats.decode_steps
+    if kernel.LAUNCHES["bc_matmul"] != per * forwards_a:
+        fail(f"durable (a): engine A's bc_matmul launches "
+             f"{kernel.LAUNCHES['bc_matmul']} != {per} x {forwards_a}")
+    want = [a.poll(r) for r in rids]
+    if any(w.status != "FINISHED" or len(w.tokens) != r.max_new
+           for w, r in zip(want, reqs)):
+        fail(f"durable (a): engine A ended {[w.status for w in want]}")
+    nbytes = dir_bytes(path)
+
+    b = fresh_engine(cfg, dev, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step = b.restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    if step != DURABLE_SNAPSHOT_AT or not rows_equal(
+            torch, flatten_state_tree(b.cache), kept):
+        fail(f"durable (a): B restored step {step}, or its cache differs "
+             f"from A's at the snapshot")
+    s = b.stats
+    f0 = s.prefill_calls + s.decode_steps
+    log = []
+    undo = timed_calls(torch, b.runner, log, "decode")
+    kernel.LAUNCHES["bc_matmul"] = 0
+    try:
+        while b.step():
+            pass
+    finally:
+        torch.cuda.synchronize()
+        undo()
+    forwards = s.prefill_calls + s.decode_steps - f0
+    launches = kernel.LAUNCHES["bc_matmul"]
+    if launches != per * forwards:
+        fail(f"durable (a): engine B's bc_matmul launches {launches} != "
+             f"{per} x {forwards}")
+    got = [b.poll(r) for r in rids]
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        fail(f"durable (a): restored streams {bad} differ from A's")
+    busy4 = [x[2] for x in log if x[0][0] == 4]
+    busy = statistics.median(busy4) if busy4 else None
+    print(f"durable (a) snapshot/restore (qwen3-0.6b, {cfg.n_layers} layers, "
+          f"bf16, batch 4, cache_len {RESILIENT_CACHE_LEN}, prefix cache; "
+          f"{len(reqs)} requests, 2 sampled at T={DURABLE_SAMPLED[0]}, "
+          f"top_k={DURABLE_SAMPLED[1]}): snapshot at step {step} with "
+          f"{live} requests unfinished; {cache_bytes} B of K/V on the card, "
+          f"{nbytes} B written; snapshot() {snap_ms!r} ms, restore() "
+          f"{restore_ms!r} ms wall ({CARD[0]}); B's cache equals A's bit "
+          f"for bit, all {len(reqs)} streams equal A's (sampled included); "
+          f"bc_matmul launches A {per} x {forwards_a}, B {launches} = {per} "
+          f"x {forwards}; B's decode busy per step at 4 rows (profiler, "
+          f"median of {len(busy4)}): {busy!r} ms ({CARD[0]})")
+    rows = set()
+    for e in (a, b):
+        rows |= {x * y for x, y in e.stats.prefill_shapes}
+        rows |= set(e.stats.decode_shapes)
+    return dict(snapshot_bytes=nbytes, cache_bytes=cache_bytes,
+                snapshot_ms=snap_ms, restore_ms=restore_ms,
+                launches=per * forwards_a + launches,
+                restored_forwards=forwards, decode_busy_ms=busy,
+                decode_busy_all=busy4), rows
+
+
+def durable_store(torch, kernel, cfg, dev, model, params, tmp):
+    """Part (b): wave 1 (serve_resilient's traffic) and wave 2 (4 requests
+    on another head) through a prefix-cache engine with a ``PrefixStore``;
+    save, load into a fresh store, adopt into a cold engine C on a fresh
+    model, and serve wave 1's requests 5-8 again: the adopted rows equal
+    the spilled ones bit for bit, C's hits equal the requests that reach an
+    adopted prompt, C's tokens equal the first engine's."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.prefix_store import PrefixStore
+    from repro_torch.serve.guard import flatten_state_tree
+    import numpy as np
+
+    per = 5 * cfg.n_layers
+    store = PrefixStore(capacity_bytes=DURABLE_STORE_BYTES, persist_dir=tmp)
+    eng = ServeEngine(model, cfg, params, batch=4,
+                      cache_len=RESILIENT_CACHE_LEN, prefix_cache=True,
+                      prefix_store=store)
+    spill_ms = []
+    drop = eng._index_drop_slot
+
+    def timed_drop(slot, *, spill=True):
+        n = store.spills
+        t = time.perf_counter()
+        drop(slot, spill=spill)
+        if store.spills > n:
+            spill_ms.append((time.perf_counter() - t) * 1e3)
+
+    eng._index_drop_slot = timed_drop
+    wave1 = resilient_requests(cfg)
+    wave2 = resilient_requests(cfg, *DURABLE_WAVE2)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    out1 = eng.generate(wave1)
+    after1 = dict(store.as_dict())
+    eng.generate(wave2)
+    torch.cuda.synchronize()
+    forwards = eng.stats.prefill_calls + eng.stats.decode_steps
+    if kernel.LAUNCHES["bc_matmul"] != per * forwards:
+        fail(f"durable (b): bc_matmul launches "
+             f"{kernel.LAUNCHES['bc_matmul']} != {per} x {forwards}")
+    spilled = {p.tobytes(): (p, rows) for p, rows in store.hottest()}
+    head1 = wave1[0].prompt[:RESILIENT_HEAD].tobytes()
+    w1_entries = sum(1 for p, _ in spilled.values()
+                     if p[:RESILIENT_HEAD].tobytes() == head1)
+    if eng.stats.prefix_spills != store.spills or store.spills < 4 \
+            or w1_entries < 4:
+        fail(f"durable (b): {eng.stats.prefix_spills} spills counted, "
+             f"store {store.as_dict()}, {w1_entries} wave-1 entries")
+    t = time.perf_counter()
+    store.save()
+    save_ms = (time.perf_counter() - t) * 1e3
+    saved_bytes = dir_bytes(tmp)
+    t = time.perf_counter()
+    loaded = PrefixStore.load(tmp)
+    load_ms = (time.perf_counter() - t) * 1e3
+    if [p.tobytes() for p, _ in loaded.hottest()] != list(spilled) or \
+            not all(rows_equal(torch, rows, spilled[p.tobytes()][1])
+                    for p, rows in loaded.hottest()):
+        fail("durable (b): the loaded store differs from the saved one")
+
+    c = fresh_engine(cfg, dev, batch=4, cache_len=RESILIENT_CACHE_LEN,
+                     prefix_cache=True, prefix_store=loaded)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    adopted = c.adopt_prefixes()
+    torch.cuda.synchronize()
+    adopt_ms = (time.perf_counter() - t) * 1e3
+    slots = [s for s in range(c.batch) if c._slot_prompt[s] is not None]
+    for s in slots:
+        rows = flatten_state_tree(c.runner.gather_state(
+            c.cache, torch.as_tensor([s], device=dev)))
+        if not rows_equal(torch, rows,
+                          spilled[c._slot_prompt[s].tobytes()][1]):
+            fail(f"durable (b): adopted slot {s}'s rows differ from the "
+                 f"spilled rows")
+    again = [Request(r.prompt, max_new=r.max_new) for r in wave1[4:]]
+    reach = sum(1 for r in again if any(
+        np.array_equal(c._slot_prompt[s][:c.prefix_block],
+                       r.prompt[:c.prefix_block]) for s in slots))
+    kernel.LAUNCHES["bc_matmul"] = 0
+    out_c = c.generate(again)
+    torch.cuda.synchronize()
+    fc = c.stats.prefill_calls + c.stats.decode_steps
+    if kernel.LAUNCHES["bc_matmul"] != per * fc:
+        fail(f"durable (b): C's bc_matmul launches "
+             f"{kernel.LAUNCHES['bc_matmul']} != {per} x {fc}")
+    if adopted != len(slots) or adopted != c.batch \
+            or c.stats.prefix_hits != reach or reach != len(again):
+        fail(f"durable (b): adopted {adopted} into {slots}, hits "
+             f"{c.stats.prefix_hits}, reachable {reach}")
+    if out_c != out1[4:]:
+        fail(f"durable (b): C's tokens {out_c} != the first engine's "
+             f"{out1[4:]}")
+    st = store.as_dict()
+    per_spill = statistics.median(spill_ms)
+    print(f"durable (b) prefix store (capacity {DURABLE_STORE_BYTES} B): "
+          f"wave 1 spilled {after1['spills']}, wave 2 ({DURABLE_WAVE2[0]} "
+          f"requests, another head) {st['spills'] - after1['spills']}; "
+          f"{st['entries']} entries ({w1_entries} of wave 1), {st['nbytes']} "
+          f"B, {st['spills']} spills, {st['evictions']} evictions; host ms "
+          f"per spill {per_spill!r} (median of {len(spill_ms)}), save() "
+          f"{save_ms!r} ms ({saved_bytes} B on disk), load() {load_ms!r} ms, "
+          f"adopt_prefixes() {adopt_ms!r} ms for {adopted} slots "
+          f"({adopt_ms / max(adopted, 1)!r} ms each) ({CARD[0]}); adopted "
+          f"rows equal the spilled ones bit for bit; C's hits "
+          f"{c.stats.prefix_hits} = reachable {reach}, tokens saved "
+          f"{c.stats.prefill_tokens_saved}, tokens equal the first engine's")
+    rows = set()
+    for e in (eng, c):
+        rows |= {x * y for x, y in e.stats.prefill_shapes}
+        rows |= set(e.stats.decode_shapes)
+    return dict(store=st, wave1_spills=after1["spills"],
+                spill_ms=spill_ms, save_ms=save_ms, saved_bytes=saved_bytes,
+                load_ms=load_ms, adopt_ms=adopt_ms, adopted=adopted,
+                hits=c.stats.prefix_hits,
+                tokens_saved=c.stats.prefill_tokens_saved,
+                launches=per * (forwards + fc)), rows
+
+
+def durable_train(torch, kernel, dev, tmp):
+    """Part (c): qwen3-0.6b cut to 2 layers at full width, batch 8 x seq
+    256, AdamW, ``remat="block"``, through ``TrainDriver`` with
+    checkpoints every 2 steps and a fault before step 3, against an
+    uninterrupted TrainDriver run from the same seed. Launches derived
+    from the modules and pinned; right after the restore the model trains
+    the state's own tensors, which hold the checkpoint's values."""
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.ft import checkpoint as ck
+    from repro_torch.ft.driver import FaultInjector, TrainDriver
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, module_tree, tree_leaves
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = cut_depth(dataclasses.replace(
+        CONFIG, swm=SWMConfig(block_size=128, impl="pallas")),
+        DURABLE_TRAIN_LAYERS)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=0)
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+            dev)}
+
+    def driver(ckpt_dir, every, faults=None):
+        tcfg = TrainConfig(checkpoint_every=every, checkpoint_dir=ckpt_dir)
+        model = build_model(cfg, device=dev)
+        state = init_train_state(init_params(model.specs(), seed=0,
+                                             device=dev), tcfg,
+                                 cfg.optimizer)
+        return model, state, TrainDriver(make_train_step(model, cfg, tcfg),
+                                         tcfg, batch, fault_injector=faults)
+
+    model, state, drv = driver(str(Path(tmp) / "resumed"),
+                               DURABLE_CKPT_EVERY,
+                               FaultInjector(fail_at=(DURABLE_FAIL_AT,)))
+    # derived from the modules: forward, recompute (remat) and dx per
+    # executed step for bc_matmul, the weight adjoint for bc_dw; the fault
+    # rolls back to the last checkpoint, whose steps run twice
+    per = hybrid_launches(model)
+    passes = 3 if cfg.remat != "none" else 2
+    resume_at = DURABLE_FAIL_AT // DURABLE_CKPT_EVERY * DURABLE_CKPT_EVERY
+    runs = DURABLE_FAIL_AT + DURABLE_TRAIN_STEPS - resume_at
+    want = {"bc_matmul": runs * passes * per, "bc_dw": runs * per}
+    copies, writes, restores = [], [], []
+    host_copy, save = ck._host_copy, ck.save_checkpoint
+
+    def timed_copy(tree):
+        # the outermost call only (_host_copy recurses through its name)
+        ck._host_copy = host_copy
+        try:
+            t = time.perf_counter()
+            out = host_copy(tree)
+        finally:
+            ck._host_copy = timed_copy
+        copies.append(((time.perf_counter() - t) * 1e3, out))
+        return out
+
+    def timed_save(*a):
+        t = time.perf_counter()
+        out = save(*a)
+        writes.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    inner = drv._restore
+
+    def checked_restore(st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, step = inner(st)
+        torch.cuda.synchronize()
+        restores.append((time.perf_counter() - t) * 1e3)
+        saved = copies[-1][1]
+        mine = dict(ck._flatten(module_tree(model)))
+        for (path, leaf), (_, host) in zip(ck._flatten(st["params"]),
+                                           ck._flatten(saved["params"])):
+            if mine[path].data_ptr() != leaf.data_ptr() \
+                    or not torch.equal(leaf.cpu(), host):
+                fail(f"durable (c): after the restore {path} is not the "
+                     f"model's tensor or not the checkpoint's value")
+        if step != resume_at or st["step"] != resume_at:
+            fail(f"durable (c): restored step {step}, state step "
+                 f"{st['step']}, not {resume_at}")
+        return st, step
+
+    drv._restore = checked_restore
+    ck._host_copy, ck.save_checkpoint = timed_copy, timed_save
+    torch.cuda.synchronize()
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    try:
+        t = time.perf_counter()
+        final = drv.run(state, n_steps=DURABLE_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        ck._host_copy, ck.save_checkpoint = host_copy, save
+    launches = dict(kernel.LAUNCHES)
+    steps = [m["step"] for m in drv.metrics_log]
+    if drv.restarts != 1 or launches != want or steps != [
+            0, 1, 2, 2, 3, 4, 5] or ck.available_steps(
+                str(Path(tmp) / "resumed")) != [2, 4, 6]:
+        fail(f"durable (c): restarts {drv.restarts}, launches {launches} "
+             f"!= {want}, steps {steps}")
+    ckpt_bytes = dir_bytes(Path(tmp) / "resumed" / "step_00000002")
+
+    _, clean_state, clean = driver(str(Path(tmp) / "clean"),
+                                   DURABLE_TRAIN_STEPS + 1)
+    clean_final = clean.run(clean_state, n_steps=DURABLE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    losses = [m["loss"] for m in drv.metrics_log][runs - (
+        DURABLE_TRAIN_STEPS - resume_at):]
+    clean_losses = [m["loss"] for m in clean.metrics_log][resume_at:]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        clean_losses))
+    leaves = [(a, b) for part in ("params", "opt")
+              for a, b in zip(tree_leaves(final[part]),
+                              tree_leaves(clean_final[part]))]
+    identical = loss_rel == 0 and all(torch.equal(a, b) for a, b in leaves)
+    with torch.no_grad():
+        rel = max(float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30)
+                  for a, b in leaves)
+    if not (rel <= RESUME_TOL and loss_rel <= RESUME_TOL):
+        fail(f"durable (c): resumed vs uninterrupted rel {rel!r}, losses "
+             f"rel {loss_rel!r} > {RESUME_TOL}")
+    copy_ms = [c[0] for c in copies]
+    print(f"durable (c) TrainDriver (qwen3-0.6b, {cfg.n_layers} layers at "
+          f"full width, AdamW, remat={cfg.remat!r}, batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, checkpoints every {DURABLE_CKPT_EVERY}, fault "
+          f"before step {DURABLE_FAIL_AT}): restarts {drv.restarts}, steps "
+          f"run {steps}, launches {launches} = {runs} x ({passes} x {per}, "
+          f"{per}); {ckpt_bytes} B per checkpoint; blocking host copy "
+          f"{copy_ms!r} ms, background write {writes!r} ms, restore "
+          f"{restores!r} ms, driver wall {wall:.2f} s ({CARD[0]}); resumed "
+          f"vs uninterrupted: "
+          + ("bit-identical (losses and every param and moment)"
+             if identical else f"params/moments rel {rel!r}, losses rel "
+             f"{loss_rel!r} (limit {RESUME_TOL})")
+          + f"; after the restore the model trains the state's tensors")
+    return dict(launches=launches, restarts=drv.restarts, steps=steps,
+                checkpoint_bytes=ckpt_bytes, host_copy_ms=copy_ms,
+                write_ms=writes, restore_ms=restores, identical=identical,
+                rel=rel, loss_rel=loss_rel, losses=losses)
+
+
+def phase_durable(torch, kernel, dev):
+    """The durable tier on the card: (a) snapshot/restore mid-stream, (b)
+    the prefix store's spill, persistence and adoption, and the NaN
+    guard's scrub spilling nothing, (c) TrainDriver through an injected
+    fault. Everything on disk lives under one temporary directory, removed
+    at the end. Returns (report row, bc_matmul row counts launched)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.prefix_store import PrefixStore
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        model = build_model(cfg, device=dev)
+        params = init_params(model.specs(), seed=0, device=dev)
+        snap, rows = durable_snapshot(torch, kernel, cfg, dev, model, params,
+                                      str(Path(tmp) / "snapshot"))
+        store, store_rows = durable_store(torch, kernel, cfg, dev, model,
+                                          params, str(Path(tmp) / "store"))
+        del model, params
+        nan_rows, nan = nan_guard_check(torch, kernel, cfg, dev,
+                                        store=PrefixStore(64 << 20))
+        train = durable_train(torch, kernel, dev, str(Path(tmp) / "train"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"durable phase: {time.perf_counter() - t_phase:.1f}s")
+    return dict(snapshot=snap, store=store, nan_guard=nan, train=train,
+                launches={"bc_matmul": snap["launches"] + store["launches"]
+                          + nan["launches"]
+                          + train["launches"]["bc_matmul"],
+                          "bc_dw": train["launches"]["bc_dw"]}), \
+        rows | store_rows | nan_rows
 
 
 # ---------------------------------------------------------------------------
@@ -3274,7 +3795,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD[0] = smi.stdout.strip().splitlines()[0]
+    print(CARD[0])
 
     t0 = time.perf_counter()
     libs = kernel.build()
@@ -3289,11 +3811,13 @@ def main() -> int:
         phase_serve(torch, dev)
     phase_profile(torch, engine, reqs, step_ms)
     resilient, resilient_rows = phase_serve_resilient(torch, kernel, dev)
+    durable, durable_rows = phase_durable(torch, kernel, dev)
     train_cfg, train_launches, train_ms, train_rows, train_busy = \
         phase_train(torch, dev)
     max_abs = phase_kernels(
         torch, kernel, quant, dev,
-        sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows))
+        sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows
+               | durable_rows))
     dw_abs = phase_dw(torch, kernel, dev,
                       sorted({512, train_rows, *DW_EXTRA_ROWS}))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
@@ -3406,6 +3930,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_matmul.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
         "launches": (serve_launches + resilient["launches"]
+                     + durable["launches"]["bc_matmul"]
                      + train_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
@@ -3416,6 +3941,7 @@ def main() -> int:
                      + remat_launches["bc_matmul"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_resilient": resilient["launches"],
+                             "durable": durable["launches"]["bc_matmul"],
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
@@ -3443,10 +3969,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
         "launches": (train_launches["bc_dw"] + paper_launches["bc_dw"]
+                     + durable["launches"]["bc_dw"]
                      + example_launches["bc_dw"]
                      + sum(v["bc_dw"] for v in tf_launches.values())
                      + remat_launches["bc_dw"]),
         "launches_by_path": {"train": train_launches["bc_dw"],
+                             "durable": durable["launches"]["bc_dw"],
                              "paper": paper_launches["bc_dw"],
                              "examples": example_launches["bc_dw"],
                              **{f"train_family {a}": v["bc_dw"]
@@ -3469,7 +3997,7 @@ def main() -> int:
         "family": family_rows, "encdec": encdec_row,
         "examples": example_rows, "train_family": tf_rows,
         "scan_remat": remat_rows, "dft": dft_row,
-        "serve_resilient": resilient}
+        "serve_resilient": resilient, "durable": durable}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

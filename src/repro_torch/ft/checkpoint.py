@@ -1,0 +1,230 @@
+"""Atomic, async checkpointing in the reference's on-disk format.
+
+Layout:  <dir>/step_<N>/
+            MANIFEST.json           tree structure, shapes, dtypes
+            <flat-path>.<shard>.npy one file per shard per leaf
+         <dir>/LATEST               atomic pointer (tmp+rename)
+
+The layout is the reference's (``repro.ft.checkpoint``) file for file, so
+each package reads what the other wrote: dotted flat paths over sorted
+dict keys, ``dtype`` under numpy's names (``"float32"``, ``"bfloat16"``),
+a bfloat16 leaf written as an f32 file (numpy has no bfloat16 of its own)
+and read back as ``torch.bfloat16``.
+
+* the step directory is written under a ``.tmp`` name and renamed only
+  after every leaf and the manifest are written, so a crash never leaves
+  a half checkpoint visible; stale ``step_*.tmp`` directories are swept at
+  the next save;
+* leaves are tensors (on any device), numpy arrays or Python ints; the
+  port writes one shard per leaf and reads any number of shards;
+* :class:`AsyncCheckpointer` copies the state to host memory before
+  ``save`` returns (a device-to-host copy on the card; a clone on the CPU,
+  where ``Tensor.cpu()`` would alias the live tensor that the next train
+  step updates in place), then serializes on a background thread.
+
+The reference restores onto a mesh (``shardings=``/``mesh=``); the port
+has no ``dist`` layer yet and refuses both.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.device import resolve_device
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "available_steps", "AsyncCheckpointer"]
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree.keys()):
+            yield from _flatten(tree[k], prefix + (str(k),))
+    else:
+        yield ".".join(prefix), tree
+
+
+def _unflatten(flat: Dict[str, Any]):
+    root: Dict[str, Any] = {}
+    for path, v in flat.items():
+        parts = path.split(".")
+        d = root
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return root
+
+
+def _dtype_name(leaf) -> str:
+    """numpy's name for the leaf's dtype, as the reference writes it
+    (a Python int is an int32 there: ``jnp.asarray(int)``)."""
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).replace("torch.", "")
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        return str(leaf.dtype)
+    if isinstance(leaf, int) and not isinstance(leaf, bool):
+        return "int32"
+    raise TypeError(f"checkpoint leaf of type {type(leaf).__name__}: "
+                    f"tensors, numpy arrays and Python ints only")
+
+
+def _host_array(leaf) -> np.ndarray:
+    """The leaf as a host numpy array; bfloat16 widened to f32."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    data = np.asarray(leaf)
+    if data.dtype.name == "bfloat16":
+        data = data.astype(np.float32)
+    return data
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
+    """Write ``state`` (nested dicts of leaves) for ``step``. Atomic."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    # sweep stale step_*.tmp dirs left by writers that crashed between the
+    # leaf writes and the rename: invisible to restore, but they would
+    # accumulate forever
+    if os.path.isdir(ckpt_dir):
+        for name in os.listdir(ckpt_dir):
+            if name.startswith("step_") and name.endswith(".tmp"):
+                shutil.rmtree(os.path.join(ckpt_dir, name),
+                              ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+
+    manifest = {"step": step, "leaves": {}}
+    for path, leaf in _flatten(state):
+        shape = list(leaf.shape) if hasattr(leaf, "shape") else []
+        fn = f"{path}.0.npy"
+        np.save(os.path.join(tmp, fn), _host_array(leaf))
+        manifest["leaves"][path] = {
+            "shape": shape,
+            "dtype": _dtype_name(leaf),
+            "spec": [],
+            "shards": [{"file": fn, "index": [[0, d] for d in shape]}],
+        }
+
+    with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    # atomic LATEST pointer
+    ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
+    with open(ptr_tmp, "w") as f:
+        f.write(str(step))
+    os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
+    return final
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    p = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return int(f.read().strip())
+
+
+def available_steps(ckpt_dir: str) -> list:
+    """All fully written step numbers under ``ckpt_dir``, ascending. Only
+    renamed (complete) step dirs count: ``.tmp`` dirs from crashed writers
+    are invisible, as they are to :func:`restore_checkpoint`."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            try:
+                steps.append(int(name[len("step_"):]))
+            except ValueError:
+                continue
+    return sorted(steps)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, shardings=None,
+                       mesh=None, device="cuda"):
+    """Load ``step`` as nested dicts of tensors on ``device`` (default
+    ``cuda``; ``device="cpu"`` loads host tensors), each with the
+    manifest's dtype: a bfloat16 leaf comes back as ``torch.bfloat16``, a
+    0-d leaf as a 0-d tensor. The shards of a leaf are reassembled by
+    their index, so checkpoints the reference wrote from any number of
+    shards load."""
+    if shardings is not None or mesh is not None:
+        raise NotImplementedError(
+            "restore_checkpoint(shardings=..., mesh=...) reshards onto a "
+            "device mesh, which needs the port's dist layer "
+            "(repro.dist.sharding); it is not ported yet")
+    dev = resolve_device(device)
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+
+    flat = {}
+    for path, info in manifest["leaves"].items():
+        shape = tuple(info["shape"])
+        name = info["dtype"]
+        full = np.zeros(shape, dtype=np.float32 if name == "bfloat16"
+                        else np.dtype(name))
+        for sh in info["shards"]:
+            arr = np.load(os.path.join(d, sh["file"]))
+            full[tuple(slice(*s) for s in sh["index"])] = arr
+        flat[path] = torch.from_numpy(full).to(device=dev,
+                                               dtype=torch_dtype(name))
+    return _unflatten(flat)
+
+
+def _host_copy(tree):
+    """A copy of ``tree`` in host memory that nothing else aliases."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCheckpointer:
+    """Host copy (blocking) -> background serialize, one write in flight."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = ckpt_dir
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, step: int, state):
+        self.wait()
+        # the host copy is taken before save returns, so a later in-place
+        # update of the state cannot tear the checkpoint being written
+        host_state = _host_copy(state)
+
+        def work():
+            try:
+                save_checkpoint(self.ckpt_dir, step, host_state)
+            # lint: allow-broad-except — background writer thread; the
+            # error (whatever it is) must reach the caller on wait()
+            except BaseException as e:   # surfaced on next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()

@@ -8,18 +8,29 @@
   explicit steps plus seeded random faults (``p_fail``/``seed``), each
   step firing at most once, so a restarted run passes the step it died
   on. ``serve.guard.ServeFaultInjector`` extends it to the serve path.
-
-The reference's ``TrainDriver`` (checkpointed auto-restart around the
-train step) needs ``ft/checkpoint.py`` and is not ported yet.
+* :class:`TrainDriver` wraps the train step in a supervisor loop:
+  periodic async checkpoints (``tcfg.checkpoint_every``); on a step
+  failure (a ``RuntimeError``: an injected fault, and every CUDA error
+  PyTorch raises) it restores the latest checkpoint and resumes. Steps
+  are idempotent because the data pipeline is keyed by step number. The
+  port's train step updates the state's tensors in place, and they are
+  the model's own buffers, so the restore copies the checkpoint into
+  those tensors instead of handing back a fresh tree.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["StragglerWatchdog", "FaultInjector"]
+from repro_torch.configs.base import TrainConfig
+from repro_torch.ft.checkpoint import (AsyncCheckpointer, latest_step,
+                                       restore_checkpoint)
+
+__all__ = ["TrainDriver", "StragglerWatchdog", "FaultInjector"]
 
 
 class StragglerWatchdog:
@@ -88,3 +99,94 @@ class FaultInjector:
         if self.p_fail > 0.0 and self.rng.random() < self.p_fail:
             self.fired.add(step)
             raise RuntimeError(f"injected random fault at step {step}")
+
+
+def _load_into(state: dict, restored: dict, path: str = "") -> None:
+    """Copy ``restored`` into ``state`` in place: tensor leaves by
+    ``copy_`` (the model keeps training its own buffers), the Python int
+    ``step`` replaced by its value."""
+    if sorted(state) != sorted(restored):
+        raise ValueError(
+            f"checkpoint tree at {path or '<root>'!r} has keys "
+            f"{sorted(restored)}, the train state has {sorted(state)}")
+    for k, v in state.items():
+        r = restored[k]
+        if isinstance(v, dict):
+            _load_into(v, r, f"{path}.{k}" if path else k)
+        elif isinstance(v, torch.Tensor):
+            with torch.no_grad():
+                v.copy_(r)
+        else:
+            state[k] = int(r)
+
+
+class TrainDriver:
+    """Checkpointed auto-restart around ``train_step(state, batch)``.
+
+    ``data_fn(step)`` gives the batch of a step. ``on_remesh(state)`` is
+    called after the straggler watchdog escalates, with the state
+    checkpointed first. ``metrics_log`` holds one ``{"step", "dt",
+    "loss"}`` per executed step, replays after a restart included;
+    ``restarts`` counts the restores. ``state_shardings``/``mesh`` need
+    the port's dist layer and are refused."""
+
+    def __init__(self, train_step, tcfg: TrainConfig, data_fn,
+                 state_shardings=None, mesh=None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 on_remesh: Optional[Callable] = None):
+        if state_shardings is not None or mesh is not None:
+            raise NotImplementedError(
+                "TrainDriver(state_shardings=..., mesh=...) restores onto "
+                "a device mesh, which needs the port's dist layer "
+                "(repro.dist.sharding); it is not ported yet")
+        self.train_step = train_step
+        self.tcfg = tcfg
+        self.data_fn = data_fn                   # step -> batch
+        self.ckpt = AsyncCheckpointer(tcfg.checkpoint_dir)
+        self.watchdog = StragglerWatchdog()
+        self.faults = fault_injector
+        self.on_remesh = on_remesh
+        self.restarts = 0
+        self.metrics_log = []
+
+    # ------------------------------------------------------------------
+    def _restore(self, state):
+        step = latest_step(self.tcfg.checkpoint_dir)
+        if step is None:
+            return state, 0
+        restored = restore_checkpoint(self.tcfg.checkpoint_dir, step,
+                                      device="cpu")
+        _load_into(state, restored)
+        return state, int(step)
+
+    def run(self, state, n_steps: int, start_step: int = 0,
+            max_restarts: int = 8):
+        step = start_step
+        while step < n_steps:
+            try:
+                t0 = time.perf_counter()
+                if self.faults is not None:
+                    self.faults.maybe_fire(step)
+                batch = self.data_fn(step)
+                state, metrics = self.train_step(state, batch)
+                loss = float(metrics["loss"])    # waits for the device
+                dt = time.perf_counter() - t0
+                verdict = self.watchdog.observe(step, dt)
+                if verdict == "escalate" and self.on_remesh is not None:
+                    self.ckpt.wait()
+                    self.ckpt.save(step + 1, state)
+                    self.ckpt.wait()
+                    state = self.on_remesh(state)
+                self.metrics_log.append(
+                    {"step": step, "dt": dt, "loss": loss})
+                step += 1
+                if step % self.tcfg.checkpoint_every == 0:
+                    self.ckpt.save(step, state)
+            except RuntimeError:
+                self.restarts += 1
+                if self.restarts > max_restarts:
+                    raise
+                self.ckpt.wait()
+                state, step = self._restore(state)
+        self.ckpt.wait()
+        return state

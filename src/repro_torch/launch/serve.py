@@ -22,9 +22,16 @@ reuses resident KV rows across requests sharing a prompt head (the demo
 prompts then share two seeded heads); ``--deadline-ms``, ``--max-queue``
 and ``--shed-policy`` set the request lifecycle's deadlines and load
 shedding; ``--stream`` drives the open-ended submit()/step()/poll()/drain()
-API instead of the closed generate() call. ``--device`` defaults to
-``cuda`` and fails without a card; ``--device cpu`` runs the plain
-PyTorch path.
+API instead of the closed generate() call. ``--policy fair`` admits by
+weighted deficit round-robin across request tenants (every tenant weight
+1 here; the reference's ``--tenants``/``--slo-class``/``--fair`` wait for
+the port's ``serve/frontend.py``). ``--ckpt-dir`` serves the params of the
+latest train checkpoint there (``ft.checkpoint``, as written by
+``launch.train``) instead of seeded random ones; ``--snapshot-dir``
+snapshots the engine's whole state every ``--snapshot-every`` steps
+(default 8), so a replacement engine can ``restore()`` it mid-stream.
+``--device`` defaults to ``cuda`` and fails without a card; ``--device
+cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from repro_torch.configs.registry import ARCHS, get_config, get_smoke
 from repro_torch.device import resolve_device
+from repro_torch.ft.checkpoint import latest_step, restore_checkpoint
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.serve.engine import (Request, SamplingParams, Scheduler,
@@ -90,10 +98,12 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4, help="cache slots")
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--policy", choices=Scheduler.POLICIES, default="fifo",
-                    help="admission order: fifo | sjf (shortest prompt first)")
+                    help="admission order: fifo | sjf (shortest prompt "
+                         "first) | fair (deficit round-robin over tenants)")
     ap.add_argument("--prompt-buckets", default="",
                     help="comma-separated prompt-length buckets, e.g. 8,16,32 "
                          "(default: powers of two up to cache-len)")
@@ -122,6 +132,14 @@ def main(argv=None):
                     default="reject",
                     help="at the --max-queue bound: 'reject' new work "
                          "(backpressure) or 'drop-oldest' queued request")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="serve-state snapshot directory: the engine "
+                         "checkpoints its full state (slots, queue, KV "
+                         "cache) every --snapshot-every steps so a "
+                         "replacement engine can resume mid-stream")
+    ap.add_argument("--snapshot-every", default="",
+                    help="steps between automatic snapshots (default 8; "
+                         "needs --snapshot-dir)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
@@ -148,14 +166,26 @@ def main(argv=None):
     deadline_ms = _parse_pos_float(ap, args.deadline_ms, "--deadline-ms")
     max_queue = (_parse_pos_int(ap, args.max_queue, "--max-queue", 0)
                  if args.max_queue else None)
+    snapshot_dir = args.snapshot_dir or None
+    snapshot_every = _parse_pos_int(ap, args.snapshot_every,
+                                    "--snapshot-every", 8)
+    if args.snapshot_every and not snapshot_dir:
+        ap.error("--snapshot-every has no effect without --snapshot-dir")
     if args.shed_policy != "reject" and max_queue is None:
         ap.error("--shed-policy has no effect without --max-queue")
     device = resolve_device(args.device)
     cfg = get_smoke(arch) if args.smoke else get_config(arch)
     model = build_model(cfg, device=device)
-    params = init_params(model.specs(), args.seed, device=device)
-    print(f"serving seeded random params (demo mode) on {device}, "
-          f"impl={cfg.swm.impl}")
+    # one directory scan per load
+    step = latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if step is not None:
+        params = restore_checkpoint(args.ckpt_dir, step,
+                                    device=device)["params"]
+        print(f"restored checkpoint step {step}")
+    else:
+        params = init_params(model.specs(), args.seed, device=device)
+        print(f"serving seeded random params (demo mode) on {device}, "
+              f"impl={cfg.swm.impl}")
     try:
         engine = ServeEngine(
             model, cfg, params, batch=args.batch, cache_len=args.cache_len,
@@ -165,7 +195,9 @@ def main(argv=None):
                                           "--decode-buckets"),
             policy=args.policy, prefix_cache=prefix_cache,
             prefix_capacity=prefix_capacity, max_queue=max_queue,
-            shed_policy=args.shed_policy, quantize=args.quantize)
+            shed_policy=args.shed_policy, snapshot_dir=snapshot_dir,
+            snapshot_every=snapshot_every if snapshot_dir else 0,
+            quantize=args.quantize)
     except ValueError as e:
         # misconfiguration (bad bucket lists, prefix cache against a runner
         # that cannot donate rows) is a usage error, not a crash
@@ -259,12 +291,20 @@ def main(argv=None):
     if prefix_cache:
         extra += (f" prefix-hit-rate={s.prefix_hit_rate:.2f}"
                   f" prefill-tokens-saved={s.prefill_tokens_saved}")
-    if s.rejected or s.expired or s.aborted or s.cancelled:
+    if s.rejected or s.expired or s.aborted or s.cancelled or s.snapshots:
         extra += (f" rejected={s.rejected} expired={s.expired}"
-                  f" aborted={s.aborted} cancelled={s.cancelled}")
+                  f" aborted={s.aborted} cancelled={s.cancelled}"
+                  f" snapshots={s.snapshots}")
     if s.ttft_ms.count:
         extra += (f" ttft-p50={s.ttft_ms.p50:.3g}ms"
                   f" ttft-p99={s.ttft_ms.p99:.3g}ms")
+    for t in sorted(s.tenants):
+        ts = s.tenants[t]
+        extra += (f"\n  tenant {t}: submitted={ts.submitted} "
+                  f"completed={ts.completed} tokens={ts.tokens} "
+                  f"rejected={ts.rejected}"
+                  + (f" ttft-p99={ts.ttft_ms.p99:.3g}ms"
+                     if ts.ttft_ms.count else ""))
     print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s); "
           f"prefill shapes={sorted(s.prefill_shapes)} "
           f"decode-shapes={sorted(s.decode_shapes)} "

@@ -7,8 +7,12 @@
 
 Builds the model and seeded params on ``--device`` (default ``cuda``;
 raises without a card unless ``--device cpu``), then runs
-``make_train_step`` over ``SyntheticLM`` batches and prints the
-reference's ``step … loss … (… ms)`` line per step. Without ``--seq`` /
+``make_train_step`` over ``SyntheticLM`` batches under the fault-tolerant
+``ft.driver.TrainDriver``: an async checkpoint every ``--ckpt-every``
+steps into ``--ckpt-dir`` (default ``repro_ckpt`` under the temp
+directory), and on a step failure a restore of the latest checkpoint and a
+resume. Prints the reference's ``step … loss … (… ms)`` line for the last
+5 steps run, then ``restarts=… straggler_events=…``. Without ``--seq`` /
 ``--batch`` the shape is ``train_4k``'s (``--smoke``: 64 × 8). The
 circulant implementation comes from the config (qwen3-0.6b's says
 ``paper``, ``torch.fft``; the kernel path is ``SWMConfig(impl="pallas")``,
@@ -20,15 +24,15 @@ through the grouped kernels on the kernel path) and paligemma-3b trains
 text-only; an enc-dec arch stops at its first step, whose batch has no
 ``frames``, as in the reference.
 
-The reference launcher's mesh, sharded state, host-sharded batches,
-automatic restarts and checkpoints wait for the port's ``dist`` and
-``ft`` modules.
+The reference launcher's mesh, sharded state and host-sharded batches
+wait for the port's ``dist`` layer.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
+import os
+import tempfile
 
 import torch
 
@@ -36,6 +40,7 @@ from repro_torch.configs.base import SHAPES, TrainConfig
 from repro_torch.configs.registry import ARCHS, get_config, get_smoke
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.ft.driver import TrainDriver
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.train.loop import init_train_state, make_train_step
@@ -53,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     args = ap.parse_args(argv)
     arch = args.arch or args.model
@@ -66,6 +74,8 @@ def main(argv=None):
     batch = args.batch or (8 if args.smoke else shape.global_batch)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        microbatch=args.microbatch,
+                       checkpoint_every=args.ckpt_every,
+                       checkpoint_dir=args.ckpt_dir,
                        z_loss=0.0 if args.smoke else 1e-4)
 
     model = build_model(cfg, device=dev)
@@ -74,13 +84,19 @@ def main(argv=None):
     step_fn = make_train_step(model, cfg, tcfg)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
                        seed=tcfg.seed)
-    for step in range(args.steps):
-        tokens = torch.from_numpy(data.batch_np(step)["tokens"]).to(dev)
-        t0 = time.perf_counter()
-        state, m = step_fn(state, {"tokens": tokens})
-        loss = float(m["loss"])              # waits for the device
-        dt = time.perf_counter() - t0
-        print(f"step {step:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+
+    def data_fn(step: int):
+        return {"tokens": torch.from_numpy(
+            data.batch_np(step)["tokens"]).to(dev)}
+
+    driver = TrainDriver(step_fn, tcfg, data_fn)
+    state = driver.run(state, n_steps=args.steps)
+    for m in driver.metrics_log[-5:]:
+        print(f"step {m['step']:5d} loss {m['loss']:.4f} "
+              f"({m['dt'] * 1e3:.0f} ms)")
+    print(f"restarts={driver.restarts} "
+          f"straggler_events={len(driver.watchdog.events)}")
+    return driver
 
 
 if __name__ == "__main__":

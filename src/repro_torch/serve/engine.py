@@ -18,8 +18,10 @@ FFT → ∘ → IFFT. The engine applies that split at three levels:
   would capture.
 * **Continuous batching, streamed** — requests occupy independent cache
   slots; a finished slot admits the next queued request immediately.
-  Admission order is a :class:`Scheduler` policy (fifo or sjf); each
-  request carries its own :class:`SamplingParams` and stop tokens.
+  Admission order is a :class:`Scheduler` policy (fifo, sjf, or ``fair``:
+  weighted deficit round-robin across ``Request.tenant``s, with
+  ``tenant_weights``); each request carries its own
+  :class:`SamplingParams` and stop tokens.
   ``submit`` / ``step`` / ``poll`` / ``drain`` serve an open-ended stream;
   ``cancel`` ends a queued or running request; ``generate(list)`` is a thin
   wrapper over that loop.
@@ -42,7 +44,12 @@ FFT → ∘ → IFFT. The engine applies that split at three levels:
      to a new request and never borrowed as a decode pad lane;
   5. *evict* — rows leave the index when their slot is reassigned, is
      borrowed as a pad lane (least-recently-used donors first) or is
-     scrubbed, or when the LRU index exceeds ``prefix_capacity``.
+     scrubbed, or when the LRU index exceeds ``prefix_capacity``;
+  6. *spill and adopt* — with a ``prefix_store``
+     (:class:`~repro_torch.serve.prefix_store.PrefixStore`) an evicted
+     donor's rows are copied to host memory first (never a scrubbed
+     slot's), and ``adopt_prefixes`` places the store's hottest entries
+     into a fresh engine's free slots and indexes them.
 
 Padding: bucketed prefill left-pads prompts and numbers the pad positions
 negatively, so attention masks them (and recurrent mixers skip them) and
@@ -76,18 +83,25 @@ Failure semantics (see :mod:`repro_torch.serve.guard`):
   cancels the longest-queued request (``drop-oldest``). ``generate``
   absorbs backpressure (step and retry).
 * **SLO instrumentation** — ``EngineStats.ttft_ms`` (submit to first
-  token) and ``tok_ms`` (inter-token gap) are :class:`LatencyHistogram`s.
+  token) and ``tok_ms`` (inter-token gap) are :class:`LatencyHistogram`s;
+  ``EngineStats.tenants`` holds each tenant's counters and TTFT histogram
+  (:class:`TenantStats`).
+* **Snapshot / restore** — ``snapshot()`` writes the whole serving state
+  (slot state, slot table, scheduler queue with its DRR rotation, every
+  request with its RNG state, deadlines as remaining budget, the prefix
+  index, counters and histograms) through ``ft.checkpoint``'s atomics in
+  the reference's format version 3; a replacement engine with the same
+  configuration ``restore()``s it and resumes every decode mid-stream
+  (``snapshot_every`` snapshots at step boundaries, skipping an empty
+  engine).
 
 Everything model-shaped sits behind a :mod:`repro_torch.serve.runner`
 runner. Requests of a family whose runner ``requires_extra`` (the enc-dec
 family) carry their conditioning as ``Request.extra``, the encoder frames
 ``(enc_seq, d_model)``: the runner's ``validate_request`` checks it at
 ``submit``/``generate`` (decoder families refuse it), and a prefill
-chunk's frames go to the runner stacked as f32. Not ported yet:
-``snapshot``/``restore`` (with ``ft/checkpoint.py``), the prefix store and
-``adopt_prefixes``, tenants with the ``fair`` policy and per-tenant stats
-(``Request.tenant`` is validated and reaches the fault injector's audit),
-``prewarm``, ``audit`` and ``WaveEngine``.
+chunk's frames go to the runner stacked as f32 (and ride in a snapshot's
+array section). Not ported yet: ``prewarm``, ``audit`` and ``WaveEngine``.
 """
 
 from __future__ import annotations
@@ -95,14 +109,17 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import heapq
+import json
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.ft.checkpoint import latest_step as ckpt_latest_step
+from repro_torch.ft.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.ft.driver import StragglerWatchdog
 from repro_torch.kernels.block_circulant.plan import (_check_quantize,
                                                       freeze_params,
@@ -111,11 +128,13 @@ from repro_torch.nn.module import load_tree
 from repro_torch.serve.guard import (CANCELLED, EXPIRED, FAILED, FINISHED,
                                      QUEUED, RUNNING, TERMINAL_STATES,
                                      EngineFatalError, QueueFullError,
-                                     classify_error)
+                                     classify_error, flatten_state_tree,
+                                     unflatten_state_tree)
 from repro_torch.serve.runner import make_runner
 
 __all__ = ["SamplingParams", "Request", "RequestState", "Scheduler",
-           "LatencyHistogram", "EngineStats", "ServeEngine", "pow2_buckets",
+           "LatencyHistogram", "TenantStats", "EngineStats", "ServeEngine",
+           "pow2_buckets",
            "pick_bucket", "batch_split", "validate_buckets", "QUEUED",
            "RUNNING", "FINISHED", "FAILED", "EXPIRED", "CANCELLED"]
 
@@ -230,8 +249,9 @@ class Request:
     must leave it ``None`` (the runner's ``validate_request`` enforces
     both ways).
 
-    ``tenant``: the tenant the request bills to (a non-empty string); it
-    reaches the fault injector's audit log."""
+    ``tenant``: the tenant the request bills to (a non-empty string): the
+    ``fair`` policy's queue key, the key of its ``EngineStats.tenants``
+    slice, and part of the fault injector's audit log."""
 
     prompt: np.ndarray
     max_new: int = 16
@@ -291,9 +311,16 @@ def _validate_request(r: Request, cache_len: int) -> None:
 
 
 class Scheduler:
-    """Admission queue: ``fifo`` or ``sjf`` (shortest-prompt-first).
-    Per-request outputs are identical under every policy — slots are
-    independent — only the admission order changes.
+    """Admission queue: ``fifo``, ``sjf`` (shortest-prompt-first), or
+    ``fair`` (weighted deficit round-robin across tenants). Per-request
+    outputs are identical under every policy — slots are independent —
+    only the admission order changes.
+
+    ``fair`` keeps one FIFO queue per ``Request.tenant`` and admits by
+    deficit round-robin: each rotation visit grants a tenant its
+    ``tenant_weights`` quantum (default 1), so a backlogged tenant admits
+    in proportion to its weight and every backlogged tenant is served at
+    least once per full rotation; an idle tenant banks no deficit.
 
     ``max_queue`` bounds the queue depth (load shedding): a ``submit`` at
     the bound either raises :class:`QueueFullError` (``shed_policy
@@ -302,16 +329,19 @@ class Scheduler:
     (``"drop-oldest"``, returned to the caller to finalize). ``None``
     keeps the queue unbounded.
 
-    Live items sit in ``_entries`` (seq -> entry); the policy heap and the
-    arrival-order heap behind ``drop_oldest`` hold seqs and delete lazily
-    (dead seqs are skipped when popped)."""
+    Live items sit in ``_entries`` (seq -> entry); the policy heap
+    (fifo/sjf), the per-tenant deques (fair) and the arrival-order heap
+    behind ``drop_oldest`` hold seqs and delete lazily (dead seqs are
+    skipped when popped). ``state_dict``/``load_state`` carry the whole
+    queue and the DRR rotation through an engine snapshot."""
 
-    POLICIES = ("fifo", "sjf")
+    POLICIES = ("fifo", "sjf", "fair")
     SHED_POLICIES = ("reject", "drop-oldest")
 
     def __init__(self, policy: str = "fifo",
                  max_queue: Optional[int] = None,
                  shed_policy: str = "reject",
+                 tenant_weights: Optional[Dict[str, int]] = None,
                  retry_hint=None):
         if policy not in self.POLICIES:
             raise ValueError(
@@ -323,14 +353,29 @@ class Scheduler:
         if max_queue is not None and int(max_queue) < 1:
             raise ValueError(f"max_queue must be >= 1 (or None for "
                              f"unbounded), got {max_queue}")
+        if tenant_weights:
+            if policy != "fair":
+                raise ValueError(
+                    f"tenant_weights only apply to the 'fair' policy "
+                    f"(got policy={policy!r})")
+            for t, w in tenant_weights.items():
+                if int(w) < 1:
+                    raise ValueError(
+                        f"tenant weight must be >= 1; got {t!r}: {w}")
         self.policy = policy
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
+        self.tenant_weights = {str(t): int(w)
+                               for t, w in (tenant_weights or {}).items()}
         self.retry_hint = retry_hint     # zero-arg callable -> seconds|None
         # seq -> (key, item, tenant, prompt_len)
         self._entries: Dict[int, Tuple[int, object, str, int]] = {}
-        self._order: list = []           # lazy heap of (key, seq)
+        self._order: list = []           # lazy heap of (key, seq) [fifo/sjf]
         self._arrival: list = []         # lazy min-heap of seq [drop_oldest]
+        self._tq: Dict[str, deque] = {}  # tenant -> deque of seq [fair]
+        self._deficit: Dict[str, float] = {}
+        self._rr: List[str] = []         # tenant rotation, first-seen order
+        self._rr_pos = 0
         self._seq = 0
         self._front = 0
 
@@ -338,10 +383,18 @@ class Scheduler:
         return prompt_len if self.policy == "sjf" else 0
 
     def _insert(self, seq: int, key: int, item, tenant: str,
-                prompt_len: int) -> None:
+                prompt_len: int, *, front: bool = False) -> None:
         self._entries[seq] = (key, item, tenant, prompt_len)
         heapq.heappush(self._arrival, seq)
-        heapq.heappush(self._order, (key, seq))
+        if self.policy == "fair":
+            q = self._tq.get(tenant)
+            if q is None:
+                q = self._tq[tenant] = deque()
+                self._deficit.setdefault(tenant, 0.0)
+                self._rr.append(tenant)
+            (q.appendleft if front else q.append)(seq)
+        else:
+            heapq.heappush(self._order, (key, seq))
 
     def submit(self, item, prompt_len: int, tenant: str = "default"):
         """Enqueue; returns the item shed to make room (``drop-oldest`` at
@@ -373,7 +426,7 @@ class Scheduler:
     def purge(self, keep) -> int:
         """Drop every queued item for which ``keep(item)`` is false
         (requests cancelled or expired while queued). Returns the number
-        dropped; heap references die lazily."""
+        dropped; heap and deque references die lazily."""
         dead = [seq for seq, e in self._entries.items() if not keep(e[1])]
         for seq in dead:
             del self._entries[seq]
@@ -382,12 +435,14 @@ class Scheduler:
     def put_front(self, item, prompt_len: int,
                   tenant: str = "default") -> None:
         """Re-enqueue ahead of every same-key item (a request deferred out
-        of an admission round goes back to the head of the line)."""
+        of an admission round goes back to the head of the line). Under
+        ``fair`` the item returns to the head of its tenant's queue (its
+        DRR quantum was charged when it was first taken)."""
         self._front -= 1
         self._insert(self._front, self._key(prompt_len), item, str(tenant),
-                     prompt_len)
+                     prompt_len, front=True)
 
-    def take(self, n: int) -> list:
+    def _take_ordered(self, n: int) -> list:
         out = []
         while self._order and len(out) < n:
             _, seq = heapq.heappop(self._order)
@@ -396,8 +451,80 @@ class Scheduler:
                 out.append(e[1])
         return out
 
+    def _take_fair(self, n: int) -> list:
+        out = []
+        while self._entries and len(out) < n:
+            t = self._rr[self._rr_pos % len(self._rr)]
+            self._rr_pos = (self._rr_pos + 1) % len(self._rr)
+            q = self._tq[t]
+            while q and q[0] not in self._entries:
+                q.popleft()              # lazily deleted (purged/shed) seqs
+            if not q:
+                # an idle tenant banks no deficit: credit accrues only
+                # while backlogged, so a returning tenant cannot burst
+                # past its weight
+                self._deficit[t] = 0.0
+                continue
+            self._deficit[t] += float(self.tenant_weights.get(t, 1))
+            while q and len(out) < n and self._deficit[t] >= 1.0:
+                seq = q.popleft()
+                e = self._entries.pop(seq, None)
+                if e is None:
+                    continue
+                out.append(e[1])
+                self._deficit[t] -= 1.0
+            while q and q[0] not in self._entries:
+                q.popleft()
+            if not q:
+                self._deficit[t] = 0.0
+        return out
+
+    def take(self, n: int) -> list:
+        if self.policy == "fair":
+            return self._take_fair(n)
+        return self._take_ordered(n)
+
     def __len__(self) -> int:
         return len(self._entries)
+
+    # -- serialization (engine snapshot/restore) ----------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """Everything needed to rebuild the queue: live entries sorted by
+        seq (front-pushed seqs are negative and order ahead of arrivals,
+        matching the deque and heap pop order) plus the DRR rotation
+        state. Items must be JSON-serializable (the engine queues int
+        rids)."""
+        return {
+            "entries": [[int(seq), int(e[0]), e[1], e[2], int(e[3])]
+                        for seq, e in sorted(self._entries.items())],
+            "seq": int(self._seq),
+            "front": int(self._front),
+            "deficit": [[t, float(d)]
+                        for t, d in sorted(self._deficit.items())],
+            "rr": list(self._rr),
+            "rr_pos": int(self._rr_pos),
+        }
+
+    def load_state(self, d: Dict[str, object]) -> None:
+        """Inverse of :meth:`state_dict` into a fresh scheduler."""
+        if self._entries:
+            raise RuntimeError("load_state needs an empty scheduler")
+        self._seq = int(d["seq"])
+        self._front = int(d["front"])
+        # seed the rotation before re-inserting, so the first-seen order
+        # (the DRR visit order) survives for tenants whose entries were
+        # all consumed
+        for t in d.get("rr", []):
+            if self.policy == "fair" and t not in self._tq:
+                self._tq[t] = deque()
+                self._deficit.setdefault(t, 0.0)
+                self._rr.append(t)
+        for seq, key, item, tenant, plen in d["entries"]:
+            self._insert(int(seq), int(key), item, str(tenant), int(plen))
+        for t, dv in d.get("deficit", []):
+            if t in self._deficit or self.policy != "fair":
+                self._deficit[t] = float(dv)
+        self._rr_pos = int(d.get("rr_pos", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +589,31 @@ class LatencyHistogram:
 
 
 @dataclasses.dataclass
+class TenantStats:
+    """Per-tenant slice of the engine counters plus a TTFT histogram."""
+
+    submitted: int = 0
+    admitted: int = 0                      # taken from the queue into a slot
+    completed: int = 0
+    rejected: int = 0
+    expired: int = 0
+    cancelled: int = 0
+    aborted: int = 0
+    tokens: int = 0
+    ttft_ms: LatencyHistogram = dataclasses.field(
+        default_factory=LatencyHistogram)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {
+            "submitted": self.submitted, "admitted": self.admitted,
+            "completed": self.completed, "rejected": self.rejected,
+            "expired": self.expired, "cancelled": self.cancelled,
+            "aborted": self.aborted, "tokens": self.tokens,
+            "ttft": self.ttft_ms.as_dict(),
+        }
+
+
+@dataclasses.dataclass
 class EngineStats:
     """Lifetime counters (never reset by ``generate``)."""
 
@@ -479,8 +631,12 @@ class EngineStats:
     aborted: int = 0                       # FAILED terminals (isolated errors)
     expired: int = 0                       # EXPIRED terminals (deadline_ms)
     cancelled: int = 0                     # CANCELLED terminals (cancel/shed)
+    recoveries: int = 0                    # successful restore() calls
+    snapshots: int = 0                     # snapshot() calls
     launch_retries: int = 0                # transient decode launches retried
     slow_steps: int = 0                    # straggler-watchdog flagged steps
+    prefix_spills: int = 0                 # evicted donors spilled to store
+    prefix_adoptions: int = 0              # store entries adopted into slots
     prefill_shapes: Set[Tuple[int, int]] = dataclasses.field(
         default_factory=set)
     decode_shapes: Set[int] = dataclasses.field(default_factory=set)
@@ -488,6 +644,15 @@ class EngineStats:
         default_factory=LatencyHistogram)      # submit -> first token
     tok_ms: LatencyHistogram = dataclasses.field(
         default_factory=LatencyHistogram)      # inter-token (decode) gap
+    tenants: Dict[str, TenantStats] = dataclasses.field(
+        default_factory=dict)
+
+    def tenant(self, name: str) -> TenantStats:
+        """Get-or-create the per-tenant slice."""
+        ts = self.tenants.get(name)
+        if ts is None:
+            ts = self.tenants[name] = TenantStats()
+        return ts
 
     @property
     def tokens_per_decode_step(self) -> float:
@@ -524,11 +689,13 @@ class ServeEngine:
     engine freezes it (``quantize`` "off" or "int8") and installs the
     frozen tree in ``model`` — one engine per model. Caches live on
     ``model.device``. ``prefix_cache``/``prefix_block``/``prefix_capacity``
-    configure shared-prefix reuse, ``max_queue``/``shed_policy`` load
-    shedding, ``fault_injector`` the chaos hooks (a
-    :class:`~repro_torch.serve.guard.ServeFaultInjector`) and ``clock``
-    the deadline and latency clock (seconds, ``time.monotonic`` by
-    default); see the module docstring.
+    configure shared-prefix reuse and ``prefix_store`` its host spill
+    target, ``max_queue``/``shed_policy`` load shedding,
+    ``tenant_weights`` the ``fair`` policy's DRR weights,
+    ``snapshot_dir``/``snapshot_every`` snapshots, ``fault_injector`` the
+    chaos hooks (a :class:`~repro_torch.serve.guard.ServeFaultInjector`)
+    and ``clock`` the deadline and latency clock (seconds,
+    ``time.monotonic`` by default); see the module docstring.
     """
 
     def __init__(self, model, cfg: ModelConfig, params, batch: int,
@@ -541,11 +708,21 @@ class ServeEngine:
                  prefix_capacity: int = 256,
                  max_queue: Optional[int] = None,
                  shed_policy: str = "reject",
+                 snapshot_dir: Optional[str] = None,
+                 snapshot_every: int = 0,
                  fault_injector=None,
                  clock=time.monotonic,
-                 quantize: str = "off"):
+                 quantize: str = "off",
+                 tenant_weights: Optional[Dict[str, int]] = None,
+                 prefix_store=None):
         # fail fast on unknown policies / bad bounds (before param freeze)
-        Scheduler(policy, max_queue=max_queue, shed_policy=shed_policy)
+        Scheduler(policy, max_queue=max_queue, shed_policy=shed_policy,
+                  tenant_weights=tenant_weights)
+        if int(snapshot_every) < 0:
+            raise ValueError(
+                f"snapshot_every must be >= 0, got {snapshot_every}")
+        if int(snapshot_every) > 0 and snapshot_dir is None:
+            raise ValueError("snapshot_every needs snapshot_dir")
         _check_quantize(quantize)
         if quantize != "off" and not cfg.swm.enabled:
             raise ValueError(
@@ -568,6 +745,11 @@ class ServeEngine:
                     f"prefix_cache=True is unsupported for "
                     f"{type(self.runner).__name__}: "
                     f"{self.runner.prefix_cache_unsupported_reason}")
+        if prefix_store is not None and not self.prefix_cache:
+            raise ValueError(
+                "prefix_store needs prefix_cache=True: the store spills "
+                "and adopts prefix-index donor rows, which only exist "
+                "with the prefix cache on")
         if cfg.swm.enabled:
             params = freeze_params(self.runner.specs(), params,
                                    quantize=quantize)
@@ -589,7 +771,12 @@ class ServeEngine:
         self.stats = EngineStats()
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
+        self.tenant_weights = {str(t): int(w)
+                               for t, w in (tenant_weights or {}).items()}
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = int(snapshot_every)
         self.faults = fault_injector
+        self.prefix_store = prefix_store
         self._clock_fn = clock
         self._watchdog = StragglerWatchdog()
         self._fatal: Optional[str] = None
@@ -602,9 +789,8 @@ class ServeEngine:
         self._terminals = 0
         self._submit_t: Dict[int, float] = {}
         self._last_tok_t: Dict[int, float] = {}
-        self._sched = Scheduler(policy, max_queue=self.max_queue,
-                                shed_policy=self.shed_policy,
-                                retry_hint=self.retry_after_hint)
+        self._store_fp: Optional[str] = None
+        self._sched = self._new_scheduler()
         self._next_rid = 0
         self._req: Dict[int, Request] = {}
         self._out: Dict[int, List[int]] = {}
@@ -658,19 +844,38 @@ class ServeEngine:
             OrderedDict()
         self._clock = 0
 
+    def _new_scheduler(self) -> Scheduler:
+        return Scheduler(self.policy, max_queue=self.max_queue,
+                         shed_policy=self.shed_policy,
+                         tenant_weights=self.tenant_weights,
+                         retry_hint=self.retry_after_hint)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- prefix index ---------------------------------------------------------
-    def _index_drop_slot(self, slot: int) -> None:
+    def _index_drop_slot(self, slot: int, *, spill: bool = True) -> None:
         """Evict a slot's rows from the prefix index — called exactly when
         the rows are about to be overwritten (slot reassigned, borrowed as
-        a decode pad lane, or scrubbed). Pinned rows never get here."""
+        a decode pad lane, or scrubbed). Pinned rows never get here.
+
+        With a ``prefix_store`` the evicted donor's rows are copied to the
+        host store first (the last moment they are readable), except with
+        ``spill=False``: the scrub path evicts poisoned rows, which must
+        not outlive the engine."""
         assert self._slot_refs[slot] == 0, (
             f"evicting donor slot {slot} with {self._slot_refs[slot]} "
             f"in-flight references")
         if self._slot_prompt[slot] is None:
             return
+        if spill and self.prefix_store is not None:
+            rows = self.runner.gather_state(
+                self.cache, self._tensor(np.asarray([slot], np.int64)))
+            host = {k: v.cpu()
+                    for k, v in flatten_state_tree(rows).items()}
+            if self.prefix_store.put(self._slot_prompt[slot], host,
+                                     self._store_fingerprint()):
+                self.stats.prefix_spills += 1
         self._slot_prompt[slot] = None
         for key in [k for k, s in self._prefix_index.items() if s == slot]:
             del self._prefix_index[key]
@@ -719,6 +924,66 @@ class ServeEngine:
             m -= self.prefix_block
         return None, 0
 
+    def _store_fingerprint(self) -> str:
+        """Geometry identity of prefix-store entries: runner class,
+        cache_len, and the leaf shapes and dtypes (numpy's names) of a
+        single-slot ``gather_state``. Adopting rows produced under another
+        geometry raises in the store instead of placing mismatched
+        state."""
+        if self._store_fp is None:
+            one = self.runner.gather_state(
+                self.cache, self._tensor(np.zeros(1, np.int64)))
+            leaves = [(list(t.shape), str(t.dtype).replace("torch.", ""))
+                      for t in flatten_state_tree(one).values()]
+            self._store_fp = json.dumps(
+                {"runner": type(self.runner).__name__,
+                 "cache_len": self.cache_len, "leaves": leaves},
+                sort_keys=True)
+        return self._store_fp
+
+    def adopt_prefixes(self, max_slots: Optional[int] = None) -> int:
+        """Warm-start free slots from the attached ``prefix_store``: place
+        the hottest stored donor rows into unowned, unindexed, unpinned
+        slots and register them in the prefix index, so the next
+        admission round's ``_match_prefix`` finds them resident. Returns
+        the number of slots adopted. The rows are placed with the runner's
+        ``place_state``, so they are bit-identical to the rows the
+        original engine held."""
+        self._check_alive()
+        if self.prefix_store is None or not self.prefix_cache:
+            return 0
+        budget = self.batch if max_slots is None else int(max_slots)
+        free = [s for s in range(self.batch)
+                if not self._active[s] and self._slot_refs[s] == 0
+                and self._slot_prompt[s] is None]
+        adopted = 0
+        for prompt, rows in self.prefix_store.hottest():
+            if not free or adopted >= budget:
+                break
+            if prompt.shape[0] > self.cache_len:
+                continue
+            # already resident? (a restored engine may still hold it)
+            raw = prompt.tobytes()
+            mtop = (prompt.shape[0] // self.prefix_block) \
+                * self.prefix_block
+            if mtop >= self.prefix_block and \
+                    (mtop, raw[: mtop * prompt.itemsize]) \
+                    in self._prefix_index:
+                continue
+            # geometry guard: the fingerprint was checked at put time, but
+            # a loaded store meets the engine here
+            self.prefix_store._check_fingerprint(
+                self._store_fingerprint(), "adopt")
+            sub = unflatten_state_tree(self.runner.init_state(1), rows)
+            slot = free.pop(0)
+            self.cache = self.runner.place_state(
+                self.cache, sub, self._tensor(np.asarray([slot], np.int64)))
+            self._index_insert(slot, prompt)
+            self.prefix_store.touch(prompt)
+            adopted += 1
+            self.stats.prefix_adoptions += 1
+        return adopted
+
     # -- backpressure ---------------------------------------------------------
     def retry_after_hint(self) -> Optional[float]:
         """Estimated seconds until a queue slot frees: queue depth over the
@@ -755,8 +1020,7 @@ class ServeEngine:
         if self._fatal is not None:
             raise EngineFatalError(
                 f"engine is dead ({self._fatal}); build a replacement "
-                f"engine (snapshot/restore is not ported yet: it comes "
-                f"with ft/checkpoint.py)")
+                f"engine and restore() its latest snapshot")
 
     def _die(self, e: Exception) -> None:
         """Engine-fatal error: a launch may have written the slot state
@@ -766,8 +1030,8 @@ class ServeEngine:
         raise EngineFatalError(
             f"engine-fatal serving error ({self._fatal}): the slot state "
             f"cannot be trusted after a mid-launch failure — the engine is "
-            f"dead; build a replacement engine (snapshot/restore is not "
-            f"ported yet: it comes with ft/checkpoint.py)") from e
+            f"dead; build a replacement engine and restore() its latest "
+            f"snapshot") from e
 
     def _scrub_slot(self, slot: int) -> None:
         """Overwrite a slot's rows with blank (fresh) rows. Needed after a
@@ -792,9 +1056,10 @@ class ServeEngine:
             self._slot_req[slot] = None
             self._slot_rng[slot] = None
             if scrub:
-                self._index_drop_slot(slot)
+                # poisoned rows: never spill them to the prefix store
+                self._index_drop_slot(slot, spill=False)
                 self._scrub_slot(slot)
-        self._req.pop(rid, None)
+        req = self._req.pop(rid, None)
         self._finished[rid] = self._out.pop(rid, [])
         self._deadline.pop(rid, None)
         self._submit_t.pop(rid, None)
@@ -802,14 +1067,23 @@ class ServeEngine:
         self._status[rid] = status
         self._error[rid] = error
         self._terminals += 1
+        ts = self.stats.tenant(req.tenant) if req is not None else None
         if status == FINISHED:
             self.stats.requests_completed += 1
+            if ts is not None:
+                ts.completed += 1
         elif status == FAILED:
             self.stats.aborted += 1
+            if ts is not None:
+                ts.aborted += 1
         elif status == EXPIRED:
             self.stats.expired += 1
+            if ts is not None:
+                ts.expired += 1
         elif status == CANCELLED:
             self.stats.cancelled += 1
+            if ts is not None:
+                ts.cancelled += 1
 
     def _expire_overdue(self) -> None:
         """Step-boundary deadline watchdog: EXPIRE every request (queued or
@@ -837,7 +1111,9 @@ class ServeEngine:
         if not self._out[rid]:
             t0 = self._submit_t.get(rid)
             if t0 is not None:
-                self.stats.ttft_ms.observe((now - t0) * 1e3)
+                ttft = (now - t0) * 1e3
+                self.stats.ttft_ms.observe(ttft)
+                self.stats.tenant(r.tenant).ttft_ms.observe(ttft)
         else:
             tprev = self._last_tok_t.get(rid)
             if tprev is not None:
@@ -845,6 +1121,7 @@ class ServeEngine:
         self._last_tok_t[rid] = now
         self._out[rid].append(tok)
         self.stats.tokens_generated += 1
+        self.stats.tenant(r.tenant).tokens += 1
         self._slot_last[slot] = tok
         self._slot_left[slot] -= 1
         if self._slot_left[slot] <= 0:
@@ -1050,6 +1327,7 @@ class ServeEngine:
                                "(request aborted; batch continues)")
                 continue
             r = self._req[rid]
+            self.stats.tenant(r.tenant).admitted += 1
             self._index_insert(slot, prompts[j])
             self._slot_req[slot] = rid
             self._rid_slot[rid] = slot
@@ -1141,11 +1419,13 @@ class ServeEngine:
                                          tenant=request.tenant)
         except QueueFullError:
             self.stats.rejected += 1
+            self.stats.tenant(request.tenant).rejected += 1
             raise
         self._next_rid += 1
         self._req[rid] = request
         self._out[rid] = []
         self._submit_t[rid] = self._clock_fn()
+        self.stats.tenant(request.tenant).submitted += 1
         if request.deadline_ms is not None:
             self._deadline[rid] = (self._clock_fn()
                                    + request.deadline_ms / 1000.0)
@@ -1170,9 +1450,10 @@ class ServeEngine:
 
     def step(self) -> bool:
         """Expire overdue deadlines, admit queued requests into free slots
-        (bucketed prefill), then run one compacted decode step. True while
-        work remains. Raises :class:`EngineFatalError` (and marks the
-        engine dead) on an unrecoverable launch error."""
+        (bucketed prefill), then run one compacted decode step;
+        auto-snapshot every ``snapshot_every`` steps. True while work
+        remains. Raises :class:`EngineFatalError` (and marks the engine
+        dead) on an unrecoverable launch error."""
         self._check_alive()
         t0 = self._clock_fn()
         if self.faults is not None:
@@ -1185,6 +1466,13 @@ class ServeEngine:
         self._observe_drain(now)
         if self._watchdog.observe(self._step_count, now - t0) != "ok":
             self.stats.slow_steps += 1
+        # auto-snapshot skips an EMPTY engine (no queued, running or
+        # unclaimed requests): restoring such a snapshot is refused, and
+        # idle-loop callers would overwrite the last useful one
+        if (self.snapshot_dir is not None and self.snapshot_every > 0
+                and self._step_count % self.snapshot_every == 0
+                and (self._req or self._finished)):
+            self.snapshot()
         return bool(self._active.any() or len(self._sched))
 
     def poll(self, req_id: int) -> RequestState:
@@ -1236,3 +1524,266 @@ class ServeEngine:
                     self.step()
         done = self.drain(rids)
         return [done[rid] for rid in rids]
+
+    # -- snapshot / restore ---------------------------------------------------
+    _STAT_FIELDS = (
+        "prefill_calls", "decode_steps", "tokens_generated",
+        "requests_completed", "padded_prompt_tokens", "slot_steps_active",
+        "decode_rows", "prefix_lookups", "prefix_hits",
+        "prefill_tokens_saved", "rejected", "aborted", "expired",
+        "cancelled", "recoveries", "snapshots", "launch_retries",
+        "slow_steps", "prefix_spills", "prefix_adoptions",
+    )
+
+    def _fingerprint(self) -> Dict[str, object]:
+        """Configuration identity a snapshot is only valid against."""
+        return {
+            "batch": self.batch, "cache_len": self.cache_len,
+            "runner": type(self.runner).__name__,
+            "policy": self.policy,
+            "prompt_buckets": list(self.prompt_buckets),
+            "decode_buckets": list(self.decode_buckets),
+            "prefix_cache": self.prefix_cache,
+            "prefix_block": self.prefix_block,
+            "prefix_capacity": self.prefix_capacity,
+            "vocab": int(self.cfg.vocab),
+            "max_queue": self.max_queue,
+            "shed_policy": self.shed_policy,
+            "quantize": self.quantize,
+            "tenant_weights": [[k, int(v)] for k, v in
+                               sorted(self.tenant_weights.items())],
+        }
+
+    def snapshot(self) -> str:
+        """Write the whole serving state — slot state, slot table,
+        scheduler queue, per-request outputs and RNG states, prefix index,
+        deadlines (as remaining budget), submit and last-token times (as
+        ages), counters and histograms — as one atomic checkpoint step
+        (format version 3) under ``snapshot_dir``. A replacement engine
+        with the same configuration ``restore()``s it and resumes every
+        decode mid-stream. Returns the checkpoint path.
+
+        Runs at step boundaries only, where donor pins are zero."""
+        self._check_alive()
+        if self.snapshot_dir is None:
+            raise ValueError("snapshot() needs snapshot_dir")
+        assert (self._slot_refs == 0).all(), \
+            "snapshot mid-admission: donor rows are pinned"
+        now = self._clock_fn()
+        extra_rids = sorted(rid for rid, r in self._req.items()
+                            if r.extra is not None)
+        meta = {
+            "version": 3,
+            "fingerprint": self._fingerprint(),
+            "step_count": self._step_count,
+            "next_rid": self._next_rid,
+            "prefix_clock": self._clock,
+            "extra_rids": extra_rids,
+            "requests": [
+                [rid, {
+                    "prompt": np.asarray(r.prompt, np.int32)
+                    .reshape(-1).tolist(),
+                    "max_new": int(r.max_new),
+                    "stop_tokens": list(r.stop_tokens),
+                    "sampling": {
+                        "temperature": float(r.sampling.temperature),
+                        "top_k": int(r.sampling.top_k),
+                        "seed": int(r.sampling.seed)},
+                    "deadline_ms": r.deadline_ms,
+                    "tenant": r.tenant,
+                }] for rid, r in self._req.items()],
+            "out": [[rid, list(t)] for rid, t in self._out.items()],
+            "finished": [[rid, list(t), self._status.get(rid, FINISHED),
+                          self._error.get(rid)]
+                         for rid, t in self._finished.items()],
+            "deadline_remaining_s": [[rid, max(0.0, t - now)]
+                                     for rid, t in self._deadline.items()],
+            # submit and last-token times as AGES: absolute clocks do not
+            # survive process boundaries, relative ones do
+            "timing": {
+                "submit_age_s": [[rid, now - t]
+                                 for rid, t in self._submit_t.items()],
+                "last_tok_age_s": [[rid, now - t]
+                                   for rid, t in self._last_tok_t.items()],
+            },
+            "sched": self._sched.state_dict(),
+            "rid_slot": [[rid, int(s)] for rid, s in self._rid_slot.items()],
+            "slots": {
+                "active": [bool(x) for x in self._active],
+                "req": [None if x is None else int(x)
+                        for x in self._slot_req],
+                "pos": [int(x) for x in self._slot_pos],
+                "last": [int(x) for x in self._slot_last],
+                "left": [int(x) for x in self._slot_left],
+                "touch": [int(x) for x in self._slot_touch],
+                "prompt": [None if p is None else p.tolist()
+                           for p in self._slot_prompt],
+                "rng": [None if g is None else g.bit_generator.state
+                        for g in self._slot_rng],
+            },
+            "prefix_index": [[int(m), raw.hex(), int(slot)]
+                             for (m, raw), slot in
+                             self._prefix_index.items()],
+            "stats": {f: int(getattr(self.stats, f))
+                      for f in self._STAT_FIELDS},
+            "stats_shapes": {
+                "prefill": sorted([int(b), int(s)]
+                                  for b, s in self.stats.prefill_shapes),
+                "decode": sorted(int(b)
+                                 for b in self.stats.decode_shapes)},
+            # fixed-bucket histograms serialize exactly: restore resumes
+            # the same p50/p99
+            "stats_hists": {
+                "ttft": list(self.stats.ttft_ms.counts),
+                "tok": list(self.stats.tok_ms.counts)},
+            "stats_tenants": [
+                [t, {"submitted": ts.submitted, "admitted": ts.admitted,
+                     "completed": ts.completed, "rejected": ts.rejected,
+                     "expired": ts.expired, "cancelled": ts.cancelled,
+                     "aborted": ts.aborted, "tokens": ts.tokens,
+                     "ttft": list(ts.ttft_ms.counts)}]
+                for t, ts in sorted(self.stats.tenants.items())],
+        }
+        # the state tree is written opaquely, in canonical flat leaf order
+        state = {
+            "cache": flatten_state_tree(self.cache),
+            "meta": np.frombuffer(json.dumps(meta).encode("utf-8"),
+                                  np.uint8),
+        }
+        if extra_rids:
+            # per-request conditioning (enc-dec encoder frames) rides in
+            # the array section; meta["extra_rids"] names the owners
+            state["extra"] = {
+                f"r{rid:08d}": np.asarray(self._req[rid].extra, np.float32)
+                for rid in extra_rids}
+        path = save_checkpoint(self.snapshot_dir, self._step_count, state)
+        self.stats.snapshots += 1
+        return path
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Load a snapshot into THIS engine (fresh and idle: the
+        replacement for a dead one, built with the same configuration) and
+        resume where the snapshot left off; the latest snapshot in
+        ``snapshot_dir`` by default. Deadlines resume with the budget they
+        had left. Returns the restored step count; ``stats.recoveries``
+        counts successful restores."""
+        self._check_alive()
+        if self.snapshot_dir is None:
+            raise ValueError("restore() needs snapshot_dir")
+        if self._active.any() or len(self._sched) or self._req \
+                or self._finished:
+            raise RuntimeError(
+                "restore() needs a fresh idle engine (no queued, active, "
+                "or unclaimed requests): build a replacement engine with "
+                "the same configuration and restore into that")
+        if step is None:
+            step = ckpt_latest_step(self.snapshot_dir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no snapshot found in {self.snapshot_dir}")
+        state = restore_checkpoint(self.snapshot_dir, int(step),
+                                   device="cpu")
+        meta = json.loads(state["meta"].numpy().tobytes().decode("utf-8"))
+        if int(meta.get("version", 0)) != 3:
+            raise ValueError(
+                f"snapshot at step {step} has format version "
+                f"{meta.get('version')!r}; this build reads version 3 "
+                f"(tenant-aware scheduler + latency histograms) — "
+                f"re-snapshot with the current build")
+        fp = self._fingerprint()
+        if meta["fingerprint"] != fp:
+            raise ValueError(
+                f"snapshot fingerprint mismatch: saved "
+                f"{meta['fingerprint']} vs this engine {fp} — restore "
+                f"needs an identically-configured engine")
+        if not meta["requests"] and not meta["finished"]:
+            raise ValueError(
+                f"snapshot at step {step} is EMPTY (no queued, running, "
+                f"or unclaimed requests) — restoring it would resume "
+                f"nothing. Snapshot after work is submitted, or restore "
+                f"an earlier non-empty step explicitly")
+        # rebuild the opaque state tree against the runner's template
+        # (structure, dtype and device); a leaf-count mismatch raises
+        self.cache = unflatten_state_tree(
+            self.runner.init_state(self.batch), state["cache"])
+        self._step_count = int(meta["step_count"])
+        self._next_rid = int(meta["next_rid"])
+        self._clock = int(meta["prefix_clock"])
+        self._req = {
+            int(rid): Request(
+                prompt=np.asarray(d["prompt"], np.int32),
+                max_new=int(d["max_new"]),
+                stop_tokens=tuple(d["stop_tokens"]),
+                sampling=SamplingParams(
+                    temperature=float(d["sampling"]["temperature"]),
+                    top_k=int(d["sampling"]["top_k"]),
+                    seed=int(d["sampling"]["seed"])),
+                deadline_ms=d["deadline_ms"],
+                tenant=d.get("tenant", "default"),
+            ) for rid, d in meta["requests"]}
+        for rid in meta.get("extra_rids", []):
+            self._req[int(rid)].extra = \
+                state["extra"][f"r{int(rid):08d}"].numpy()
+        self._out = {int(rid): [int(t) for t in toks]
+                     for rid, toks in meta["out"]}
+        self._finished, self._status, self._error = {}, {}, {}
+        for rid, toks, status, err in meta["finished"]:
+            self._finished[int(rid)] = [int(t) for t in toks]
+            self._status[int(rid)] = status
+            self._error[int(rid)] = err
+        now = self._clock_fn()
+        self._deadline = {int(rid): now + float(rem)
+                          for rid, rem in meta["deadline_remaining_s"]}
+        tm = meta["timing"]
+        self._submit_t = {int(rid): now - float(age)
+                          for rid, age in tm["submit_age_s"]}
+        self._last_tok_t = {int(rid): now - float(age)
+                            for rid, age in tm["last_tok_age_s"]}
+        self._sched = self._new_scheduler()
+        self._sched.load_state(meta["sched"])
+        self._rid_slot = {int(rid): int(s) for rid, s in meta["rid_slot"]}
+        sl = meta["slots"]
+        self._active = np.asarray(sl["active"], bool)
+        self._slot_req = [None if x is None else int(x) for x in sl["req"]]
+        self._slot_pos = np.asarray(sl["pos"], np.int64)
+        self._slot_last = np.asarray(sl["last"], np.int64)
+        self._slot_left = np.asarray(sl["left"], np.int64)
+        self._slot_touch = np.asarray(sl["touch"], np.int64)
+        self._slot_prompt = [None if p is None else np.asarray(p, np.int32)
+                             for p in sl["prompt"]]
+        self._slot_rng = []
+        for st in sl["rng"]:
+            if st is None:
+                self._slot_rng.append(None)
+            else:
+                g = np.random.default_rng(0)
+                g.bit_generator.state = st
+                self._slot_rng.append(g)
+        self._slot_refs = np.zeros(self.batch, np.int64)
+        self._prefix_index = OrderedDict(
+            ((int(m), bytes.fromhex(raw)), int(slot))
+            for m, raw, slot in meta["prefix_index"])
+        st = meta["stats"]
+        for f in self._STAT_FIELDS:
+            setattr(self.stats, f, int(st.get(f, 0)))
+        self.stats.prefill_shapes = {
+            (int(b), int(s)) for b, s in meta["stats_shapes"]["prefill"]}
+        self.stats.decode_shapes = {
+            int(b) for b in meta["stats_shapes"]["decode"]}
+        hists = meta["stats_hists"]
+        self.stats.ttft_ms = LatencyHistogram(hists["ttft"])
+        self.stats.tok_ms = LatencyHistogram(hists["tok"])
+        self.stats.tenants = {}
+        for t, d in meta["stats_tenants"]:
+            ts = self.stats.tenant(t)
+            ts.submitted = int(d["submitted"])
+            ts.admitted = int(d["admitted"])
+            ts.completed = int(d["completed"])
+            ts.rejected = int(d["rejected"])
+            ts.expired = int(d["expired"])
+            ts.cancelled = int(d["cancelled"])
+            ts.aborted = int(d["aborted"])
+            ts.tokens = int(d["tokens"])
+            ts.ttft_ms = LatencyHistogram(d["ttft"])
+        self.stats.recoveries += 1
+        return int(step)

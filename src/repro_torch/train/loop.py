@@ -19,10 +19,13 @@ Every family the port serves trains here, as in the reference: ``lm``
 positions only) and ``encdec`` (encoder ``frames``); the MoE layers'
 experts carry their gradients through the grouped kernels.
 
+Fault-tolerant restarts wrap this step from outside:
+``ft.driver.TrainDriver`` checkpoints the state and, after a failed step,
+copies the latest checkpoint back into the same tensors.
+
 Not in the port yet, and refused with ``NotImplementedError``: the
-structural audit (``audit_args``, which needs ``analysis/``). The mesh,
-sharding and the fault-tolerant restarts join with the port's
-``dist``/``ft`` modules.
+structural audit (``audit_args``, which needs ``analysis/``). The mesh and
+sharding join with the port's ``dist`` layer.
 """
 
 from __future__ import annotations

@@ -139,7 +139,7 @@ def test_bucket_helpers_match_reference():
     with pytest.raises(ValueError):
         teng.validate_buckets("b", (0, 4), 16)
     with pytest.raises(ValueError):
-        teng.Scheduler("fair")
+        teng.Scheduler("lifo")
     rng = np.random.default_rng(0)
     logits = rng.standard_normal(64).astype(np.float32)
     for sp in (teng.SamplingParams(), teng.SamplingParams(0.7, 5, 3),

@@ -195,12 +195,12 @@ def test_decode_launch_failure_twice_is_fatal(lm):
         return eng.stats.launch_retries, eng.stats.decode_steps
 
     assert _both(script) == (1, 0)
-    # the port does not point the caller at a restore() it lacks
+    # the dead engine points the caller at restore(), as the reference's
     eng = _engine(teng, lm)
     eng._fatal = "RuntimeError: x"
     with pytest.raises(tguard.EngineFatalError) as e:
         eng.step()
-    assert "restore()" not in str(e.value)
+    assert "restore() its latest snapshot" in str(e.value)
 
 
 def test_fatal_prefill_fault_kills_engine(lm):
