@@ -73,6 +73,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    restore, losses and final params and moments against an uninterrupted
    run (bit-identical, else within 1e-5), the checkpoint bytes and the
    host-copy, write and restore ms;
+5c. the serving tier's last part (``serve_tier`` phase, after ``durable``;
+   its row counts join phase 4's checks), all on phase 2's full-width
+   params: (a) ``prewarm()`` on ``ServeEngine(batch=4, cache_len=128)``
+   returns the bucket grid's 18 shapes and launches ``bc_matmul`` 140 x 18
+   times; the first request's TTFT on it and on a fresh engine; then
+   phase 2's 8 requests give phase 2's tokens bit for bit with the shape
+   counters unchanged; (b) ``WaveEngine(batch=4, cache_len=128)`` against
+   the continuous engine on the same 8 requests: gated equal tokens in f32
+   on a 2-layer cut (at a mismatch, the step and both engines' top-2
+   logit margins beside their logit difference), the bf16 full-width
+   match count (not gated), wall and profiler busy ms per token and decode
+   rows per token; (c) a ``Supervisor`` over ``fair`` engines (the three
+   SLO classes' weights), prefix cache with a 256 MiB ``PrefixStore``,
+   snapshots every 4 steps, a ``ManualClock``: 12 requests of 16 tokens
+   (4 per tenant, two of each on a shared 32-token head), a fault-free
+   run and one with an engine fatal at decode launch 20: one restart and
+   one recovery, every at-most-once stream equal to the fault-free run's,
+   140 launches per forward on both engines, device memory after the heal
+   within 5% of before the fatal step, the heal's ms split into factory,
+   restore, adopt_prefixes and re-queue; (d) ``AsyncFrontend`` over a
+   fresh supervisor on the real event loop: the same 12 requests
+   burst-submitted by the three tenants (``interactive`` at rate 4, burst
+   2): every request terminal, every ``stream()`` equal to its final
+   tokens, per-tenant admissions, rejections, statuses and TTFT;
 6. the first request's prefill logits on the card (kernels) against the
    same params on the CPU (plain versions), and one full-width train step
    (batch 2 x seq 32) on the card against the CPU: loss and grad norm;
@@ -486,7 +510,8 @@ def phase_serve(torch, dev):
     row_counts = ({b * t for b, t in s.prefill_shapes}
                   | set(s.decode_shapes))
     return (cfg, engine, params, reqs, launches,
-            statistics.median(decode_ms), row_counts)
+            statistics.median(decode_ms), row_counts,
+            [outs[r] for r in rids])
 
 
 def to_device(tree, dev):
@@ -1688,6 +1713,572 @@ def phase_durable(torch, kernel, dev):
                           + train["launches"]["bc_matmul"],
                           "bc_dw": train["launches"]["bc_dw"]}), \
         rows | store_rows | nan_rows
+
+
+# ---------------------------------------------------------------------------
+# The serving tier's last part: prewarm, the wave baseline, the supervisor's
+# heal and the asyncio front-end
+# ---------------------------------------------------------------------------
+
+# (b) the f32 gate runs on a 2-layer cut (full width)
+TIER_CUT_LAYERS = 2
+# (c) 12 greedy requests of 16 tokens, 4 per tenant; two of each tenant's
+# share that tenant's seeded 32-token head. Snapshots every 4 steps; the
+# fatal at decode launch 20 of 45-50 lands mid-stream, after the fourth
+# snapshot, with a second admission round in flight
+TIER_TENANTS = ("interactive", "standard", "batch")
+TIER_HEAD = 32
+TIER_SNAPSHOT_EVERY = 4
+TIER_FATAL_AT = 20
+TIER_STORE_BYTES = 256 << 20
+# dead engine released: device memory after the heal within 5% of before
+TIER_MEM_SLACK = 0.05
+TIER_SEED = RESILIENT_SEED + 5
+
+
+def tier_prewarm(torch, kernel, cfg, dev, params, reqs, want):
+    """(a): ``prewarm()`` on a full-width engine launches the whole bucket
+    grid, 140 launches per shape; the first request's TTFT (host clock) on
+    it and on a fresh engine; then the serve phase's 8 requests give the
+    serve phase's tokens with the shape counters unchanged."""
+    from repro_torch.launch.specs import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    per = 5 * cfg.n_layers
+    eng = ServeEngine(build_model(cfg, device=dev), cfg, params, batch=4,
+                      cache_len=128)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t = time.perf_counter()
+    n = eng.prewarm()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    launches = kernel.LAUNCHES["bc_matmul"]
+    shapes = eng.max_prefill_variants + eng.max_decode_variants
+    if n != shapes or launches != per * shapes:
+        fail(f"serve_tier (a): prewarm returned {n} and launched "
+             f"{launches}; want {shapes} and {per} x {shapes}")
+    counters = (eng.prefill_compiles, eng.decode_compiles)
+
+    def ttft_ms(engine):
+        one = Request(reqs[0].prompt, max_new=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.generate([one])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    fresh = ServeEngine(build_model(cfg, device=dev), cfg, params, batch=4,
+                        cache_len=128)
+    ttft_fresh = ttft_ms(fresh)
+    del fresh
+    ttft_warm = ttft_ms(eng)
+    torch.cuda.synchronize()
+    s = eng.stats
+    f0 = s.prefill_calls + s.decode_steps
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t = time.perf_counter()
+    rids = [eng.submit(r) for r in reqs]
+    outs = eng.drain(rids)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t) * 1e3
+    forwards = s.prefill_calls + s.decode_steps - f0
+    served = kernel.LAUNCHES["bc_matmul"]
+    got = [outs[r] for r in rids]
+    if served != per * forwards:
+        fail(f"serve_tier (a): {served} launches != {per} x {forwards}")
+    if got != want:
+        fail("serve_tier (a): the prewarmed engine's tokens differ from "
+             "the serve phase's")
+    if (eng.prefill_compiles, eng.decode_compiles) != counters:
+        fail(f"serve_tier (a): shape counters grew while serving: "
+             f"{counters} -> {(eng.prefill_compiles, eng.decode_compiles)}")
+    rows = ({b * t for b in eng.batch_buckets for t in eng.prompt_buckets}
+            | set(eng.decode_buckets))
+    print(f"serve_tier (a) prewarm [{CARD[0]}]: {n} shapes "
+          f"({eng.max_prefill_variants} prefill + "
+          f"{eng.max_decode_variants} decode), bc_matmul launches "
+          f"{launches} = {per} x {shapes}, {warm_ms!r} ms wall; first "
+          f"request's TTFT {ttft_warm!r} ms prewarmed, {ttft_fresh!r} ms "
+          f"on a fresh engine; then the serve phase's 8 requests: tokens "
+          f"bit-identical, {served} launches = {per} x {forwards}, "
+          f"counters stay {counters}, {serve_ms!r} ms wall")
+    return eng, dict(shapes=n, launches=launches + served,
+                     prewarm_ms=warm_ms, ttft_prewarmed_ms=ttft_warm,
+                     ttft_fresh_ms=ttft_fresh, serve_ms=serve_ms,
+                     counters=list(counters)), rows
+
+
+def wave_logits(wave):
+    """Record a WaveEngine's logits (f32, host) per step call: call c of
+    wave w holds row j = request 4w + j's token c."""
+    calls = []
+    for attr in ("_prefill", "_decode"):
+        inner = getattr(wave, attr)
+
+        def rec(*a, inner=inner):
+            out = inner(*a)
+            calls.append(out[0].float().cpu().numpy())
+            return out
+        setattr(wave, attr, rec)
+    return calls
+
+
+def pushed_logits(engine):
+    """Record a ServeEngine's logits row of every token it samples, by
+    request id (``_push_token``)."""
+    log = {}
+    inner = engine._push_token
+
+    def push(slot, row):
+        log.setdefault(engine._slot_req[slot], []).append(row.copy())
+        return inner(slot, row)
+    engine._push_token = push
+    return log
+
+
+def first_mismatch(reqs, wave_out, cont_out, calls, log, B):
+    """(request, token index, wave top-2 margin, continuous top-2 margin,
+    max |logit difference|) at the first differing token, or None. Also
+    returns the largest logit difference and the smallest top-2 margin
+    over every token both engines produced."""
+    import numpy as np
+
+    def margin(row):
+        top = np.partition(row, -2)[-2:]
+        return float(top[1] - top[0])
+
+    worst, tightest, first = 0.0, float("inf"), None
+    for i, r in enumerate(reqs):
+        w, j = divmod(i, B)
+        calls_w = calls[w * r.max_new: (w + 1) * r.max_new]
+        for t in range(min(len(wave_out[i]), len(cont_out[i]))):
+            a, b = calls_w[t][j], log[i][t]
+            diff = float(np.abs(a - b).max())
+            worst = max(worst, diff)
+            tightest = min(tightest, margin(a), margin(b))
+            if first is None and wave_out[i][t] != cont_out[i][t]:
+                first = (i, t, margin(a), margin(b), diff)
+    return first, worst, tightest
+
+
+def device_busy_ms(torch, prof):
+    """Sum of the device events' durations in a finished profile, read
+    from the raw kineto events: ``key_averages()`` would build a Python
+    event per kernel first (~80 µs each, seconds for a serve run)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+
+
+def tier_wave(torch, kernel, cfg, dev, params, reqs, want, cont,
+              cont_ms):
+    """(b): ``WaveEngine(batch=4, cache_len=128)`` against the continuous
+    engine on the same 8 greedy requests: f32 on a 2-layer cut, gated
+    (equal tokens; at a mismatch the step and both top-2 margins beside
+    the logit difference); full width in bf16, tokens compared but not
+    gated; both engines' wall and profiler busy ms per token (the
+    continuous engine's wall, ``cont_ms``, from (a)'s run of the same
+    requests on the same engine)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServeEngine, WaveEngine
+
+    per = 5 * cfg.n_layers
+    t0 = time.perf_counter()
+    # f32 gate at 2 layers
+    cut = dataclasses.replace(cut_depth(cfg, TIER_CUT_LAYERS),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    cut_model = build_model(cut, device=dev)
+    cut_params = init_params(cut_model.specs(), seed=0, device=dev)
+    w32 = WaveEngine(cut_model, cut, cut_params, batch=4, cache_len=128)
+    calls = wave_logits(w32)
+    wave32 = w32.generate(reqs)
+    c32 = ServeEngine(build_model(cut, device=dev), cut, cut_params,
+                      batch=4, cache_len=128)
+    log = pushed_logits(c32)
+    cont32 = c32.generate(reqs)
+    first, worst, tightest = first_mismatch(reqs, wave32, cont32, calls,
+                                            log, 4)
+    rows = {b * t for b, t in w32.stats.prefill_shapes | c32.stats
+            .prefill_shapes} | set(c32.stats.decode_shapes) | {4}
+    del w32, c32, cut_model, cut_params, calls, log
+    n32 = sum(len(o) for o in cont32)
+    same32 = sum(a == b for x, y in zip(wave32, cont32)
+                 for a, b in zip(x, y))
+    print(f"serve_tier (b) wave vs continuous, f32, {TIER_CUT_LAYERS} of "
+          f"{cfg.n_layers} layers at full width: {same32} of {n32} tokens "
+          f"equal; largest |logit difference| {worst!r}, smallest top-2 "
+          f"margin {tightest!r}")
+    if first is not None:
+        i, t, mw, mc, d = first
+        print(f"  first mismatch: request {i} token {t}: top-2 margin wave "
+              f"{mw!r}, continuous {mc!r}; |logit difference| {d!r}")
+        if min(mw, mc) > d:
+            fail(f"serve_tier (b): f32 tokens differ at request {i} token "
+                 f"{t} with top-2 margins {mw!r}/{mc!r} above the logit "
+                 f"difference {d!r}: a fault, not rounding")
+        fail("serve_tier (b): f32 wave and continuous tokens differ")
+
+    t1 = time.perf_counter()
+    # full width, bf16: wall (unprofiled) and busy (profiled) per token
+    model = build_model(cfg, device=dev)
+    wave = WaveEngine(model, cfg, params, batch=4, cache_len=128)
+    torch.cuda.synchronize()
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t = time.perf_counter()
+    wave_out = wave.generate(reqs)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t) * 1e3
+    forwards = wave.stats.prefill_calls + wave.stats.decode_steps
+    launches = kernel.LAUNCHES["bc_matmul"]
+    if launches != per * forwards:
+        fail(f"serve_tier (b): wave launches {launches} != {per} x "
+             f"{forwards}")
+    rows |= {b * t for b, t in wave.stats.prefill_shapes}
+    wave_rpt = wave.stats.decode_rows_per_token
+    n_tok = sum(len(o) for o in wave_out)
+    same = sum(a == b for x, y in zip(wave_out, want) for a, b in zip(x, y))
+
+    def busy(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return device_busy_ms(torch, prof)
+
+    # busy time over the first wave (4 requests, 64 tokens): the profiler's
+    # parse of both waves' ~90k kernel events costs seconds
+    first = reqs[:4]
+    n_first = sum(r.max_new for r in first)
+    t2 = time.perf_counter()
+    wave_busy = busy(lambda: wave.generate(first))
+    del wave, model
+    cs = cont.stats
+    rows0 = (cs.decode_rows, cs.tokens_generated)
+    t3 = time.perf_counter()
+    cont_busy = busy(lambda: cont.generate(first))
+    cont_rpt = ((cs.decode_rows - rows0[0])
+                / (cs.tokens_generated - rows0[1]))
+    t4 = time.perf_counter()
+    print(f"serve_tier (b) full width, bf16 [{CARD[0]}]: wave tokens equal "
+          f"to continuous in {same} of {n_tok} (not gated: the wave's "
+          f"(4, {max(r.prompt_len for r in reqs)}) prefills launch other "
+          f"GEMM shapes); wave {forwards} forwards, {launches} launches = "
+          f"{per} x {forwards}; per generated token: wave {wave_ms / n_tok!r} "
+          f"ms wall, {wave_busy / n_first!r} ms busy, continuous "
+          f"{cont_ms / n_tok!r} ms wall, {cont_busy / n_first!r} ms busy "
+          f"(busy over requests 1-4); "
+          f"decode_rows_per_token wave {wave_rpt!r}, continuous "
+          f"{cont_rpt!r} (requests 1-4); seconds: f32 gate {t1 - t0:.1f}, "
+          f"wave run {t2 - t1:.1f}, wave profile {t3 - t2:.1f}, "
+          f"continuous profile {t4 - t3:.1f}")
+    return dict(f32_tokens_equal=same32, f32_tokens=n32,
+                f32_max_logit_diff=worst, f32_min_margin=tightest,
+                bf16_tokens_equal=same, tokens=n_tok,
+                wave_ms_per_token=wave_ms / n_tok,
+                wave_busy_ms_per_token=wave_busy / n_first,
+                cont_ms_per_token=cont_ms / n_tok,
+                cont_busy_ms_per_token=cont_busy / n_first,
+                wave_decode_rows_per_token=wave_rpt,
+                cont_decode_rows_per_token=cont_rpt,
+                launches=launches), rows
+
+
+def tier_requests(cfg):
+    """(c)'s and (d)'s traffic: 12 greedy requests of 16 tokens, 4 per
+    tenant; two of each tenant's on its own seeded 32-token head, the
+    others bare; tails of 3-8 tokens."""
+    from repro_torch.serve.engine import Request
+    import numpy as np
+
+    rng = np.random.default_rng(TIER_SEED)
+    reqs = []
+    for tenant in TIER_TENANTS:
+        head = rng.integers(0, cfg.vocab, size=TIER_HEAD).astype(np.int32)
+        for i in range(4):
+            tail = rng.integers(0, cfg.vocab, size=int(rng.integers(3, 9))
+                                ).astype(np.int32)
+            reqs.append(Request(np.concatenate([head, tail]) if i < 2
+                                else tail, max_new=16, tenant=tenant))
+    return reqs
+
+
+def tier_supervised(torch, kernel, cfg, dev, params, reqs, snap_dir,
+                    fatal):
+    """One supervised run of ``reqs`` (all submitted, then stepped to idle
+    on a ManualClock) behind the (c) factory. Returns (streams, supervisor,
+    per-engine (launches, forwards), heal timings, device memory before
+    the fatal step and after the heal)."""
+    import gc
+
+    from repro_torch.launch.specs import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.frontend import AsyncFrontend, TenantConfig
+    from repro_torch.serve.guard import ManualClock, ServeFaultInjector
+    from repro_torch.serve.prefix_store import PrefixStore
+    from repro_torch.serve.supervisor import Supervisor
+
+    gc.collect()              # an earlier run's engines (reference cycles)
+    weights = AsyncFrontend(None, {t: TenantConfig(t, slo=t)
+                                   for t in TIER_TENANTS}).tenant_weights()
+    clk = ManualClock()
+    inj = ServeFaultInjector(fatal_decode_at={fatal} if fatal else ())
+    store = PrefixStore(TIER_STORE_BYTES)
+    model = build_model(cfg, device=dev)
+    engines, timings = [], {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings[name] = timings.get(name, 0.0) + (
+                time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def factory():
+        heal = bool(engines)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng = ServeEngine(model, cfg, params, batch=4, cache_len=128,
+                          policy="fair", tenant_weights=weights,
+                          prefix_cache=True, prefix_store=store,
+                          snapshot_dir=snap_dir,
+                          snapshot_every=TIER_SNAPSHOT_EVERY, clock=clk,
+                          fault_injector=inj)
+        torch.cuda.synchronize()
+        if heal:
+            timings["factory"] = (time.perf_counter() - t) * 1e3
+            eng.restore = timed("restore", eng.restore)
+            eng.adopt_prefixes = timed("adopt_prefixes", eng.adopt_prefixes)
+        # a runner call counter per engine (the injector's fatal raises
+        # before its launch, which never runs)
+        count = [kernel.LAUNCHES["bc_matmul"], 0]
+        engines.append(count)
+        for attr in ("prefill", "decode"):
+            inner = getattr(eng.runner, attr)
+
+            def counted(*a, inner=inner, count=count, **kw):
+                count[1] += 1
+                return inner(*a, **kw)
+            setattr(eng.runner, attr, counted)
+        return eng
+
+    kernel.LAUNCHES["bc_matmul"] = 0
+    sup = Supervisor(factory)
+    sup._heal = timed("heal", sup._heal)
+    sup._requeue_missing = timed("requeue", sup._requeue_missing)
+    srids = [sup.submit(r) for r in reqs]
+    streams = {r: [] for r in srids}
+    mem = [None, None]
+    steps = 0
+    while True:
+        before = torch.cuda.memory_allocated()
+        restarts = sup.restarts
+        alive = sup.step()
+        steps += 1
+        clk.advance(0.002)
+        if sup.restarts != restarts:
+            torch.cuda.synchronize()
+            gc.collect()
+            mem = [before, torch.cuda.memory_allocated()]
+        for r in srids:
+            new, _ = sup.take_new_tokens(r)
+            streams[r].extend(new)
+        if not alive:
+            break
+        if steps > 400:
+            fail("serve_tier (c): the supervised engine did not go idle")
+    torch.cuda.synchronize()
+    # launches per engine: from its construction to the next one's
+    ends = [c[0] for c in engines[1:]] + [kernel.LAUNCHES["bc_matmul"]]
+    per_engine = [(end - c[0], c[1]) for c, end in zip(engines, ends)]
+    return ([streams[r] for r in srids], sup, per_engine, timings, mem,
+            store, steps)
+
+
+def tier_heal(torch, kernel, cfg, dev, params, tmp):
+    """(c): full-width qwen3-0.6b behind a Supervisor (fair policy with the
+    three SLO classes' weights, prefix cache with a 256 MiB PrefixStore,
+    snapshots every 4 steps, a ManualClock), 12 requests; a fault-free run,
+    then one with an engine fatal at decode launch TIER_FATAL_AT. Gates:
+    one restart and one recovery, every at-most-once stream equal to the
+    fault-free run's, 140 launches per forward on both engines, the dead
+    engine's device memory released."""
+    per = 5 * cfg.n_layers
+    reqs = tier_requests(cfg)
+    base, _, base_engines, _, _, _, _ = tier_supervised(
+        torch, kernel, cfg, dev, params, reqs, str(Path(tmp) / "base"),
+        None)
+    streams, sup, engines, timings, mem, store, steps = tier_supervised(
+        torch, kernel, cfg, dev, params, reqs, str(Path(tmp) / "heal"),
+        TIER_FATAL_AT)
+    s = sup.stats
+    if (sup.restarts, s.recoveries) != (1, 1) or len(engines) != 2:
+        fail(f"serve_tier (c): restarts {sup.restarts}, recoveries "
+             f"{s.recoveries}, engines {len(engines)}; want 1, 1, 2")
+    if streams != base:
+        fail("serve_tier (c): the healed streams differ from the fault-free "
+             "run's (a token lost, repeated or changed)")
+    if [len(x) for x in streams] != [16] * len(reqs):
+        fail(f"serve_tier (c): stream lengths {[len(x) for x in streams]}")
+    for i, (launches, forwards) in enumerate(engines + base_engines):
+        if launches != per * forwards:
+            fail(f"serve_tier (c): engine {i}: {launches} launches != "
+                 f"{per} x {forwards}")
+    if not mem[1] <= mem[0] * (1 + TIER_MEM_SLACK):
+        fail(f"serve_tier (c): device memory {mem[1]} B after the heal, "
+             f"{mem[0]} B before the fatal step: the dead engine was not "
+             f"released")
+    launches = sum(x[0] for x in engines + base_engines)
+    print(f"serve_tier (c) supervisor [{CARD[0]}]: fatal at decode launch "
+          f"{TIER_FATAL_AT}: restarts {sup.restarts}, recoveries "
+          f"{s.recoveries}; 12 streams bit-identical to the fault-free run "
+          f"({steps} supervised steps); launches per engine "
+          f"{[f'{a} = {per} x {b}' for a, b in engines]} (fault-free "
+          f"{[f'{a} = {per} x {b}' for a, b in base_engines]}); device "
+          f"memory {mem[0]} B before the fatal step, {mem[1]} B after the "
+          f"heal and gc ({mem[1] / mem[0]!r}x); heal {timings['heal']!r} ms "
+          f"wall = factory {timings['factory']!r} + restore "
+          f"{timings['restore']!r} + adopt_prefixes "
+          f"{timings['adopt_prefixes']!r} + re-queue "
+          f"{timings['requeue']!r}; prefix store {len(store)} entries, "
+          f"{store.spills} spills; adoptions {s.prefix_adoptions}, hits "
+          f"{s.prefix_hits} of {s.prefix_lookups}")
+    return dict(restarts=sup.restarts, recoveries=s.recoveries,
+                heal_ms=timings, memory_before=mem[0], memory_after=mem[1],
+                launches=launches, store_entries=len(store),
+                spills=store.spills, adoptions=s.prefix_adoptions,
+                prefix_hits=s.prefix_hits, steps=steps)
+
+
+def tier_frontend(torch, kernel, cfg, dev, params):
+    """(d): AsyncFrontend over a fresh supervisor (no fault, no snapshots),
+    the real event loop and time.monotonic; the three tenants burst-submit
+    (c)'s 12 requests, ``interactive`` throttled to rate 4, burst 2. Gates:
+    every request terminal, the statuses add up to 12, every stream()
+    yields exactly its final poll tokens; 140 launches per forward."""
+    import asyncio
+
+    from repro_torch.launch.specs import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.frontend import AsyncFrontend, TenantConfig
+    from repro_torch.serve.guard import TERMINAL_STATES
+    from repro_torch.serve.supervisor import Supervisor
+
+    per = 5 * cfg.n_layers
+    reqs = tier_requests(cfg)
+    tenants = {t: TenantConfig(t, slo=t, **(dict(rate=4, burst=2)
+                                            if t == "interactive" else {}))
+               for t in TIER_TENANTS}
+    weights = AsyncFrontend(None, tenants).tenant_weights()
+    model = build_model(cfg, device=dev)
+    sup = Supervisor(lambda: ServeEngine(
+        model, cfg, params, batch=4, cache_len=128, policy="fair",
+        tenant_weights=weights), require_snapshots=False)
+    fe = AsyncFrontend(sup, tenants)
+    s = sup.stats
+
+    async def main():
+        async def feed(tenant):
+            out = []
+            for i, r in enumerate(reqs):
+                if r.tenant == tenant:
+                    out.append((i, await fe.submit(tenant, r)))
+            return out
+
+        async def consume(rid):
+            return [tok async for tok in fe.stream(rid)]
+
+        runner = asyncio.ensure_future(fe.run(idle_rounds=2))
+        fed = await asyncio.gather(*(feed(t) for t in TIER_TENANTS))
+        pairs = sorted(p for f in fed for p in f)
+        consumers = [asyncio.ensure_future(consume(r)) for _, r in pairs]
+        await runner
+        await fe.run(idle_rounds=2)     # submits that landed after idling
+        return pairs, await asyncio.gather(*consumers)
+
+    torch.cuda.synchronize()
+    f0 = s.prefill_calls + s.decode_steps
+    kernel.LAUNCHES["bc_matmul"] = 0
+    t = time.perf_counter()
+    pairs, streams = asyncio.run(main())
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    forwards = s.prefill_calls + s.decode_steps - f0
+    launches = kernel.LAUNCHES["bc_matmul"]
+    states = [sup.poll(rid) for _, rid in pairs]
+    if len(pairs) != len(reqs) or any(st.status not in TERMINAL_STATES
+                                      for st in states):
+        fail(f"serve_tier (d): {len(pairs)} submitted, statuses "
+             f"{[st.status for st in states]}")
+    if any(got != list(st.tokens) for got, st in zip(streams, states)):
+        fail("serve_tier (d): a stream() differs from its final poll tokens")
+    if launches != per * forwards:
+        fail(f"serve_tier (d): {launches} launches != {per} x {forwards}")
+    report = {}
+    for tenant in TIER_TENANTS:
+        ts = s.tenants[tenant]
+        mine = [st.status for (i, _), st in zip(pairs, states)
+                if reqs[i].tenant == tenant]
+        report[tenant] = dict(
+            admitted=ts.admitted, rejected=fe.rejections[tenant],
+            statuses={k: mine.count(k) for k in sorted(set(mine))},
+            ttft_p50_ms=ts.ttft_ms.p50, ttft_p99_ms=ts.ttft_ms.p99)
+    if sum(sum(r["statuses"].values()) for r in report.values()) != 12:
+        fail(f"serve_tier (d): statuses {report} do not add up to 12")
+    print(f"serve_tier (d) front-end [{CARD[0]}]: 12 requests terminal in "
+          f"{wall_ms!r} ms wall, {forwards} forwards, {launches} launches = "
+          f"{per} x {forwards}; every stream equal to its final tokens; "
+          + "; ".join(f"{t}: admitted {r['admitted']}, rejected "
+                      f"{r['rejected']}, {r['statuses']}, TTFT p50/p99 "
+                      f"{r['ttft_p50_ms']}/{r['ttft_p99_ms']} ms (histogram "
+                      f"bounds)" for t, r in report.items()))
+    return dict(wall_ms=wall_ms, forwards=forwards, launches=launches,
+                tenants=report)
+
+
+def phase_serve_tier(torch, kernel, dev, cfg, params, reqs, want):
+    """The serving tier's last part on the card: (a) prewarm, (b) the wave
+    baseline, (c) the supervisor's heal, (d) the asyncio front-end, all on
+    the serve phase's full-width qwen3-0.6b params. Returns (report row,
+    bc_matmul row counts launched)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    parts = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tier_")
+    try:
+        cont, prewarm, rows = tier_prewarm(torch, kernel, cfg, dev, params,
+                                           reqs, want)
+        parts.append(time.perf_counter())
+        wave, wave_rows = tier_wave(torch, kernel, cfg, dev, params, reqs,
+                                    want, cont, prewarm["serve_ms"])
+        del cont
+        parts.append(time.perf_counter())
+        heal = tier_heal(torch, kernel, cfg, dev, params, tmp)
+        parts.append(time.perf_counter())
+        front = tier_frontend(torch, kernel, cfg, dev, params)
+        parts.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    part_s = [b - a for a, b in zip([t_phase] + parts, parts)]
+    print(f"serve_tier phase: {secs:.1f}s ((a)-(d): "
+          f"{', '.join(f'{x:.1f}' for x in part_s)} s)")
+    # (a)'s bucket grid covers every prefill (c) and (d) launch
+    return dict(prewarm=prewarm, wave=wave, heal=heal, frontend=front,
+                seconds=secs, part_seconds=part_s,
+                launches=(prewarm["launches"] + wave["launches"]
+                          + heal["launches"] + front["launches"])), \
+        rows | wave_rows
 
 
 # ---------------------------------------------------------------------------
@@ -3807,17 +4398,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    cfg, engine, params, reqs, serve_launches, step_ms, serve_rows = \
-        phase_serve(torch, dev)
+    (cfg, engine, params, reqs, serve_launches, step_ms, serve_rows,
+     serve_outs) = phase_serve(torch, dev)
     phase_profile(torch, engine, reqs, step_ms)
     resilient, resilient_rows = phase_serve_resilient(torch, kernel, dev)
     durable, durable_rows = phase_durable(torch, kernel, dev)
+    tier, tier_rows = phase_serve_tier(torch, kernel, dev, cfg, params,
+                                       reqs, serve_outs)
     train_cfg, train_launches, train_ms, train_rows, train_busy = \
         phase_train(torch, dev)
     max_abs = phase_kernels(
         torch, kernel, quant, dev,
         sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows
-               | durable_rows))
+               | durable_rows | tier_rows))
     dw_abs = phase_dw(torch, kernel, dev,
                       sorted({512, train_rows, *DW_EXTRA_ROWS}))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
@@ -3931,6 +4524,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/block_circulant/kernel.py:220",
         "launches": (serve_launches + resilient["launches"]
                      + durable["launches"]["bc_matmul"]
+                     + tier["launches"]
                      + train_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
@@ -3942,6 +4536,7 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches,
                              "serve_resilient": resilient["launches"],
                              "durable": durable["launches"]["bc_matmul"],
+                             "serve_tier": tier["launches"],
                              "train": train_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
@@ -3997,7 +4592,8 @@ def main() -> int:
         "family": family_rows, "encdec": encdec_row,
         "examples": example_rows, "train_family": tf_rows,
         "scan_remat": remat_rows, "dft": dft_row,
-        "serve_resilient": resilient, "durable": durable}
+        "serve_resilient": resilient, "durable": durable,
+        "serve_tier": tier}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,21 @@ FFT → ∘ → IFFT. The engine applies that split at three levels:
   smallest ``decode_buckets`` batch that holds them. The set of launch
   shapes is therefore bounded (``max_prefill_variants`` /
   ``max_decode_variants``); ``prefill_compiles``/``decode_compiles`` count
-  the distinct shapes launched, the quantities a CUDA graph per bucket
-  would capture.
+  the distinct shapes launched (``prewarm()``'s included), the quantities
+  a CUDA graph per bucket would capture. ``prewarm()`` launches every
+  bucket shape once up front on an idle engine: one all-pad prefill per
+  (batch bucket, prompt bucket), every position negative, and one decode
+  probe per decode bucket at position -1. Every write it makes is masked
+  (negative stored positions), and admission replaces a slot's rows
+  whole, so a prewarmed engine serves the same tokens as a cold one; its
+  launches are not counted in ``stats``.
+* **The wave baseline** — :class:`WaveEngine` serves fixed waves of
+  ``batch`` requests, each left-padded to its longest prompt (one launch
+  shape per distinct wave length), every slot held until the wave's
+  largest ``max_new``; greedy only. It shares the negative pad positions,
+  so its greedy tokens equal the continuous engine's at the same launch
+  shapes. :func:`make_prefill_step` / :func:`make_decode_step` are its
+  model calls.
 * **Continuous batching, streamed** — requests occupy independent cache
   slots; a finished slot admits the next queued request immediately.
   Admission order is a :class:`Scheduler` policy (fifo, sjf, or ``fair``:
@@ -94,6 +107,11 @@ Failure semantics (see :mod:`repro_torch.serve.guard`):
   configuration ``restore()``s it and resumes every decode mid-stream
   (``snapshot_every`` snapshots at step boundaries, skipping an empty
   engine).
+* **Self-healing** — :class:`~repro_torch.serve.supervisor.Supervisor`
+  rebuilds a dead engine from its factory, restores the newest snapshot
+  it accepts, adopts stored prefixes and re-queues the rest, with
+  at-most-once token streams; :mod:`repro_torch.serve.frontend` drives an
+  engine or a supervisor from asyncio with per-tenant admission.
 
 Everything model-shaped sits behind a :mod:`repro_torch.serve.runner`
 runner. Requests of a family whose runner ``requires_extra`` (the enc-dec
@@ -101,7 +119,9 @@ family) carry their conditioning as ``Request.extra``, the encoder frames
 ``(enc_seq, d_model)``: the runner's ``validate_request`` checks it at
 ``submit``/``generate`` (decoder families refuse it), and a prefill
 chunk's frames go to the runner stacked as f32 (and ride in a snapshot's
-array section). Not ported yet: ``prewarm``, ``audit`` and ``WaveEngine``.
+array section). ``audit()`` (and ``prewarm(audit=True)``) raise
+``NotImplementedError``: the structural contracts they check live in the
+analysis layer, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -130,13 +150,56 @@ from repro_torch.serve.guard import (CANCELLED, EXPIRED, FAILED, FINISHED,
                                      EngineFatalError, QueueFullError,
                                      classify_error, flatten_state_tree,
                                      unflatten_state_tree)
-from repro_torch.serve.runner import make_runner
+from repro_torch.serve.runner import make_runner, recurrent_mixer_names
 
-__all__ = ["SamplingParams", "Request", "RequestState", "Scheduler",
-           "LatencyHistogram", "TenantStats", "EngineStats", "ServeEngine",
+__all__ = ["make_prefill_step", "make_decode_step", "SamplingParams",
+           "Request", "RequestState", "Scheduler", "LatencyHistogram",
+           "TenantStats", "EngineStats", "ServeEngine", "WaveEngine",
            "pow2_buckets",
            "pick_bucket", "batch_split", "validate_buckets", "QUEUED",
            "RUNNING", "FINISHED", "FAILED", "EXPIRED", "CANCELLED"]
+
+
+# ---------------------------------------------------------------------------
+# Step functions (the wave baseline's model calls)
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(model, cfg: ModelConfig):
+    """The prefill step over the tensors installed in ``model`` (the port
+    keeps params in the model, so the step takes none)."""
+    @torch.no_grad()
+    def prefill_step(tokens, cache, extra=None, positions=None):
+        """tokens (B, S) -> (last logits (B, V), filled cache).
+
+        ``positions`` (B, S) overrides the default ``0..S-1`` numbering;
+        left-padded rows carry NEGATIVE pad positions, which attention
+        masks and the cache stores masked. ``extra`` is the vlm's image
+        prefix or the enc-dec's encoder frames (whose prefill numbers its
+        tokens ``0..S-1``)."""
+        if cfg.family == "encdec":
+            logits, new_cache = model.forward(extra, tokens, cache=cache,
+                                              logits_mode="last")
+            return logits[:, -1], new_cache
+        kwargs = {}
+        if cfg.family == "vlm" and extra is not None:
+            kwargs["img_embeds"] = extra
+        logits, new_cache = model.forward(tokens, cache=cache,
+                                          logits_mode="last",
+                                          positions=positions, **kwargs)
+        return logits[:, -1], new_cache
+
+    return prefill_step
+
+
+def make_decode_step(model, cfg: ModelConfig):
+    """The one-token decode step over the tensors installed in ``model``."""
+    @torch.no_grad()
+    def decode_step(tokens, cache, pos):
+        """tokens (B, 1), pos (B,) -> (logits (B, V), cache)."""
+        return model.decode_step(tokens, cache, pos)
+
+    return decode_step
 
 
 # ---------------------------------------------------------------------------
@@ -769,6 +832,10 @@ class ServeEngine:
         self.decode_buckets = validate_buckets(
             "decode_buckets", decode_buckets, self.batch)
         self.stats = EngineStats()
+        # shapes launched by prewarm(): counted by prefill_compiles /
+        # decode_compiles, kept out of stats (and so out of snapshots)
+        self._warm_prefill: Set[Tuple[int, int]] = set()
+        self._warm_decode: Set[int] = set()
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
         self.tenant_weights = {str(t): int(w)
@@ -812,13 +879,13 @@ class ServeEngine:
 
     @property
     def prefill_compiles(self) -> int:
-        """Distinct prefill launch shapes so far."""
-        return len(self.stats.prefill_shapes)
+        """Distinct prefill launch shapes so far, prewarm's included."""
+        return len(self.stats.prefill_shapes | self._warm_prefill)
 
     @property
     def decode_compiles(self) -> int:
-        """Distinct decode launch shapes so far."""
-        return len(self.stats.decode_shapes)
+        """Distinct decode launch shapes so far, prewarm's included."""
+        return len(self.stats.decode_shapes | self._warm_decode)
 
     def frozen_table_bytes(self) -> int:
         """Resident bytes of the frozen frequency tables (fused copies and
@@ -1400,6 +1467,69 @@ class ServeEngine:
                 continue
             self._push_token(slot, lg[j])
 
+    def audit(self, raise_on_violation: bool = False):
+        """The reference's structural-contract audit. Not available: its
+        contracts (no weight FFT in any launch, no dense fallback, frozen
+        table dtypes) are checked by the analysis layer, which is not
+        ported yet."""
+        raise NotImplementedError(
+            "ServeEngine.audit() checks the structural contracts of the "
+            "analysis layer (repro.analysis: contracts, auditor), which is "
+            "not ported yet")
+
+    def prewarm(self, audit: bool = False) -> int:
+        """Launch every (batch-bucket, prompt-bucket) prefill shape and
+        every decode-bucket shape once, so steady-state serving launches
+        no shape it has not run. Returns ``prefill_compiles +
+        decode_compiles``.
+
+        The state is written in place, so every warm-up write is masked:
+        all-pad prefill rows (every position negative) into slots
+        ``0..Bb-1``, each its own donor at match 0 with the prefix cache,
+        and decode probes at position -1, whose ring write lands with a
+        negative stored position. Admission replaces a slot's rows whole
+        (fresh or masked-seeded), so the tokens served afterwards are the
+        cold engine's. The writes touch free slot rows: prewarm needs an
+        IDLE engine (no active slots) and flushes the prefix index first
+        (spilling to the store, when one is attached). Warm-up launches
+        are not counted in ``stats`` and reach no fault injector.
+        ``audit=True`` needs the analysis layer and raises
+        ``NotImplementedError``."""
+        self._check_alive()
+        if self._active.any():
+            raise RuntimeError(
+                "prewarm() requires an idle engine: warm-up launches commit "
+                "(masked) writes into slot rows that active requests own")
+        if audit:
+            self.audit(raise_on_violation=True)
+        if self.prefix_cache:
+            for s in range(self.batch):
+                self._index_drop_slot(s)
+        for Sb in self.prompt_buckets:
+            for Bb in self.batch_buckets:
+                # all-pad rows: fully masked, shape-identical to traffic
+                pos = np.repeat((np.arange(Sb, dtype=np.int32) - Sb)[None],
+                                Bb, axis=0)
+                slots = self._tensor(np.arange(Bb, dtype=np.int64))
+                kw = {}
+                if self.prefix_cache:
+                    kw["donor_idx"] = slots
+                    kw["match_len"] = self._tensor(np.zeros(Bb, np.int32))
+                ex = self.runner.prewarm_extra(Bb)
+                if ex is not None:
+                    kw["extra"] = ex
+                _, _, self.cache = self.runner.prefill(
+                    self._tensor(np.zeros((Bb, Sb), np.int64)),
+                    self._tensor(pos), self.cache, slots, **kw)
+                self._warm_prefill.add((Bb, Sb))
+        for Bb in self.decode_buckets:
+            _, _, self.cache = self.runner.decode(
+                self._tensor(np.zeros((Bb, 1), np.int64)), self.cache,
+                self._tensor(np.full(Bb, -1, np.int64)),
+                self._tensor(np.arange(Bb, dtype=np.int64)))
+            self._warm_decode.add(Bb)
+        return self.prefill_compiles + self.decode_compiles
+
     # -- public API ---------------------------------------------------------------
     def submit(self, request: Request) -> int:
         """Enqueue one request; returns its request id. With ``max_queue``
@@ -1666,7 +1796,10 @@ class ServeEngine:
         resume where the snapshot left off; the latest snapshot in
         ``snapshot_dir`` by default. Deadlines resume with the budget they
         had left. Returns the restored step count; ``stats.recoveries``
-        counts successful restores."""
+        counts successful restores. No snapshot in ``snapshot_dir`` raises
+        ``FileNotFoundError``; a step this engine refuses (another version
+        or configuration, empty, or a meta that does not parse) raises
+        ``ValueError``, so a caller can walk back to an older step."""
         self._check_alive()
         if self.snapshot_dir is None:
             raise ValueError("restore() needs snapshot_dir")
@@ -1683,7 +1816,17 @@ class ServeEngine:
                     f"no snapshot found in {self.snapshot_dir}")
         state = restore_checkpoint(self.snapshot_dir, int(step),
                                    device="cpu")
-        meta = json.loads(state["meta"].numpy().tobytes().decode("utf-8"))
+        try:
+            meta = json.loads(state["meta"].numpy().tobytes()
+                              .decode("utf-8"))
+            if not isinstance(meta, dict):
+                raise TypeError(f"meta is a {type(meta).__name__}")
+        except (KeyError, TypeError, ValueError) as e:
+            # ValueError is the refusal a caller walks past (the
+            # supervisor tries the next older snapshot)
+            raise ValueError(
+                f"snapshot at step {step} is not a serving snapshot: its "
+                f"meta does not parse ({type(e).__name__}: {e})") from e
         if int(meta.get("version", 0)) != 3:
             raise ValueError(
                 f"snapshot at step {step} has format version "
@@ -1787,3 +1930,130 @@ class ServeEngine:
             ts.ttft_ms = LatencyHistogram(d["ttft"])
         self.stats.recoveries += 1
         return int(step)
+
+
+# ---------------------------------------------------------------------------
+# The wave baseline
+# ---------------------------------------------------------------------------
+
+
+class WaveEngine:
+    """Fixed-wave batching baseline: requests are served in waves of
+    ``batch``; every wave left-pads to its longest prompt (one launch shape
+    per distinct wave length) and every slot stalls until the wave's
+    largest ``max_new`` finishes. Greedy only.
+
+    The comparison point for :class:`ServeEngine`: it shares the negative
+    pad positions, so its greedy tokens equal the continuous engine's
+    wherever the two launch the same arithmetic. ``params`` is frozen
+    (``quantize``) and installed in ``model`` as the continuous engine
+    does; each wave allocates a fresh cache on ``model.device``.
+    """
+
+    def __init__(self, model, cfg: ModelConfig, params, batch: int,
+                 cache_len: int, *, quantize: str = "off"):
+        if cfg.family == "encdec":
+            raise ValueError(
+                "WaveEngine is a decoder-LM baseline: enc-dec serving "
+                "needs a per-request encoder pass — use ServeEngine, "
+                "which serves encdec configs through EncDecRunner")
+        mix = recurrent_mixer_names(cfg)
+        if int(batch) > 1 and mix:
+            # a wave of one never pads; larger waves pad to the wave max
+            raise ValueError(
+                f"wave prefill left-pads prompts, and the wave baseline "
+                f"gives {'/'.join(mix)} layers no pad-validity guarantee "
+                f"for their recurrent state — serve this family with "
+                f"ServeEngine (pad-aware bucketed prefill) or batch=1 "
+                f"waves (never padded)")
+        _check_quantize(quantize)
+        if quantize != "off" and not cfg.swm.enabled:
+            raise ValueError(
+                "quantize applies to frozen circulant tables; this config "
+                "has swm disabled")
+        if cfg.swm.enabled:
+            params = freeze_params(model.specs(), params, quantize=quantize)
+        load_tree(model, params)
+        self.device = model.device
+        self.quantize = quantize
+        self.model, self.cfg, self.params = model, cfg, params
+        self.batch, self.cache_len = int(batch), int(cache_len)
+        self.stats = EngineStats()
+        self._prefill = make_prefill_step(model, cfg)
+        self._decode = make_decode_step(model, cfg)
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill launch shapes so far (one per wave length)."""
+        return len(self.stats.prefill_shapes)
+
+    @property
+    def decode_compiles(self) -> int:
+        """Distinct decode launch shapes so far."""
+        return len(self.stats.decode_shapes)
+
+    def frozen_table_bytes(self) -> int:
+        """Resident bytes of the frozen frequency tables (scales
+        included)."""
+        return frozen_table_bytes(self.params)
+
+    def generate(self, requests: List[Request]) -> List[List[int]]:
+        """Greedy-decode a list of requests in fixed batched waves."""
+        for r in requests:
+            _validate_request(r, self.cache_len)
+            if r.sampling.temperature > 0 or r.stop_tokens:
+                raise ValueError(
+                    "WaveEngine is a greedy-only baseline: per-request "
+                    "sampling and stop tokens need ServeEngine")
+            if r.deadline_ms is not None:
+                raise ValueError(
+                    "WaveEngine has no request lifecycle: deadlines, "
+                    "cancellation, and load shedding need ServeEngine")
+        results: List[List[int]] = []
+        for i in range(0, len(requests), self.batch):
+            results.extend(self._run_wave(requests[i: i + self.batch]))
+        return results
+
+    def _run_wave(self, wave: List[Request]) -> List[List[int]]:
+        B = self.batch
+        plen = max(r.prompt_len for r in wave)
+        toks = np.zeros((B, plen), np.int64)
+        pos = np.zeros((B, plen), np.int32)
+        lens = np.zeros(B, np.int64)
+        for j in range(B):
+            L = wave[j].prompt_len if j < len(wave) else 0
+            lens[j] = L
+            if L:
+                toks[j, plen - L:] = np.asarray(
+                    wave[j].prompt, np.int32).reshape(-1)
+            pos[j] = np.arange(plen, dtype=np.int32) - (plen - L)
+        cache = self.model.init_cache(B, self.cache_len)
+        dev = self.device
+        logits, cache = self._prefill(torch.as_tensor(toks, device=dev),
+                                      cache, None,
+                                      torch.as_tensor(pos, device=dev))
+        self.stats.prefill_calls += 1
+        self.stats.prefill_shapes.add((B, plen))
+        outs: List[List[int]] = [[] for _ in wave]
+        cur = np.argmax(logits.float().cpu().numpy(), axis=-1)
+        for j, r in enumerate(wave):
+            outs[j].append(int(cur[j]))
+            self.stats.tokens_generated += 1
+        max_new = max(r.max_new for r in wave)
+        for t in range(max_new - 1):
+            logits, cache = self._decode(
+                torch.as_tensor(cur[:, None], device=dev), cache,
+                torch.as_tensor(lens + t, device=dev))
+            self.stats.decode_steps += 1
+            self.stats.slot_steps_active += sum(
+                1 for r in wave if t + 1 < r.max_new)
+            self.stats.decode_rows += B
+            self.stats.decode_shapes.add(B)
+            cur = np.argmax(logits.float().cpu().numpy(), axis=-1)
+            for j, r in enumerate(wave):
+                if t + 1 < r.max_new:
+                    outs[j].append(int(cur[j]))
+                    self.stats.tokens_generated += 1
+        for _ in wave:
+            self.stats.requests_completed += 1
+        return outs

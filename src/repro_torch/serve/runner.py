@@ -113,6 +113,11 @@ class ModelRunner:
         return self.place_state(state, self.init_state(int(idx.shape[0])),
                                 idx)
 
+    def prewarm_extra(self, batch: int):
+        """Placeholder ``extra`` for prewarm launches (families with
+        ``requires_extra``); None otherwise."""
+        return None
+
     def validate_request(self, r) -> None:
         """Family-specific admission checks beyond the engine's shared
         length/budget contract: a decoder family takes no ``extra``."""
@@ -237,9 +242,7 @@ class EncDecRunner(ModelRunner):
     ``{"k", "v", "pos"}`` dict per decoder layer in each list, every leaf
     with the slot axis at 0 (the reference stacks layers on axis 0 and
     keeps the slot axis at 1). Decode gathers and places every active
-    slot's whole cross cache, as the reference does. The reference's
-    ``prewarm_extra`` (zero frames for prewarm launches) is not ported:
-    the port's engine has no prewarm."""
+    slot's whole cross cache, as the reference does."""
 
     requires_extra = True
     supports_prefix_cache = False
@@ -287,6 +290,13 @@ class EncDecRunner(ModelRunner):
                 for n, t in dst.items():
                     t[idx] = src[n].to(t.dtype)
         return state
+
+    def prewarm_extra(self, batch: int) -> torch.Tensor:
+        """Zero frames on the runner's device: prewarm launches run the
+        encoder on silence (finite), onto rows the next admission
+        replaces."""
+        return torch.zeros((batch, self.enc_len, self.cfg.d_model),
+                           dtype=torch.float32, device=self.model.device)
 
     def validate_request(self, r) -> None:
         extra = getattr(r, "extra", None)
