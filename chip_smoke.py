@@ -19,6 +19,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    steps for ``bc_matmul`` and 140 x steps for ``bc_dw``; every circulant
    table's grad finite and non-zero; params unchanged by step 0 (lr 0)
    and moved by the later steps;
+3b. the distribution and measurement layers (``dist`` phase, after phase
+   3; its rows join phase 4's checks; budget 60 s): (a) a world-1 NCCL
+   mesh (``launch.mesh.make_local_mesh``): full-width qwen3-0.6b, 3 steps
+   with ``make_train_step(mesh=)`` bit-identical to 3 steps without
+   (params and moments), 420/140 launches per step, collectives per step,
+   wall and busy ms of both; (b) two spawned ranks in a ``gloo`` group on
+   cuda:0 (collectives staged through host memory): one data-parallel
+   ZeRO-1 step of a 2-layer full-width f32 cut against one process's
+   full-batch step, rel <= 1e-5 on params and moment shards; (c)
+   ``compressed_psum_grads`` over (a)'s group on the real grads of 3
+   batches: every element within scale/2 (plus f32 rounding), the error
+   feedback telescoping, the payload bytes against f32; (d)
+   ``impl="freq_shmap"`` bit-identical to ``freq`` at qwen3-0.6b's
+   projection shapes; (e) ``TrainDriver(mesh=, state_shardings=)``
+   through a fault before step 3 on a 2-layer cut, bit-identical to an
+   uninterrupted run; (f) ``launch.analytic.cell_model(chips=1)`` and the
+   roofline's compute and memory ms with the card's constants for the
+   decode step and the train step, beside the busy ms phases 2 and 3
+   measured;
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -4370,6 +4389,481 @@ def phase_dft(torch, kernel, dev, pallas_busy):
                 quickstart_loss_last=losses[-1])
 
 
+# ---------------------------------------------------------------------------
+# The distribution and measurement layers (``dist`` phase)
+# ---------------------------------------------------------------------------
+
+# (a): full-width qwen3-0.6b, 3 steps with a world-1 mesh and 3 without
+DIST_A_STEPS = 3
+# (b): two gloo ranks on the one card, a 2-layer cut at full width in f32:
+# two 28-layer f32 states per rank would not leave the phase its 60 s,
+# and 2 layers hold every leaf kind (embedding, attention, SwiGLU, norms).
+# Moments are held leaf by leaf (max |diff| over max |ref|); params over
+# the whole tree (||diff|| / ||ref||): AdamW divides by sqrt(v) + 1e-8, so
+# an element whose grad is near 1e-8 moves by an O(1) share of its update
+# when the two batch splits round its sum differently (the per-leaf
+# reading is printed beside it)
+DIST_B_LAYERS = 2
+DIST_B_TOL = 1e-5
+# (c): the compressed all-reduce on the real grads of 3 batches
+DIST_C_STEPS = 3
+DIST_C_TOL = 1e-5
+# (e): TrainDriver on the mesh: 2 layers, 4 steps, checkpoints every 2,
+# a fault before step 3
+DIST_E_LAYERS = 2
+DIST_E_STEPS = 4
+DIST_E_FAIL_AT = 3
+
+
+def dist_rank_main(rank, port, q):
+    """Part (b)'s rank: a gloo group of 2 on cuda:0 (NCCL refuses two
+    ranks on one GPU), one data-parallel ZeRO-1 step on its half of the
+    batch against one process's full-batch step, both in this process on
+    the card; the relative differences go back through ``q``."""
+    import torch
+    import torch.distributed as dist
+
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=2, rank=rank)
+        from repro_torch.configs.base import SWMConfig, TrainConfig
+        from repro_torch.configs.qwen3_0_6b import CONFIG
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.dist.sharding import local_shard
+        from repro_torch.kernels.block_circulant import kernel
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.launch.specs import build_model
+        from repro_torch.nn.module import init_params, tree_leaves
+        from repro_torch.train.loop import init_train_state, make_train_step
+
+        mesh = make_local_mesh(device="cpu")
+        cfg = cut_depth(dataclasses.replace(
+            CONFIG, swm=SWMConfig(block_size=128, impl="pallas"),
+            param_dtype="float32", compute_dtype="float32"), DIST_B_LAYERS)
+        tcfg = TrainConfig(warmup_steps=1)
+        tokens = torch.from_numpy(SyntheticLM(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+            seed=0).batch_np(0)["tokens"]).to(dev)
+
+        def run(m):
+            model = build_model(cfg, device=dev)
+            step = make_train_step(model, cfg, tcfg, mesh=m)
+            state = init_train_state(
+                init_params(model.specs(), seed=0, device=dev), tcfg,
+                opt_shardings=(step.data_parallel.state_shardings["opt"]
+                               if m is not None else None), mesh=m)
+            state["step"] = 1          # a step whose learning rate is > 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, {"tokens": tokens})
+            loss = float(metrics["loss"])
+            return state, step, loss, (time.perf_counter() - t) * 1e3
+
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        mine, step, loss, ms = run(mesh)
+        out["launches"] = dict(kernel.LAUNCHES)
+        ref, _, ref_loss, ref_ms = run(None)
+        specs = step.data_parallel.state_shardings["opt"]
+        with torch.no_grad():
+            pairs = list(zip(tree_leaves(mine["params"]),
+                             tree_leaves(ref["params"])))
+            out["rel_params_leaf"] = max(rel_err(a, b) for a, b in pairs)
+            diff = sum(float((a.double() - b.double()).square().sum())
+                       for a, b in pairs)
+            norm = sum(float(b.double().square().sum()) for _, b in pairs)
+            out["rel_params"] = math.sqrt(diff / norm)
+            rel_m, n_cut = 0.0, 0
+            for key in ("m", "v"):
+                for a, b, spec in zip(tree_leaves(mine["opt"][key]),
+                                      tree_leaves(ref["opt"][key]),
+                                      tree_leaves(specs[key])):
+                    want = local_shard(b, spec, mesh)
+                    if a.shape != want.shape:
+                        raise AssertionError(f"moment shard {tuple(a.shape)}"
+                                             f" != {tuple(want.shape)}")
+                    n_cut += a.shape != b.shape
+                    rel_m = max(rel_m, rel_err(a, want))
+        out.update(rel_moments=rel_m, moments_cut=n_cut, loss=loss,
+                   ref_loss=ref_loss, ms=ms, ref_ms=ref_ms,
+                   collectives=step.data_parallel.collectives,
+                   rows=tokens.shape[0] // 2 * TRAIN_SEQ)
+    except Exception as e:             # reported by the parent, which fails
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dist_spawn():
+    """Start part (b)'s two ranks (``spawn``: this process holds the
+    card); returns (processes, queue)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank_main, args=(r, port, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, q
+
+
+def dist_join(procs, q):
+    """Part (b)'s gates, from both ranks' reports."""
+    try:
+        outs = sorted((q.get(timeout=120) for _ in procs),
+                      key=lambda o: o["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    for o in outs:
+        if "error" in o:
+            fail(f"dist (b) rank {o['rank']}: {o['error']}")
+        if not (o["rel_params"] <= DIST_B_TOL
+                and o["rel_moments"] <= DIST_B_TOL and o["moments_cut"]):
+            fail(f"dist (b) rank {o['rank']}: data-parallel step vs the "
+                 f"full-batch step: params rel {o['rel_params']!r}, moments "
+                 f"rel {o['rel_moments']!r} (limit {DIST_B_TOL}), "
+                 f"{o['moments_cut']} moments cut")
+    print(f"dist (b) two gloo ranks on cuda:0 (qwen3-0.6b cut to "
+          f"{DIST_B_LAYERS} of 28 layers at full width, f32, AdamW, one "
+          f"step at step 1 of the schedule, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ} split 2 ways; the cut because two 28-layer f32 "
+          f"states per rank would not fit the phase's 60 s): "
+          + "; ".join(
+              f"rank {o['rank']}: params rel {o['rel_params']!r} over the "
+              f"tree (leaf by leaf {o['rel_params_leaf']!r}), moments rel "
+              f"{o['rel_moments']!r} ({o['moments_cut']} moments held "
+              f"as half shards), loss {o['loss']!r} vs {o['ref_loss']!r}, "
+              f"step {o['ms']:.1f} ms vs {o['ref_ms']:.1f} ms one-rank, "
+              f"{o['collectives']} collectives (gloo, staged through host "
+              f"memory), launches {o['launches']}" for o in outs)
+          + f" (limit {DIST_B_TOL}; {CARD[0]})")
+    return outs
+
+
+def dist_mesh_step(torch, kernel, dev, mesh):
+    """Part (a): full-width qwen3-0.6b, DIST_A_STEPS steps with the
+    world-1 mesh against as many without, from the same seeded state and
+    batches; params and moments bit-identical, launches pinned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    tcfg = TrainConfig(warmup_steps=1)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=0)
+    batches = [{"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+        dev)} for i in range(DIST_A_STEPS + 1)]
+    per_step = {"bc_matmul": 3 * 5 * cfg.n_layers,
+                "bc_dw": 5 * cfg.n_layers}
+    out = {}
+    for name, m in (("mesh", mesh), ("no mesh", None)):
+        model = build_model(cfg, device=dev)
+        step = make_train_step(model, cfg, tcfg, mesh=m)
+        state = init_train_state(
+            init_params(model.specs(), seed=0, device=dev), tcfg,
+            opt_shardings=(step.data_parallel.state_shardings["opt"]
+                           if m is not None else None), mesh=m)
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        ms = []
+        for b in batches[:DIST_A_STEPS]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, b)
+            float(metrics["loss"])
+            ms.append((time.perf_counter() - t) * 1e3)
+        launches = dict(kernel.LAUNCHES)
+        want = {k: v * DIST_A_STEPS for k, v in per_step.items()}
+        if launches != want:
+            fail(f"dist (a) {name}: launches {launches} != {want}")
+        leaves = [t.detach().clone() for part in ("params", "opt")
+                  for t in tree_leaves(state[part])]
+        coll = (step.data_parallel.collectives / DIST_A_STEPS
+                if m is not None else 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batches[DIST_A_STEPS])
+            torch.cuda.synchronize()
+        out[name] = dict(leaves=leaves, ms=statistics.median(ms),
+                         busy=device_busy_ms(torch, prof), launches=launches,
+                         collectives=coll, loss=float(metrics["loss"]))
+        del model, state, step
+    a, b = out["mesh"], out["no mesh"]
+    same = len(a["leaves"]) == len(b["leaves"]) and all(
+        torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"]))
+    if not same or a["loss"] != b["loss"]:
+        fail(f"dist (a): {DIST_A_STEPS} steps with the world-1 mesh are not "
+             f"bit-identical to {DIST_A_STEPS} without (loss {a['loss']!r} "
+             f"vs {b['loss']!r})")
+    print(f"dist (a) world-1 NCCL mesh, qwen3-0.6b full width and depth, "
+          f"remat='block', AdamW, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+          f"{DIST_A_STEPS} steps with mesh= bit-identical to {DIST_A_STEPS} "
+          f"without (params and moments); launches {a['launches']} = "
+          f"{DIST_A_STEPS} x {per_step}; {a['collectives']:g} collectives "
+          f"per step (the bucketed grad all-reduce, one param all-gather per "
+          f"param dtype); "
+          f"median wall {a['ms']:.1f} ms with the mesh vs {b['ms']:.1f} ms "
+          f"without, device busy {a['busy']:.1f} vs {b['busy']:.1f} ms per "
+          f"step (one profiled step each; {CARD[0]})")
+    return dict(launches=a["launches"], ms=a["ms"], ms_no_mesh=b["ms"],
+                busy=a["busy"], busy_no_mesh=b["busy"],
+                collectives=a["collectives"])
+
+
+def dist_compress(torch, dev, mesh):
+    """Part (c): ``compressed_psum_grads`` over the world-1 mesh's data
+    group on the real grads of DIST_C_STEPS batches (full-width
+    qwen3-0.6b, f32 copies of the bf16 grads): per element |Q(g) - g| <=
+    scale/2, and the error feedback telescopes."""
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.compress import (CHUNK, compressed_psum_grads,
+                                           int8_compress, int8_decompress)
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves, tree_map
+    from repro_torch.train.loop import (init_train_state, make_loss_fn,
+                                        value_and_grad)
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    tcfg = TrainConfig()
+    model = build_model(cfg, device=dev)
+    state = init_train_state(init_params(model.specs(), seed=0, device=dev),
+                             tcfg)
+    loss_fn = make_loss_fn(model, cfg, tcfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=1)
+    group = mesh.get_group("data")
+    res = None
+    sum_g = sum_tx = None
+    worst, n, n_chunks = 0.0, 0, 0
+    for i in range(DIST_C_STEPS):
+        batch = {"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+            dev)}
+        _, grads = value_and_grad(loss_fn, state["params"], batch,
+                                  has_aux=True)
+        grads = tree_map(lambda g: g.float(), grads)
+        if res is None:
+            res = tree_map(torch.zeros_like, grads)
+        with torch.no_grad():
+            for g, r in zip(tree_leaves(grads), tree_leaves(res)):
+                c = g + r
+                q, s = int8_compress(c)
+                err = (int8_decompress(q, s, c.shape, c.numel()) - c).abs()
+                pad = (-c.numel()) % CHUNK
+                err = torch.nn.functional.pad(err.reshape(-1), (0, pad))
+                # the quantizer's bound scale/2, plus the f32 roundings of
+                # the quotient g/s and the product q·s (each <= 127 ulps
+                # of 2^-24 relative to the scale)
+                excess = (err.reshape(-1, CHUNK)
+                          - s[:, None] * (0.5 + 256 * 2 ** -24)).max()
+                worst = max(worst, float(excess))
+                if i == 0:
+                    n += c.numel()
+                    n_chunks += s.numel()
+            red, res = compressed_psum_grads(grads, res, group)
+            sum_g = grads if sum_g is None else tree_map(
+                torch.add, sum_g, grads)
+            sum_tx = red if sum_tx is None else tree_map(
+                torch.add, sum_tx, red)
+    if worst > 0:
+        fail(f"dist (c): an element's quantization error exceeds scale/2 "
+             f"by {worst!r}")
+    with torch.no_grad():
+        tele = max(rel_err(tx + r, g) for tx, r, g in zip(
+            tree_leaves(sum_tx), tree_leaves(res), tree_leaves(sum_g)))
+    if not tele <= DIST_C_TOL:
+        fail(f"dist (c): the error feedback does not telescope: rel "
+             f"{tele!r} > {DIST_C_TOL}")
+    wire, full = n_chunks * CHUNK + 4 * n_chunks, 4 * n
+    print(f"dist (c) compressed_psum_grads on the real grads of "
+          f"{DIST_C_STEPS} batches (qwen3-0.6b full width, {n} grad "
+          f"elements): every |Q(g) - g| <= scale/2; sum(tx) + residual vs "
+          f"sum(g) over {DIST_C_STEPS} steps rel {tele!r} (limit "
+          f"{DIST_C_TOL}); payload {wire} B (int8 + f32 scale per {CHUNK}) "
+          f"against {full} B f32 = {full / wire:.3f}x smaller (the "
+          f"all-reduce itself carries the dequantized f32 sum, as the "
+          f"reference's psum does)")
+    return dict(telescope_rel=tele, payload_bytes=wire, f32_bytes=full)
+
+
+def dist_freq_shmap(torch, dev, mesh):
+    """Part (d): ``impl="freq_shmap"`` against ``freq`` at qwen3-0.6b's
+    projection shapes under the ambient mesh; bit-identical."""
+    from repro_torch.core import circulant as circ
+    from repro_torch.dist.sharding import get_ambient_mesh
+
+    if get_ambient_mesh() is not mesh:
+        fail("dist (d): the train step did not set the ambient mesh")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for name, p, q, _ in SLICE_SHAPES:
+        x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, q * K, generator=gen,
+                        device=dev)
+        w = torch.randn(p, q, K, generator=gen, device=dev) * 0.03
+        a = circ.block_circulant_apply(x, w, impl="freq_shmap")
+        b = circ.block_circulant_apply(x, w, impl="freq")
+        if not torch.equal(a, b):
+            fail(f"dist (d): freq_shmap != freq at {name} ({p}, {q}, {K})")
+    print(f"dist (d) freq_shmap == freq bit for bit at "
+          f"{[(n, p, q, K) for n, p, q, _ in SLICE_SHAPES]} over "
+          f"{TRAIN_BATCH * TRAIN_SEQ} rows under the mesh")
+
+
+def dist_driver(torch, kernel, dev, mesh, tmp):
+    """Part (e): ``TrainDriver(mesh=, state_shardings=)`` on a 2-layer
+    full-width cut through a fault before step DIST_E_FAIL_AT, against an
+    uninterrupted run on the same mesh; bit-identical."""
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.ft.driver import FaultInjector, TrainDriver
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, tree_leaves
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = cut_depth(dataclasses.replace(
+        CONFIG, swm=SWMConfig(block_size=128, impl="pallas")), DIST_E_LAYERS)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=2)
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data.batch_np(i)["tokens"]).to(
+            dev)}
+
+    runs = {}
+    for name, every, faults in (
+            ("resumed", 2, FaultInjector(fail_at=(DIST_E_FAIL_AT,))),
+            ("clean", DIST_E_STEPS + 1, None)):
+        tcfg = TrainConfig(warmup_steps=1, checkpoint_every=every,
+                           checkpoint_dir=str(Path(tmp) / name))
+        model = build_model(cfg, device=dev)
+        step = make_train_step(model, cfg, tcfg, mesh=mesh)
+        shardings = step.data_parallel.state_shardings
+        state = init_train_state(init_params(model.specs(), seed=0,
+                                             device=dev), tcfg,
+                                 opt_shardings=shardings["opt"], mesh=mesh)
+        drv = TrainDriver(step, tcfg, batch, state_shardings=shardings,
+                          mesh=mesh, fault_injector=faults)
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        t = time.perf_counter()
+        state = drv.run(state, n_steps=DIST_E_STEPS)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            leaves=[x.detach().clone() for part in ("params", "opt")
+                    for x in tree_leaves(state[part])],
+            restarts=drv.restarts, launches=dict(kernel.LAUNCHES),
+            steps=[m["step"] for m in drv.metrics_log],
+            wall=time.perf_counter() - t)
+        del model, state, step, drv
+    a, b = runs["resumed"], runs["clean"]
+    identical = all(torch.equal(x, y) for x, y in zip(a["leaves"],
+                                                      b["leaves"]))
+    if a["restarts"] != 1 or b["restarts"] != 0 or not identical:
+        fail(f"dist (e): restarts {a['restarts']}/{b['restarts']}, resumed "
+             f"vs uninterrupted bit-identical: {identical}")
+    print(f"dist (e) TrainDriver(mesh=, state_shardings=) on qwen3-0.6b cut "
+          f"to {DIST_E_LAYERS} layers at full width, fault before step "
+          f"{DIST_E_FAIL_AT}, checkpoints every 2: steps run {a['steps']}, "
+          f"1 restart, bit-identical to an uninterrupted run (params and "
+          f"moments); launches {a['launches']} resumed, {b['launches']} "
+          f"clean; wall {a['wall']:.2f} s vs {b['wall']:.2f} s")
+    return dict(launches={k: a["launches"][k] + b["launches"][k]
+                          for k in a["launches"]},
+                steps=a["steps"], identical=identical)
+
+
+def dist_analytic(train_busy, decode_busy, decode_ms, train_ms):
+    """Part (f): ``cell_model(chips=1, dp=1, tp=1)`` and the roofline's
+    compute and memory times with the card's constants, for the serve
+    phase's decode step (4 rows against a 128-row cache) and the train
+    phase's step, beside the busy ms those phases measured."""
+    from repro_torch.configs.base import SWMConfig, ShapeConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.launch.analytic import cell_model
+    from repro_torch.launch.roofline import HBM, PEAK
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    out = {}
+    for name, shape, busy, wall in (
+            ("decode", ShapeConfig("serve decode", 128, 4, "decode"),
+             decode_busy, decode_ms),
+            ("train", ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             train_busy, train_ms)):
+        a = cell_model(cfg, shape, chips=1, dp=1, tp=1)
+        tc, tm = a["a_flops_per_chip"] / PEAK, a["a_bytes_per_chip"] / HBM
+        out[name] = dict(flops=a["a_flops"], bytes=a["a_bytes"],
+                         compute_ms=tc * 1e3, memory_ms=tm * 1e3,
+                         busy_ms=busy, wall_ms=wall)
+        busy_txt = "not measured" if busy is None else f"{busy:.3f} ms"
+        print(f"dist (f) analytic {name} step (qwen3-0.6b, "
+              f"{shape.global_batch} x {shape.seq_len}, chips=1): "
+              f"{a['a_flops']:.6e} FLOP, {a['a_bytes']:.6e} B -> compute "
+              f"{tc * 1e3:.4f} ms at {PEAK:.3g} FLOP/s, memory "
+              f"{tm * 1e3:.4f} ms at {HBM:.3g} B/s; measured device busy "
+              f"{busy_txt}, wall {wall:.2f} ms ({CARD[0]})")
+    return out
+
+
+def phase_dist(torch, kernel, dev, train_busy, decode_busy, decode_ms,
+               train_ms):
+    """The distribution and measurement layers on the card, parts (a)-(f)
+    (module docstring); (b)'s two ranks run beside (c)-(e). Returns
+    (report row, launches, bc_matmul row counts)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import set_ambient_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        mesh = make_local_mesh()
+        a = dist_mesh_step(torch, kernel, dev, mesh)
+        procs, q = dist_spawn()
+        c = dist_compress(torch, dev, mesh)
+        dist_freq_shmap(torch, dev, mesh)
+        e = dist_driver(torch, kernel, dev, mesh, tmp)
+        b = dist_join(procs, q)
+        f = dist_analytic(train_busy, decode_busy, decode_ms, train_ms)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        set_ambient_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    secs = time.perf_counter() - t_phase
+    print(f"dist phase: {secs:.1f}s")
+    launches = {k: a["launches"][k] + e["launches"][k]
+                for k in a["launches"]}
+    row = dict(mesh_step=a, compress=c, driver=e, two_ranks=b, analytic=f,
+               seconds=secs)
+    return row, launches, {b[0]["rows"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4400,19 +4894,21 @@ def main() -> int:
 
     (cfg, engine, params, reqs, serve_launches, step_ms, serve_rows,
      serve_outs) = phase_serve(torch, dev)
-    phase_profile(torch, engine, reqs, step_ms)
+    decode_busy = phase_profile(torch, engine, reqs, step_ms)
     resilient, resilient_rows = phase_serve_resilient(torch, kernel, dev)
     durable, durable_rows = phase_durable(torch, kernel, dev)
     tier, tier_rows = phase_serve_tier(torch, kernel, dev, cfg, params,
                                        reqs, serve_outs)
     train_cfg, train_launches, train_ms, train_rows, train_busy = \
         phase_train(torch, dev)
+    dist_row, dist_launches, dist_rows = phase_dist(
+        torch, kernel, dev, train_busy, decode_busy, step_ms, train_ms)
     max_abs = phase_kernels(
         torch, kernel, quant, dev,
         sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows
-               | durable_rows | tier_rows))
+               | durable_rows | tier_rows | dist_rows))
     dw_abs = phase_dw(torch, kernel, dev,
-                      sorted({512, train_rows, *DW_EXTRA_ROWS}))
+                      sorted({512, train_rows, *DW_EXTRA_ROWS} | dist_rows))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
     phase_cpu_vs_card(torch, cfg, engine, reqs[0])
     train_step_card_vs_cpu(torch, train_cfg, dev, "qwen3-0.6b")
@@ -4526,6 +5022,7 @@ def main() -> int:
                      + durable["launches"]["bc_matmul"]
                      + tier["launches"]
                      + train_launches["bc_matmul"]
+                     + dist_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
@@ -4538,6 +5035,7 @@ def main() -> int:
                              "durable": durable["launches"]["bc_matmul"],
                              "serve_tier": tier["launches"],
                              "train": train_launches["bc_matmul"],
+                             "dist": dist_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
                              "rwkv": hybrid_launches["rwkv6-7b"],
@@ -4563,12 +5061,14 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
-        "launches": (train_launches["bc_dw"] + paper_launches["bc_dw"]
+        "launches": (train_launches["bc_dw"] + dist_launches["bc_dw"]
+                     + paper_launches["bc_dw"]
                      + durable["launches"]["bc_dw"]
                      + example_launches["bc_dw"]
                      + sum(v["bc_dw"] for v in tf_launches.values())
                      + remat_launches["bc_dw"]),
         "launches_by_path": {"train": train_launches["bc_dw"],
+                             "dist": dist_launches["bc_dw"],
                              "durable": durable["launches"]["bc_dw"],
                              "paper": paper_launches["bc_dw"],
                              "examples": example_launches["bc_dw"],
@@ -4593,7 +5093,7 @@ def main() -> int:
         "examples": example_rows, "train_family": tf_rows,
         "scan_remat": remat_rows, "dft": dft_row,
         "serve_resilient": resilient, "durable": durable,
-        "serve_tier": tier}
+        "serve_tier": tier, "dist": dist_row}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,9 @@ class SWMConfig:
     impl: 'paper' | 'freq' | 'dft' | 'pallas' (see core.circulant). In
       the port 'pallas' names the hand-written CUDA kernel path, which
       replaces the reference's Pallas TPU kernel; 'dft' runs the transforms
-      as dense matmuls in stock torch ops. 'freq_shmap' (transforms sharded
-      over a device mesh) waits for the distribution layer.
+      as dense matmuls in stock torch ops. 'freq_shmap' is 'freq' on the
+      rank's own batch rows (the reference shards the transforms over the
+      mesh's data axes; each data-parallel rank here holds only its rows).
     karatsuba: the 'dft' impl's complex contraction in 3 real einsums
       instead of 4; other impls ignore it.
     targets: which projection families are compressed.

@@ -380,9 +380,13 @@ def block_circulant_apply(x: torch.Tensor, w: torch.Tensor, *,
 
         return bc_ops.block_circulant_matmul(x, w)
     if impl == "freq_shmap":
-        raise NotImplementedError(
-            "impl 'freq_shmap' shards the transforms over a device mesh; it "
-            "belongs to the distribution layer, which is not ported yet")
+        # the reference shard_maps the activation transforms over the
+        # ambient mesh's data axes; under the port's eager data
+        # parallelism each rank already holds only its batch rows, so the
+        # transforms are the freq path on this rank's rows
+        lead = x.shape[:-1]
+        y = block_circulant_matvec_freq(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*lead, y.shape[-1])
     raise ValueError(f"unknown impl {impl!r}")
 
 

@@ -77,10 +77,13 @@ class CirculantConv2D(nn.Module):
             # its frozen rfft; "conv_taps" stores it in the (p, r²·q, K)
             # im2col layout
             w = ParamSpec((r * r, P // k, C // k, k), self.dtype, scale=std,
-                          tags=("circulant", "conv_taps"))
+                          tags=("circulant", "conv_taps"),
+                          axes=(None, None, None, None))
         else:
-            w = ParamSpec((r * r, C, P), self.dtype, scale=std)
-        return {"w": w, "b": ParamSpec((P,), "float32", init="zeros")}
+            w = ParamSpec((r * r, C, P), self.dtype, scale=std,
+                          axes=(None, None, None))
+        return {"w": w, "b": ParamSpec((P,), "float32", init="zeros",
+                                       axes=(None,))}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r, C, P, k = self.ksize, self.in_ch, self.out_ch, self.k

@@ -64,9 +64,11 @@ class SWMLSTM(nn.Module):
         for g in _GATES:
             s[f"W{g}x"] = self._modules[f"W{g}x"].specs()
             s[f"W{g}r"] = self._modules[f"W{g}r"].specs()
-            s[f"b{g}"] = ParamSpec((self.d_cell,), "float32", init="zeros")
+            s[f"b{g}"] = ParamSpec((self.d_cell,), "float32", init="zeros",
+                                   axes=(None,))
         for g in ("i", "f", "o"):          # diagonal peepholes
-            s[f"W{g}c"] = ParamSpec((self.d_cell,), "float32", init="zeros")
+            s[f"W{g}c"] = ParamSpec((self.d_cell,), "float32", init="zeros",
+                                    axes=(None,))
         s["Wym"] = self._modules["Wym"].specs()
         return s
 

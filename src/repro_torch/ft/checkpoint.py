@@ -22,8 +22,10 @@ and read back as ``torch.bfloat16``.
   where ``Tensor.cpu()`` would alias the live tensor that the next train
   step updates in place), then serializes on a background thread.
 
-The reference restores onto a mesh (``shardings=``/``mesh=``); the port
-has no ``dist`` layer yet and refuses both.
+``restore_checkpoint(shardings=, mesh=)`` is elastic restore: it reads a
+checkpoint written from any mesh and returns each leaf as this rank's
+shard on the current one (``dist.sharding.local_slices``), reading only
+the rows of that shard from each file (memory-mapped).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import local_slices
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "available_steps", "AsyncCheckpointer"]
@@ -159,28 +162,45 @@ def restore_checkpoint(ckpt_dir: str, step: int, shardings=None,
     manifest's dtype: a bfloat16 leaf comes back as ``torch.bfloat16``, a
     0-d leaf as a 0-d tensor. The shards of a leaf are reassembled by
     their index, so checkpoints the reference wrote from any number of
-    shards load."""
-    if shardings is not None or mesh is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=..., mesh=...) reshards onto a "
-            "device mesh, which needs the port's dist layer "
-            "(repro.dist.sharding); it is not ported yet")
+    shards load.
+
+    With ``shardings`` (a tree of per-dim specs keyed like the state, such
+    as the data-parallel step's ``state_shardings``; a missing subtree
+    means replicated) and ``mesh``, each leaf comes back as this rank's
+    shard on ``mesh``, whatever mesh wrote the checkpoint."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore_checkpoint takes shardings= and mesh= "
+                         "together")
     dev = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
+    specs = dict(_flatten(shardings)) if shardings else {}
 
     flat = {}
     for path, info in manifest["leaves"].items():
         shape = tuple(info["shape"])
         name = info["dtype"]
-        full = np.zeros(shape, dtype=np.float32 if name == "bfloat16"
-                        else np.dtype(name))
+        want = tuple((0, n) for n in shape)
+        if mesh is not None and specs.get(path):
+            want = local_slices(shape, specs[path], mesh)
+        out = np.zeros(tuple(b - a for a, b in want),
+                       dtype=np.float32 if name == "bfloat16"
+                       else np.dtype(name))
         for sh in info["shards"]:
-            arr = np.load(os.path.join(d, sh["file"]))
-            full[tuple(slice(*s) for s in sh["index"])] = arr
-        flat[path] = torch.from_numpy(full).to(device=dev,
-                                               dtype=torch_dtype(name))
+            # the part of this file inside the wanted block, if any
+            lo = [max(a, s[0]) for (a, _), s in zip(want, sh["index"])]
+            hi = [min(b, s[1]) for (_, b), s in zip(want, sh["index"])]
+            if any(l >= h for l, h in zip(lo, hi)):
+                continue
+            arr = np.load(os.path.join(d, sh["file"]), mmap_mode="r")
+            src = tuple(slice(l - s[0], h - s[0])
+                        for l, h, s in zip(lo, hi, sh["index"]))
+            dst = tuple(slice(l - a, h - a)
+                        for l, h, (a, _) in zip(lo, hi, want))
+            out[dst] = arr[src]
+        flat[path] = torch.from_numpy(out).to(device=dev,
+                                              dtype=torch_dtype(name))
     return _unflatten(flat)
 
 

@@ -15,7 +15,11 @@
   are idempotent because the data pipeline is keyed by step number. The
   port's train step updates the state's tensors in place, and they are
   the model's own buffers, so the restore copies the checkpoint into
-  those tensors instead of handing back a fresh tree.
+  those tensors instead of handing back a fresh tree. On a mesh
+  (``mesh=``, ``state_shardings=``) the sharded leaves (ZeRO-1 moments)
+  are gathered whole for each checkpoint, which rank 0 writes, and a
+  restore reads back this rank's shard of each leaf
+  (``restore_checkpoint(shardings=, mesh=)``).
 """
 
 from __future__ import annotations
@@ -120,6 +124,30 @@ def _load_into(state: dict, restored: dict, path: str = "") -> None:
             state[k] = int(r)
 
 
+def _whole(state, shardings, mesh):
+    """``state`` with every sharded tensor leaf gathered whole (a shard is
+    the full dim over the mesh axes' size, dim by dim)."""
+    from repro_torch.dist.sharding import gather_full
+
+    out = {}
+    for k, v in state.items():
+        spec = shardings.get(k) if isinstance(shardings, dict) else None
+        if isinstance(v, dict):
+            out[k] = _whole(v, spec or {}, mesh)
+        elif isinstance(v, torch.Tensor) and spec:
+            out[k] = gather_full(v, _full_shape(v, spec, mesh), spec, mesh)
+        else:
+            out[k] = v
+    return out
+
+
+def _full_shape(t, spec, mesh):
+    from repro_torch.dist.sharding import axis_size
+
+    return tuple(n * (axis_size(mesh, e) if e is not None else 1)
+                 for n, e in zip(t.shape, spec))
+
+
 class TrainDriver:
     """Checkpointed auto-restart around ``train_step(state, batch)``.
 
@@ -127,18 +155,20 @@ class TrainDriver:
     called after the straggler watchdog escalates, with the state
     checkpointed first. ``metrics_log`` holds one ``{"step", "dt",
     "loss"}`` per executed step, replays after a restart included;
-    ``restarts`` counts the restores. ``state_shardings``/``mesh`` need
-    the port's dist layer and are refused."""
+    ``restarts`` counts the restores. ``state_shardings`` (the per-dim
+    specs of the layout the state is held in: the data-parallel step's
+    ``train_step.data_parallel.state_shardings``) and ``mesh`` go
+    together: checkpoints are written whole by rank 0 and restored as
+    each rank's shard."""
 
     def __init__(self, train_step, tcfg: TrainConfig, data_fn,
                  state_shardings=None, mesh=None,
                  fault_injector: Optional[FaultInjector] = None,
                  on_remesh: Optional[Callable] = None):
-        if state_shardings is not None or mesh is not None:
-            raise NotImplementedError(
-                "TrainDriver(state_shardings=..., mesh=...) restores onto "
-                "a device mesh, which needs the port's dist layer "
-                "(repro.dist.sharding); it is not ported yet")
+        if (state_shardings is None) != (mesh is None):
+            raise ValueError("TrainDriver takes state_shardings= and mesh= "
+                             "together")
+        self.state_shardings, self.mesh = state_shardings, mesh
         self.train_step = train_step
         self.tcfg = tcfg
         self.data_fn = data_fn                   # step -> batch
@@ -150,12 +180,31 @@ class TrainDriver:
         self.metrics_log = []
 
     # ------------------------------------------------------------------
+    def _rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank() if self.mesh is not None else 0
+
+    def _save(self, step: int, state) -> None:
+        """Checkpoint ``state`` at ``step``: on a mesh its sharded leaves
+        gathered whole (a collective every rank joins) and written by
+        rank 0 only."""
+        if self.mesh is not None:
+            state = _whole(state, self.state_shardings, self.mesh)
+        if self._rank() == 0:
+            self.ckpt.save(step, state)
+
     def _restore(self, state):
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()     # rank 0's checkpoint is on disk
         step = latest_step(self.tcfg.checkpoint_dir)
         if step is None:
             return state, 0
         restored = restore_checkpoint(self.tcfg.checkpoint_dir, step,
-                                      device="cpu")
+                                      shardings=self.state_shardings,
+                                      mesh=self.mesh, device="cpu")
         _load_into(state, restored)
         return state, int(step)
 
@@ -174,14 +223,14 @@ class TrainDriver:
                 verdict = self.watchdog.observe(step, dt)
                 if verdict == "escalate" and self.on_remesh is not None:
                     self.ckpt.wait()
-                    self.ckpt.save(step + 1, state)
+                    self._save(step + 1, state)
                     self.ckpt.wait()
                     state = self.on_remesh(state)
                 self.metrics_log.append(
                     {"step": step, "dt": dt, "loss": loss})
                 step += 1
                 if step % self.tcfg.checkpoint_every == 0:
-                    self.ckpt.save(step, state)
+                    self._save(step, state)
             except RuntimeError:
                 self.restarts += 1
                 if self.restarts > max_restarts:

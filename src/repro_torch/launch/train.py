@@ -24,8 +24,16 @@ through the grouped kernels on the kernel path) and paligemma-3b trains
 text-only; an enc-dec arch stops at its first step, whose batch has no
 ``frames``, as in the reference.
 
-The reference launcher's mesh, sharded state and host-sharded batches
-wait for the port's ``dist`` layer.
+``--mesh local`` (the default) trains data-parallel on
+``launch.mesh.make_local_mesh``: a (world, 1) mesh over the process group
+that ``torchrun`` sets up (``WORLD_SIZE`` and friends in the environment),
+or a one-rank group of its own (``nccl`` on the card, ``gloo`` with
+``--device cpu``), removed again when the run ends. Each rank takes its
+shard of every global batch and holds its ZeRO-1 share of the moments.
+``--mesh single`` / ``multi`` name the reference's production meshes,
+(data=16, model=16) and (pod=2, data=16, model=16); they need a world of
+256 or 512 ranks and then stop at the train step's refusal of tensor
+parallelism, which the port does not run.
 """
 
 from __future__ import annotations
@@ -35,12 +43,14 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, TrainConfig
 from repro_torch.configs.registry import ARCHS, get_config, get_smoke
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.ft.driver import TrainDriver
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.train.loop import init_train_state, make_train_step
@@ -62,12 +72,42 @@ def main(argv=None):
                     default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    ap.add_argument("--mesh", default="local",
+                    choices=["local", "single", "multi"])
     args = ap.parse_args(argv)
     arch = args.arch or args.model
     if not arch:
         ap.error("--arch (or --model) is required")
 
     dev = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    if own_group and "WORLD_SIZE" in os.environ:       # torchrun
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        return _run(args, arch, dev)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh(kind: str, dev):
+    if kind == "local":
+        return make_local_mesh(device=dev.type)
+    prod = make_production_mesh(multi_pod=kind == "multi")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != prod.size:
+        raise SystemExit(
+            f"--mesh {kind} is the reference's production mesh "
+            f"{dict(prod.shape)} (axes {prod.axis_names}) over "
+            f"{prod.size} ranks; this run has a world of {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(dev.type, tuple(prod.shape[a]
+                                            for a in prod.axis_names),
+                            mesh_dim_names=prod.axis_names)
+
+
+def _run(args, arch, dev):
     cfg = get_smoke(arch) if args.smoke else get_config(arch)
     shape = SHAPES["train_4k"]
     seq = args.seq or (64 if args.smoke else shape.seq_len)
@@ -78,10 +118,13 @@ def main(argv=None):
                        checkpoint_dir=args.ckpt_dir,
                        z_loss=0.0 if args.smoke else 1e-4)
 
+    mesh = _mesh(args.mesh, dev)
     model = build_model(cfg, device=dev)
     params = init_params(model.specs(), tcfg.seed, device=dev)
-    state = init_train_state(params, tcfg, cfg.optimizer)
-    step_fn = make_train_step(model, cfg, tcfg)
+    step_fn = make_train_step(model, cfg, tcfg, mesh=mesh)
+    shardings = step_fn.data_parallel.state_shardings
+    state = init_train_state(params, tcfg, cfg.optimizer,
+                             opt_shardings=shardings["opt"], mesh=mesh)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
                        seed=tcfg.seed)
 
@@ -89,7 +132,8 @@ def main(argv=None):
         return {"tokens": torch.from_numpy(
             data.batch_np(step)["tokens"]).to(dev)}
 
-    driver = TrainDriver(step_fn, tcfg, data_fn)
+    driver = TrainDriver(step_fn, tcfg, data_fn, state_shardings=shardings,
+                         mesh=mesh)
     state = driver.run(state, n_steps=args.steps)
     for m in driver.metrics_log[-5:]:
         print(f"step {m['step']:5d} loss {m['loss']:.4f} "

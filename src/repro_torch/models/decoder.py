@@ -159,7 +159,9 @@ class HybridDecoderLM(nn.Module):
             # family "head" is not a circulant target: a dense (d, V) table
             self.add_module("lm_head", Linear(cfg.d_model, cfg.vocab,
                                               family="head", swm=cfg.swm,
-                                              dtype=cfg.param_dtype))
+                                              dtype=cfg.param_dtype,
+                                              in_axis="embed",
+                                              out_axis="vocab"))
         self.add_module("layers", nn.ModuleList(
             DecoderLayer(cfg, lspec) for lspec in cfg.layer_specs()))
 

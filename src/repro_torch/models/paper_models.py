@@ -67,7 +67,7 @@ class SWMMLP(nn.Module):
         for i, lin in enumerate(self._layers()):
             s[f"fc{i}"] = lin.specs()
             s[f"b{i}"] = ParamSpec((self.dims[i + 1],), "float32",
-                                   init="zeros")
+                                   init="zeros", axes=(None,))
         return s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +138,7 @@ class SWMCNN(nn.Module):
         for i, lin in enumerate(self._fcs()):
             s[f"fc{i}"] = lin.specs()
             s[f"fb{i}"] = ParamSpec((self.fc_dims[i + 1],), "float32",
-                                    init="zeros")
+                                    init="zeros", axes=(None,))
         return s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -193,7 +193,8 @@ class SWMLSTMASR(nn.Module):
         s = {f"lstm{i}": self._modules[f"lstm{i}"].specs()
              for i in range(self.n_layers)}
         s["out"] = self._modules["out"].specs()
-        s["out_b"] = ParamSpec((self.n_phones,), "float32", init="zeros")
+        s["out_b"] = ParamSpec((self.n_phones,), "float32", init="zeros",
+                               axes=(None,))
         return s
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:

@@ -149,14 +149,18 @@ class Attention(nn.Module):
         self.rope_theta = cfg.rope_theta_local if local else cfg.rope_theta
         hd = cfg.head_dim
 
-        def proj(i, o):
+        def proj(i, o, ia, oa):
             return Linear(i, o, family="attn", swm=cfg.swm,
-                          dtype=cfg.param_dtype)
+                          dtype=cfg.param_dtype, in_axis=ia, out_axis=oa)
 
-        self.add_module("q", proj(cfg.d_model, cfg.n_heads * hd))
-        self.add_module("k", proj(cfg.d_model, cfg.n_kv_heads * hd))
-        self.add_module("v", proj(cfg.d_model, cfg.n_kv_heads * hd))
-        self.add_module("o", proj(cfg.n_heads * hd, cfg.d_model))
+        self.add_module("q", proj(cfg.d_model, cfg.n_heads * hd, "embed",
+                                  "heads"))
+        self.add_module("k", proj(cfg.d_model, cfg.n_kv_heads * hd, "embed",
+                                  "kv_heads"))
+        self.add_module("v", proj(cfg.d_model, cfg.n_kv_heads * hd, "embed",
+                                  "kv_heads"))
+        self.add_module("o", proj(cfg.n_heads * hd, cfg.d_model, "heads",
+                                  "embed"))
         if cfg.qk_norm:
             self.add_module("q_norm", RMSNorm(hd))
             self.add_module("k_norm", RMSNorm(hd))

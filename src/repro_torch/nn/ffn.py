@@ -32,9 +32,11 @@ class SwiGLU(nn.Module):
         super().__init__()
         kw = dict(family=family, swm=swm, dtype=dtype,
                   expert_dims=expert_dims)
-        self.add_module("wi", Linear(d_model, d_ff, **kw))
-        self.add_module("wu", Linear(d_model, d_ff, **kw))
-        self.add_module("wo", Linear(d_ff, d_model, **kw))
+        up = dict(kw, in_axis="embed", out_axis="mlp")
+        self.add_module("wi", Linear(d_model, d_ff, **up))
+        self.add_module("wu", Linear(d_model, d_ff, **up))
+        self.add_module("wo", Linear(d_ff, d_model, in_axis="mlp",
+                                     out_axis="embed", **kw))
 
     def specs(self):
         return {n: self._modules[n].specs() for n in ("wi", "wu", "wo")}
@@ -62,8 +64,10 @@ class MLP(nn.Module):
                  dtype: str = "bfloat16"):
         super().__init__()
         kw = dict(family=family, swm=swm, dtype=dtype)
-        self.add_module("wi", Linear(d_model, d_ff, **kw))
-        self.add_module("wo", Linear(d_ff, d_model, **kw))
+        self.add_module("wi", Linear(d_model, d_ff, in_axis="embed",
+                                     out_axis="mlp", **kw))
+        self.add_module("wo", Linear(d_ff, d_model, in_axis="mlp",
+                                     out_axis="embed", **kw))
 
     def specs(self):
         return {n: self._modules[n].specs() for n in ("wi", "wo")}

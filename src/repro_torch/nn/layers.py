@@ -21,7 +21,7 @@ class RMSNorm(nn.Module):
 
     def specs(self):
         return {"scale": ParamSpec((self.dim,), torch.float32,
-                                   init="zeros")}
+                                   init="zeros", axes=(None,))}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
@@ -38,7 +38,7 @@ class Embedding(nn.Module):
 
     def specs(self):
         return {"table": ParamSpec((self.vocab, self.dim), self.dtype,
-                                   scale=1.0)}
+                                   scale=1.0, axes=("vocab", "embed"))}
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the table, scaled by √dim in the table's dtype."""

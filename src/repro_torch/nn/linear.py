@@ -33,13 +33,20 @@ class Linear(nn.Module):
 
     family: 'attn' | 'ffn' | 'expert' | 'router' | 'head' | ... — decides
     SWM applicability. expert_dims: leading expert axes, () or (E,).
+    in_axis/out_axis: logical sharding axis names. A circulant table
+    ``(p, q, k)`` carries them on its (p, q) dims, as the dense kernel
+    ``(in, out)`` does, so the sharding rules treat both alike; expert axes
+    are ``"experts"``.
     """
 
     def __init__(self, in_dim: int, out_dim: int, *, family: str = "ffn",
                  swm: Optional[SWMConfig] = None, dtype: str = "bfloat16",
-                 expert_dims: Tuple[int, ...] = ()):
+                 expert_dims: Tuple[int, ...] = (),
+                 in_axis: Optional[str] = None,
+                 out_axis: Optional[str] = None):
         super().__init__()
         self.in_dim, self.out_dim = int(in_dim), int(out_dim)
+        self.in_axis, self.out_axis = in_axis, out_axis
         self.family = family
         self.swm = swm if swm is not None else SWMConfig()
         self.dtype = dtype
@@ -72,15 +79,19 @@ class Linear(nn.Module):
     def specs(self):
         k = self.block_size
         lead = self.expert_dims
+        lead_axes = ("experts",) * len(lead)
         # variance-preserving init: var(w) = 1/in_dim on both layouts
         std = self.in_dim ** -0.5
         if k > 1:
             p, q = self.out_dim // k, self.in_dim // k
             w = ParamSpec(lead + (p, q, k), self.dtype, scale=std,
-                          tags=("circulant",))
+                          tags=("circulant",),
+                          axes=lead_axes + (self.out_axis, self.in_axis,
+                                            None))
         else:
             w = ParamSpec(lead + (self.in_dim, self.out_dim), self.dtype,
-                          scale=std)
+                          scale=std,
+                          axes=lead_axes + (self.in_axis, self.out_axis))
         return {"w": w}
 
     def frozen_freq(self, params=None):

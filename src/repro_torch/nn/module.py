@@ -31,8 +31,9 @@ from torch import nn
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
 
-__all__ = ["ParamSpec", "ParamDict", "init_params", "param_count",
-           "module_tree", "load_tree", "tree_leaves", "tree_map"]
+__all__ = ["ParamSpec", "ParamDict", "init_params", "map_specs",
+           "param_count", "param_bytes", "module_tree", "load_tree",
+           "tree_leaves", "tree_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +46,11 @@ class ParamSpec:
     rule, ``log(1..d_state)`` broadcast over the shape's last axis (the
     reference's ``A_log`` initializer); it takes no randomness, and a random
     ``A_log`` lets the state diverge. tags: markers read by tooling
-    ("circulant" lets ``plan.freeze_params`` find SWM tables).
+    ("circulant" lets ``plan.freeze_params`` find SWM tables). axes: the
+    logical axis name of each dim (``None`` = never sharded), read by the
+    rule table in :mod:`repro_torch.dist.sharding`; ``()`` declares none.
+    The reference's leaves carry a leading ``"layers"`` axis in a repeated
+    group; the port's per-layer leaves do not.
     """
 
     shape: tuple
@@ -53,11 +58,16 @@ class ParamSpec:
     init: str = "normal"
     scale: float = 0.02
     tags: tuple = ()
+    axes: tuple = ()
 
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
         object.__setattr__(self, "dtype", torch_dtype(self.dtype))
         object.__setattr__(self, "tags", tuple(self.tags))
+        object.__setattr__(self, "axes", tuple(self.axes))
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} must match shape "
+                             f"{self.shape} rank")
 
     def materialize(self, gen: torch.Generator, device) -> torch.Tensor:
         if self.init == "zeros":
@@ -93,7 +103,7 @@ def _walk(tree, path=()):
                     f"{type(tree)} at {path}")
 
 
-def _map_specs(fn: Callable, tree):
+def map_specs(fn: Callable, tree):
     """Structure-preserving map over a spec tree; fn(path, spec) -> leaf."""
     def rec(t, path):
         if isinstance(t, ParamSpec):
@@ -126,7 +136,7 @@ def init_params(specs, seed: int = 0, device="cuda"):
         gen.manual_seed(_path_seed(seed, path))
         return spec.materialize(gen, dev)
 
-    return _map_specs(make, specs)
+    return map_specs(make, specs)
 
 
 def tree_leaves(tree) -> list:
@@ -147,6 +157,12 @@ def tree_map(fn: Callable, tree, *rest):
 
 def param_count(specs) -> int:
     return sum(int(np.prod(s.shape)) for _, s in _walk(specs))
+
+
+def param_bytes(specs) -> int:
+    """Storage bytes of a spec tree (each leaf at its dtype's width)."""
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize
+               for _, s in _walk(specs))
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,8 @@ class MoE(nn.Module):
         self.n_experts, self.top_k = int(n_experts), int(top_k)
         self.capacity_factor = float(capacity_factor)
         self.add_module("router", Linear(d_model, n_experts, family="router",
-                                         swm=swm, dtype="float32"))
+                                         swm=swm, dtype="float32",
+                                         in_axis="embed"))
         self.add_module("experts", SwiGLU(d_model, d_ff, swm=swm,
                                           family="expert", dtype=dtype,
                                           expert_dims=(n_experts,)))

@@ -73,8 +73,11 @@ class RWKV6TimeMix(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         kw = dict(swm=cfg.swm, dtype=cfg.param_dtype)
-        for name in ("r", "k", "v", "g", "o"):
-            self.add_module(name, Linear(d, d, family="attn", **kw))
+        for name in ("r", "k", "v", "g"):
+            self.add_module(name, Linear(d, d, family="attn", in_axis="embed",
+                                         out_axis="heads", **kw))
+        self.add_module("o", Linear(d, d, family="attn", in_axis="heads",
+                                    out_axis="embed", **kw))
 
     @property
     def n_heads(self) -> int:
@@ -86,16 +89,24 @@ class RWKV6TimeMix(nn.Module):
         dl, ml = cfg.rwkv_decay_lora, cfg.rwkv_mix_lora
         f32 = torch.float32
         out = {
-            "mu_x": ParamSpec((d,), f32, init="uniform", scale=0.5),
-            "mu": ParamSpec((5, d), f32, init="uniform", scale=0.5),
-            "mix_A": ParamSpec((d, 5 * ml), f32, scale=d ** -0.5),
-            "mix_B": ParamSpec((5, ml, d), f32, scale=ml ** -0.5),
-            "w0": ParamSpec((d,), f32, init="uniform", scale=1.0),
-            "w_A": ParamSpec((d, dl), f32, scale=d ** -0.5),
-            "w_B": ParamSpec((dl, d), f32, scale=dl ** -0.5),
-            "u": ParamSpec((H, hd), f32, init="uniform", scale=0.5),
-            "ln_scale": ParamSpec((d,), f32, init="ones"),
-            "ln_bias": ParamSpec((d,), f32, init="zeros"),
+            "mu_x": ParamSpec((d,), f32, init="uniform", scale=0.5,
+                              axes=(None,)),
+            "mu": ParamSpec((5, d), f32, init="uniform", scale=0.5,
+                            axes=(None, None)),
+            "mix_A": ParamSpec((d, 5 * ml), f32, scale=d ** -0.5,
+                               axes=(None, None)),
+            "mix_B": ParamSpec((5, ml, d), f32, scale=ml ** -0.5,
+                               axes=(None, None, None)),
+            "w0": ParamSpec((d,), f32, init="uniform", scale=1.0,
+                            axes=(None,)),
+            "w_A": ParamSpec((d, dl), f32, scale=d ** -0.5,
+                             axes=(None, None)),
+            "w_B": ParamSpec((dl, d), f32, scale=dl ** -0.5,
+                             axes=(None, None)),
+            "u": ParamSpec((H, hd), f32, init="uniform", scale=0.5,
+                           axes=("heads", None)),
+            "ln_scale": ParamSpec((d,), f32, init="ones", axes=(None,)),
+            "ln_bias": ParamSpec((d,), f32, init="zeros", axes=(None,)),
         }
         for name in ("r", "k", "v", "g", "o"):
             out[name] = self._modules[name].specs()
@@ -174,15 +185,19 @@ class RWKV6ChannelMix(nn.Module):
         self.cfg = cfg
         d, dff = cfg.d_model, cfg.d_ff
         kw = dict(family="ffn", swm=cfg.swm, dtype=cfg.param_dtype)
-        self.add_module("wk", Linear(d, dff, **kw))
-        self.add_module("wr", Linear(d, d, **kw))
-        self.add_module("wv", Linear(dff, d, **kw))
+        self.add_module("wk", Linear(d, dff, in_axis="embed", out_axis="mlp",
+                                     **kw))
+        self.add_module("wr", Linear(d, d, in_axis="embed", **kw))
+        self.add_module("wv", Linear(dff, d, in_axis="mlp", out_axis="embed",
+                                     **kw))
 
     def specs(self):
         d = self.cfg.d_model
         f32 = torch.float32
-        out = {"mu_k": ParamSpec((d,), f32, init="uniform", scale=0.5),
-               "mu_r": ParamSpec((d,), f32, init="uniform", scale=0.5)}
+        out = {"mu_k": ParamSpec((d,), f32, init="uniform", scale=0.5,
+                                 axes=(None,)),
+               "mu_r": ParamSpec((d,), f32, init="uniform", scale=0.5,
+                                 axes=(None,))}
         for name in ("wk", "wr", "wv"):
             out[name] = self._modules[name].specs()
         return out

@@ -46,12 +46,16 @@ class Mamba(nn.Module):
         di, ds = self.d_inner, cfg.mamba_d_state
         kw = dict(swm=cfg.swm, dtype=cfg.param_dtype)
         self.add_module("in_proj", Linear(cfg.d_model, 2 * di, family="ffn",
+                                          in_axis="embed", out_axis="mlp",
                                           **kw))
         self.add_module("x_proj", Linear(di, self.dt_rank + 2 * ds,
-                                         family="mamba_inner", **kw))
+                                         family="mamba_inner", in_axis="mlp",
+                                         **kw))
         self.add_module("dt_proj", Linear(self.dt_rank, di,
-                                          family="mamba_inner", **kw))
+                                          family="mamba_inner",
+                                          out_axis="mlp", **kw))
         self.add_module("out_proj", Linear(di, cfg.d_model, family="ffn",
+                                           in_axis="mlp", out_axis="embed",
                                            **kw))
 
     @property
@@ -71,13 +75,14 @@ class Mamba(nn.Module):
             "in_proj": m["in_proj"].specs(),
             "x_proj": m["x_proj"].specs(),
             "dt_proj": m["dt_proj"].specs(),
-            "dt_bias": ParamSpec((di,), f32, init="zeros"),
+            "dt_bias": ParamSpec((di,), f32, init="zeros", axes=("mlp",)),
             "out_proj": m["out_proj"].specs(),
             "conv_w": ParamSpec((dc, di), cfg.param_dtype, init="normal",
-                                scale=dc ** -0.5),
-            "conv_b": ParamSpec((di,), f32, init="zeros"),
-            "A_log": ParamSpec((di, ds), f32, init="mamba_a_log"),
-            "D": ParamSpec((di,), f32, init="ones"),
+                                scale=dc ** -0.5, axes=(None, "mlp")),
+            "conv_b": ParamSpec((di,), f32, init="zeros", axes=("mlp",)),
+            "A_log": ParamSpec((di, ds), f32, init="mamba_a_log",
+                               axes=("mlp", None)),
+            "D": ParamSpec((di,), f32, init="ones", axes=("mlp",)),
         }
 
     def _conv(self, x: torch.Tensor, conv_state: Optional[torch.Tensor]):

@@ -23,9 +23,16 @@ Fault-tolerant restarts wrap this step from outside:
 ``ft.driver.TrainDriver`` checkpoints the state and, after a failed step,
 copies the latest checkpoint back into the same tensors.
 
-Not in the port yet, and refused with ``NotImplementedError``: the
-structural audit (``audit_args``, which needs ``analysis/``). The mesh and
-sharding join with the port's ``dist`` layer.
+With ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_local_mesh``)
+the step is data-parallel (:mod:`repro_torch.dist.data_parallel`): each
+rank takes its batch shard, the grads are averaged over the data axes
+with one bucketed all-reduce, and the optimizer moments are held as this
+rank's ZeRO-1 shard. The mesh also becomes the ambient mesh that
+``impl="freq_shmap"`` reads. Refused: a mesh with a ``model`` axis > 1
+(tensor parallelism is not ported); FSDP configs keep their params whole
+on every rank (the numbers are the same). Not in the port yet, and refused
+with ``NotImplementedError``: the structural audit (``audit_args``, which
+needs ``analysis/``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.quant import default_exempt, quantize_tree
+from repro_torch.dist.sharding import local_slices
 from repro_torch.nn.module import load_tree, tree_leaves, tree_map
 from repro_torch.optim.optimizers import (adafactor_init, adafactor_update,
                                           adamw_init, adamw_update,
@@ -135,27 +143,59 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
     return loss_fn
 
 
-def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw"):
+def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw",
+                     opt_shardings=None, mesh=None):
     """``{"params", "opt", "step": 0}``. Every param leaf becomes a leaf
-    tensor that requires grad, in place (the tree keeps its tensors)."""
+    tensor that requires grad, in place (the tree keeps its tensors).
+    With ``opt_shardings`` (the ``"opt"`` subtree of the data-parallel
+    step's ``state_shardings``) and ``mesh``, each moment is made as this
+    rank's shard only."""
     for p in tree_leaves(params):
         if not p.is_leaf:
             raise ValueError("param leaves must be leaf tensors (no grad "
                              "history); detach them first")
         p.requires_grad_(True)
     init = adafactor_init if optimizer == "adafactor" else adamw_init
-    return {"params": params, "opt": init(params, tcfg), "step": 0}
+    if opt_shardings is None:
+        return {"params": params, "opt": init(params, tcfg), "step": 0}
+    # the moments' shapes at no allocation, then zeros of the local shape
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    dev = tree_leaves(params)[0].device
+    opt = {}
+    for key, tree in init(meta, tcfg).items():
+        opt[key] = tree_map(
+            lambda t, spec: torch.zeros(
+                [b - a for a, b in local_slices(t.shape, spec, mesh)],
+                dtype=t.dtype, device=dev), tree, opt_shardings[key])
+    return {"params": params, "opt": opt, "step": 0}
 
 
-def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
+def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                     audit_args=None):
     """``train_step(state, batch) -> (state, metrics)``: grads (averaged
     over ``tcfg.microbatch`` equal slices of the batch when > 1; a batch
     that ``microbatch`` does not divide raises ``ValueError``), global-norm
     clip, then AdamW or Adafactor by ``cfg.optimizer``; the state is
-    updated in place and returned."""
+    updated in place and returned.
+
+    With ``mesh`` the step is data-parallel over its data axes (module
+    docstring); the batch it takes is the global one, the same on every
+    rank, and the state's moments must be this rank's shards, as
+    ``init_train_state(opt_shardings=train_step.data_parallel
+    .state_shardings["opt"], mesh=mesh)`` makes them (whole moments raise
+    ``ValueError``). ``train_step.data_parallel`` is the
+    :class:`~repro_torch.dist.data_parallel.DataParallel` (its
+    ``collectives`` counter included), None without a mesh."""
     _refuse_audit(audit_args)
     loss_fn = make_loss_fn(model, cfg, tcfg)
+    dp = None
+    if mesh is not None:
+        from repro_torch.dist.data_parallel import DataParallel
+        from repro_torch.dist.sharding import set_ambient_mesh
+
+        dp = DataParallel(mesh, model.specs(), cfg, tcfg)
+        set_ambient_mesh(mesh)
 
     def compute_grads(params, batch):
         n = tcfg.microbatch
@@ -189,10 +229,21 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig,
     update = adafactor_update if cfg.optimizer == "adafactor" else adamw_update
 
     def train_step(state, batch):
+        if dp is not None:
+            dp.check_shards(state["opt"])
+            batch = dp.local_batch(batch)
         loss, metrics, grads = compute_grads(state["params"], batch)
+        if dp is not None:
+            grads, loss, metrics = dp.average(grads, loss, metrics)
+        # the norm is taken leaf by leaf, after the average, in the same
+        # order with or without a mesh
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        update(state["params"], grads, state["opt"], state["step"], tcfg)
+        if dp is not None:
+            dp.update(state["params"], grads, state["opt"], state["step"])
+        else:
+            update(state["params"], grads, state["opt"], state["step"], tcfg)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm, **metrics}
 
+    train_step.data_parallel = dp
     return train_step

@@ -20,6 +20,7 @@ from repro.kernels.block_circulant import ops as jops
 from repro_torch.core.quant import quantize_symmetric, symmetric_scales
 from repro_torch.kernels.block_circulant import kernel as tkernel
 from repro_torch.kernels.block_circulant import ops as tops
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -27,6 +27,7 @@ from repro.kernels.block_circulant import ops as jops
 from repro_torch.core.circulant import dft_bases
 from repro_torch.kernels.block_circulant import kernel
 from test_torch_bc_geometry import _fft_forward, _fft_inverse, _rel
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

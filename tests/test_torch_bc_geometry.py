@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.circulant import dft_bases
 from repro_torch.kernels.block_circulant import kernel
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 REL_TOL = 2e-5          # fp32 vs fp32 (tests/test_conformance.py REL_TOL)
 

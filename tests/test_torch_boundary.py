@@ -6,6 +6,7 @@ import ast
 import pathlib
 
 import pytest
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

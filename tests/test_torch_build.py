@@ -6,6 +6,7 @@ a stale library."""
 import shutil
 
 from repro_torch.kernels.block_circulant import kernel
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 
 def _copy_csrc(tmp_path):

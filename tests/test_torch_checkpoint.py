@@ -32,6 +32,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params, module_tree, tree_leaves
 from repro_torch.train.loop import init_train_state, make_train_step
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -144,9 +145,10 @@ def test_tmp_sweep_and_available_steps(tmp_path):
     tck.save_checkpoint(d, 8, {"x": torch.ones(2)})
     assert not os.path.exists(os.path.join(d, "step_00000009.tmp"))
     assert tck.available_steps(d) == [3, 7, 8]
-    with pytest.raises(NotImplementedError, match="dist"):
+    # a mesh restore takes the shardings and the mesh together
+    with pytest.raises(ValueError, match="together"):
         tck.restore_checkpoint(d, 8, shardings={"x": None}, device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
+    with pytest.raises(ValueError, match="together"):
         tdrv.TrainDriver(None, TTrain(checkpoint_dir=d), None, mesh=object())
 
 

@@ -11,6 +11,7 @@ from repro.core import circulant as jcirc
 from repro.core import quant as jquant
 from repro_torch.core import circulant as tcirc
 from repro_torch.core import quant as tquant
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -24,6 +24,7 @@ from repro_torch.nn.module import init_params, tree_leaves
 from repro_torch.train.loop import (init_train_state, make_loss_fn,
                                     value_and_grad)
 from repro_torch.serve.engine import Request, SamplingParams, ServeEngine
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 REL_TOL = 2e-5          # fp32 vs fp32 (tests/test_conformance.py REL_TOL)
 

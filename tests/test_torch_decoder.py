@@ -24,6 +24,7 @@ from repro_torch.kernels.block_circulant import plan as tplan
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.attention import _direct_attention, flash_attention
 from repro_torch.nn.module import load_tree, module_tree
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -52,6 +52,7 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve.runner import (DecoderRunner, EncDecRunner,
                                       make_runner)
 from test_torch_recurrent import _b1_oracle, _layer_states, _rel, _reqs
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -12,6 +12,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch.specs import build_model
 from repro_torch.models.decoder import HybridDecoderLM
 from repro_torch.nn.module import init_params
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 
 @pytest.fixture

@@ -48,6 +48,7 @@ from repro_torch.nn import ffn as tffn
 from repro_torch.nn.module import load_tree
 from repro_torch.train.loop import init_train_state, make_train_step
 from test_torch_decoder_family import fast_jit
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -142,10 +143,12 @@ def test_dft_backward_keeps_only_x_and_w():
 
 
 def test_freq_shmap_names_the_distribution_layer():
+    # freq_shmap is the freq path on this rank's rows (the distribution
+    # layer's eager data parallelism hands each rank only its rows)
     x, w = _inputs(2, 1, 1, 8, seed=5)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        T.block_circulant_apply(torch.from_numpy(x), torch.from_numpy(w),
-                                impl="freq_shmap")
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    assert torch.equal(T.block_circulant_apply(xt, wt, impl="freq_shmap"),
+                       T.block_circulant_apply(xt, wt, impl="freq"))
     with pytest.raises(ValueError, match="unknown impl"):
         T.block_circulant_apply(torch.from_numpy(x), torch.from_numpy(w),
                                 impl="nope")

@@ -61,6 +61,7 @@ from repro_torch.serve.runner import (EncDecRunner, make_runner,
                                       recurrent_mixer_names)
 from test_torch_decoder_family import fast_jit
 from test_torch_recurrent import _rel
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.block_circulant import ops as tops
 from repro_torch.kernels.block_circulant.plan import count_frozen_tables
 from repro_torch.launch.specs import build_model
 from repro_torch.serve import engine as teng
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -28,6 +28,7 @@ from repro.optim.optimizers import adamw_init, adamw_update
 from repro_torch import convert
 from repro_torch.examples import lstm_asr, train_mnist_swm
 from test_torch_decoder_family import fast_jit
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -38,6 +38,7 @@ from repro_torch.models.decoder import HybridDecoderLM, local_attn_cache_len
 from repro_torch.nn import attention as tatt
 from repro_torch.nn.module import load_tree
 from test_torch_decoder_family import fast_jit
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

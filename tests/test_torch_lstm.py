@@ -23,6 +23,7 @@ from repro_torch.core.lstm import SWMLSTM as TLSTM
 from repro_torch.kernels.block_circulant import ops as tops
 from repro_torch.kernels.block_circulant import plan as tplan
 from repro_torch.nn.module import load_tree
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

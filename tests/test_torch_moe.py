@@ -33,6 +33,7 @@ from repro_torch.kernels.block_circulant import ops as tops
 from repro_torch.kernels.block_circulant import plan as tplan
 from repro_torch.nn.module import load_tree, module_tree
 from repro_torch.nn.moe import MoE as TMoE, top_k_lower_index
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

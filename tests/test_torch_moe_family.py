@@ -14,6 +14,7 @@ from test_torch_decoder_family import (  # noqa: F401  (collected here)
     FAMILIES, HERE, _setup, test_bucketed_matches_b1,
     test_convert_round_trip, test_engine_tokens_match_reference,
     test_prefill_and_decode_match_reference)
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 THERE = tuple(f for f in FAMILIES if f not in HERE)
 

@@ -18,6 +18,7 @@ from repro.kernels.block_circulant import ops as jops
 from repro_torch.kernels.block_circulant import kernel as tkernel
 from repro_torch.kernels.block_circulant import ops as tops
 from repro_torch.kernels.block_circulant.ref import block_circulant_matmul_ref
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -42,6 +42,7 @@ from repro_torch.models import paper_models as tpm
 from repro_torch.nn.module import init_params, load_tree
 from repro_torch.nn.module import param_count as tcount
 from repro_torch.train.loop import init_train_state, make_train_step
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -35,6 +35,7 @@ from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.serve import engine as teng
 from repro_torch.serve.runner import make_runner
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

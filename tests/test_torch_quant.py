@@ -13,6 +13,7 @@ import torch
 
 from repro.core import quant as jq
 from repro_torch.core import quant as tq
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

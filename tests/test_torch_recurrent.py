@@ -38,6 +38,7 @@ from repro_torch.nn.module import init_params, load_tree
 from repro_torch.serve import engine as teng
 from repro_torch.serve.runner import (DecoderRunner, RecurrentRunner,
                                       make_runner, recurrent_mixer_names)
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

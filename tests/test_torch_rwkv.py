@@ -24,6 +24,7 @@ from repro_torch.configs.base import SWMConfig as TSWM
 from repro_torch.convert import tree_from_reference
 from repro_torch.nn import rwkv as trwkv
 from repro_torch.nn.module import load_tree
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

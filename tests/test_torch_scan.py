@@ -37,6 +37,7 @@ from repro_torch.nn.ssm import Mamba as TMamba
 from repro_torch.train.loop import (init_train_state, make_loss_fn,
                                     value_and_grad)
 from test_torch_decoder_family import fast_jit
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

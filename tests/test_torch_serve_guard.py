@@ -45,6 +45,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.launch.specs import build_model
 from repro_torch.serve import engine as teng, guard as tguard
 from repro_torch.serve.runner import make_runner
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

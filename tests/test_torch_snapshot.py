@@ -32,6 +32,7 @@ from repro_torch.ft.checkpoint import latest_step
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params
 from repro_torch.serve import engine as teng, guard as tguard
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -23,6 +23,7 @@ from repro_torch.configs.base import SWMConfig as TSWM
 from repro_torch.convert import tree_from_reference
 from repro_torch.nn.module import ParamSpec, init_params, load_tree
 from repro_torch.nn.ssm import Mamba as TMamba, init_mamba_cache as tcache
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

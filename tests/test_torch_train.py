@@ -36,6 +36,7 @@ from repro_torch.train import losses as tlosses
 from repro_torch.train.loop import (init_train_state, make_grad_step,
                                     make_loss_fn, make_train_step,
                                     value_and_grad)
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

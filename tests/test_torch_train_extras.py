@@ -38,6 +38,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.launch.specs import build_model
 from repro_torch.train.loop import init_train_state, make_train_step
 from test_torch_decoder_family import fast_jit
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 jax.config.update("jax_platform_name", "cpu")
 

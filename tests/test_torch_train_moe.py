@@ -17,6 +17,7 @@ import pytest
 from repro_torch.launch import train as tlaunch
 from test_torch_train_families import (  # noqa: F401  (collected here)
     HERE, MOE_ARCHS, _check_train_steps, test_train_steps_match_reference)
+import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
 
 @pytest.fixture(scope="module", params=MOE_ARCHS)
