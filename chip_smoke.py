@@ -38,6 +38,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    roofline's compute and memory ms with the card's constants for the
    decode step and the train step, beside the busy ms phases 2 and 3
    measured;
+3c. the analysis layer (``analysis`` phase, after ``dist``; budget 60 s;
+   its launches counted apart from every other phase's): (a)
+   ``torch.library.opcheck`` on ``repro_torch::bc_matmul``, ``bc_dw`` and
+   ``bc_dw_freq`` on the card at the qkv shape, single and grouped over
+   16 groups; (b) ``prewarm(audit=True)`` on phase 2's engine: its audit
+   captures every bucket once, on a clone of the cache (no violation; 140
+   ``bc_matmul`` ops per forward, read from the captures the audit keeps
+   in ``engine.audit_traces``; the audit's wall ms), then the warm-up;
+   (c) ``make_train_step(audit_args=...)`` on the train cell (batch 8 x
+   seq 256), its default rules on one capture: NoFFT fires at
+   ``freq_weights`` only (the kernel impl's training forward transforms
+   its tables each step, as the reference's does), DenseFallbackDot fires
+   nothing, and the capture the error carries holds 420 ``bc_matmul`` and
+   140 ``bc_dw`` ops (the backward, which runs on autograd's device
+   thread); (d) a planted weight-fft loss behind
+   ``make_grad_step(audit_args=...)`` raises ``StructuralContractError``
+   naming this file's line; (e) ``python -m repro_torch.analysis
+   --all-configs`` on the card (every registry arch at SMOKE, both quantize
+   legs, and the lint: no violation), run in the background beside
+   (a)-(d);
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -127,7 +147,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    function (transforms counted at an FFT's operations), each shape's
    launch geometry and transform path (``bc_dw``: its tile, row splits and
    chunk, beside the first version's time), and the wrapper's host time
-   per call;
+   per call through the registered op, against the wrapper's path before
+   the op in interleaved rounds of the same run (the op may take at most
+   50 / 41.3 of it);
 9. the paper's own models (``paper`` phase), built on the card from seeded
    generators at the paper benchmarks' widths and batches:
    ``SWMMLP((784, 512, 512, 10), 64, quant_bits=12, impl="pallas")`` at
@@ -747,21 +769,86 @@ def phase_times(torch, kernel, dev, cases):
     return rows
 
 
+# the wrapper's host time per call before its launch became a registered
+# op (41.3 us, NVIDIA H100 80GB HBM3, 700 W) and the limit set beside it
+# (50 us): the op may cost at most 50 / 41.3 of that path measured in the
+# same run, so a slower host, which moves both, does not move the check
+HOST_US_BEFORE, HOST_US_LIMIT = 41.3, 50.0
+HOST_ROUNDS = 7
+
+
 def phase_host_time(torch, kernel, dev):
-    """Host cost of the bc_matmul wrapper: enqueue time per call."""
+    """Host cost of the bc_matmul wrapper: enqueue time per call, through
+    the registered op, against the wrapper's path before the op in the
+    same run."""
     from repro_torch.kernels.block_circulant.ops import freq_weights
 
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(4, 8 * K, generator=gen, device=dev).bfloat16()
     wr, wi = freq_weights(torch.randn(32, 8, K, generator=gen, device=dev))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(200):
-        kernel.bc_matmul(x, wr, wi, k=K)
-    host_us = (time.perf_counter() - t) / 200 * 1e6
-    torch.cuda.synchronize()
-    print(f"host time per bc_matmul call (qkv, B=4, enqueue only): "
-          f"{host_us:.1f} us")
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us = (time.perf_counter() - t) / 200 * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def old_launch_on(device, launch, *args):
+        # the launch route before the ops: a device context and a Stream
+        # object around every call
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            return launch(*args, stream)
+
+    def before():
+        # the public wrapper before the ops: its checks, then the launch
+        if "none" not in kernel.ACTIVATIONS or x.device.type != "cuda":
+            raise RuntimeError("not the cuda path")
+        return kernel._bc_matmul_cuda(x, wr, wi, None, None, K, "none")
+
+    def run_before():
+        launch_on, kernel._launch_on = kernel._launch_on, old_launch_on
+        try:
+            return per_call(before)
+        finally:
+            kernel._launch_on = launch_on
+
+    direct = kernel._bc_matmul_cuda
+    # the wrapper as before (one mean over 200 calls), then interleaved
+    # rounds of the parent's path, of the CUDA impl called directly (the
+    # launch without the dispatcher) and of the op; the least of each
+    host_us = per_call(lambda: kernel.bc_matmul(x, wr, wi, k=K))
+    before_us, launch_us, op_us = [], [], []
+    for _ in range(HOST_ROUNDS):
+        before_us.append(run_before())
+        launch_us.append(per_call(
+            lambda: direct(x, wr, wi, None, None, K, "none")))
+        op_us.append(per_call(lambda: kernel.bc_matmul(x, wr, wi, k=K)))
+    least = dict(before=min(before_us), launch=min(launch_us),
+                 op=min(op_us))
+    limit = least["before"] * HOST_US_LIMIT / HOST_US_BEFORE
+    print(f"host time per bc_matmul call (qkv, B=4, enqueue only; "
+          f"{CARD[0]}): {host_us:.1f} us through the op "
+          f"repro_torch::bc_matmul; least of {HOST_ROUNDS} interleaved "
+          f"rounds: {least['op']:.1f} us through the op, "
+          f"{least['before']:.1f} us on the path before the op (device "
+          f"context and Stream object, no dispatcher), {least['launch']:.1f}"
+          f" us for the op's CUDA impl called directly; the op costs "
+          f"{least['op'] - least['before']:+.1f} us against the path before "
+          f"it (limit {limit:.1f} us = {HOST_US_LIMIT} / {HOST_US_BEFORE} of "
+          f"it)")
+    if least["op"] > limit:
+        fail(f"host time through the op {least['op']:.1f} us over "
+             f"{limit:.1f} us ({HOST_US_LIMIT} / {HOST_US_BEFORE} of the "
+             f"path before it, {least['before']:.1f} us)")
+    return dict(host_us_per_call=host_us, host_us_least=least["op"],
+                before_op_host_us=least["before"],
+                launch_only_host_us=least["launch"],
+                dispatcher_us=least["op"] - least["before"],
+                host_us_limit=limit)
 
 
 def phase_dw_times(torch, kernel, dev, B):
@@ -4864,6 +4951,236 @@ def phase_dist(torch, kernel, dev, train_busy, decode_busy, decode_ms,
     return row, launches, {b[0]["rows"]}
 
 
+# ---------------------------------------------------------------------------
+# The analysis layer: registered ops, structural audits, lint
+# ---------------------------------------------------------------------------
+
+# (a)'s shapes: the fused QKV at decode (x (4, 1024) bf16, tables (32, 8,
+# 65)) and its weight adjoint over 512 rows, single and grouped over 16
+# groups (a 16-expert MoE layer's launch)
+ANALYSIS_GROUPS = 16
+ANALYSIS_DW_ROWS = 512
+
+
+def analysis_opcheck(torch, kernel, dev):
+    """(a) ``torch.library.opcheck`` on each op on the card."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    Kf = K // 2 + 1
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    cases = []
+    for lead in ((), (ANALYSIS_GROUPS,)):
+        cases.append(("bc_matmul", (rnd(*lead, 4, 8 * K,
+                                        dtype=torch.bfloat16),
+                                    rnd(*lead, 32, 8, Kf),
+                                    rnd(*lead, 32, 8, Kf),
+                                    rnd(*lead, 32 * K), None, K, "gelu")))
+        for op in ("bc_dw", "bc_dw_freq"):
+            cases.append((op, (rnd(*lead, ANALYSIS_DW_ROWS, 8 * K,
+                                   dtype=torch.bfloat16),
+                               rnd(*lead, ANALYSIS_DW_ROWS, 32 * K,
+                                   dtype=torch.bfloat16), 32, 8, K)))
+    for op, args in cases:
+        res = torch.library.opcheck(kernel.OPS[op], args)
+        if set(res.values()) != {"SUCCESS"}:
+            fail(f"opcheck {op} {tuple(args[0].shape)}: {res}")
+    print(f"analysis (a) opcheck on the card: {len(cases)} cases (bc_matmul, "
+          f"bc_dw, bc_dw_freq at the qkv shape, single and G = "
+          f"{ANALYSIS_GROUPS}): every test SUCCESS")
+    return len(cases)
+
+
+def analysis_serve(torch, engine):
+    """(b) ``prewarm(audit=True)`` on the serve cell's engine: its audit
+    captures every bucket once (no violation, 140 bc_matmul ops per
+    forward, read from the captures the audit keeps), then the warm-up."""
+    from repro_torch.analysis.contracts import launch_counts
+
+    audit = engine.audit
+    audit_ms = []
+
+    def timed_audit(**kw):
+        t = time.perf_counter()
+        try:
+            return audit(**kw)
+        finally:
+            torch.cuda.synchronize()
+            audit_ms.append((time.perf_counter() - t) * 1e3)
+
+    engine.audit = timed_audit          # times the audit inside prewarm
+    try:
+        t = time.perf_counter()
+        n = engine.prewarm(audit=True)
+        torch.cuda.synchronize()
+        prewarm_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        del engine.audit
+    want = engine.max_prefill_variants + engine.max_decode_variants
+    if n != want or len(audit_ms) != 1:
+        fail(f"prewarm(audit=True) warmed {n} shapes, not {want}, after "
+             f"{len(audit_ms)} audits")
+    counts = launch_counts(engine, engine.audit_traces)
+    per_forward = 5 * engine.cfg.n_layers
+    if len(counts) != want or set(counts.values()) != {per_forward}:
+        fail(f"serve audit: bc_matmul ops per bucket {counts} != "
+             f"{per_forward} in each of {want}")
+    print(f"analysis (b) prewarm(audit=True) (qwen3-0.6b full width, 28 "
+          f"layers, bf16, impl=pallas): {len(counts)} buckets audited, 0 "
+          f"violations, {per_forward} bc_matmul ops per forward in each; "
+          f"audit wall {audit_ms[0]!r} ms, prewarm(audit=True) "
+          f"{prewarm_ms!r} ms for {n} shapes ({CARD[0]})")
+    return dict(buckets=len(counts), audit_ms=audit_ms[0],
+                prewarm_audit_ms=prewarm_ms, ops_per_forward=per_forward)
+
+
+def analysis_train(torch, dev):
+    """(c) ``make_train_step(audit_args=...)`` on the train cell, its
+    default rules on one capture: NoFFT fires, at ``freq_weights`` only
+    (the kernel impl's training forward transforms each time-domain
+    table, in both packages); DenseFallbackDot, also a default rule,
+    fires nothing; the capture (carried by the error) holds the
+    backward's bc_dw launches (autograd's device thread reached)."""
+    from repro_torch.analysis.contracts import StructuralContractError
+    from repro_torch.configs.base import SWMConfig, TrainConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(CONFIG, swm=SWMConfig(block_size=128,
+                                                    impl="pallas"))
+    tcfg = TrainConfig()
+    model = build_model(cfg, device=dev)
+    state = init_train_state(init_params(model.specs(), seed=0, device=dev),
+                             tcfg, cfg.optimizer)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       seed=0)
+    batch = {"tokens": torch.from_numpy(data.batch_np(0)["tokens"]).to(dev)}
+    t = time.perf_counter()
+    try:
+        make_train_step(model, cfg, tcfg, audit_args=(state, batch))
+        fail("the kernel impl's default train audit raised nothing")
+    except StructuralContractError as e:
+        torch.cuda.synchronize()
+        audit_ms = (time.perf_counter() - t) * 1e3
+        rules = {v.rule for v in e.violations}
+        where = {(v.where or "").split("/")[-1].split(":")[0]
+                 for v in e.violations}
+        if rules != {"NoFFT"} or where != {"ops.py"}:
+            fail(f"default train audit: rules {rules} at {where}")
+        n_default = len(e.violations)
+        names = [op.name for op in e.trace]
+    per_pass = 5 * cfg.n_layers
+    n_mm = names.count("repro_torch.bc_matmul")
+    n_dw = names.count("repro_torch.bc_dw")
+    if (n_mm, n_dw) != (3 * per_pass, per_pass):
+        fail(f"train audit capture: bc_matmul {n_mm}, bc_dw {n_dw} != "
+             f"{3 * per_pass}, {per_pass}")
+    print(f"analysis (c) train audit (qwen3-0.6b full width, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, remat={cfg.remat!r}), default "
+          f"rules on one capture: {n_default} NoFFT at freq_weights (the "
+          f"kernel impl's per-step rfft(w), as in the reference), 0 "
+          f"DenseFallbackDot; the capture holds {n_mm} bc_matmul and {n_dw} "
+          f"bc_dw (backward on autograd's device thread captured), "
+          f"{len(names)} ops; wall {audit_ms!r} ms ({CARD[0]})")
+    return dict(default_nofft=n_default, bc_matmul=n_mm, bc_dw=n_dw,
+                ops=len(names), audit_ms=audit_ms)
+
+
+def analysis_planted(torch, dev):
+    """(d) a loss with a weight fft: the grad-step gate names this
+    file's line."""
+    from repro_torch.analysis.contracts import StructuralContractError
+    from repro_torch.train.loop import make_grad_step
+
+    def bad_loss(params, batch):
+        wf = torch.fft.rfft(params["w"], dim=-1)      # the planted fault
+        return wf.abs().mean() + (batch["x"] * params["w"]).mean()
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = {"w": torch.randn(4, 8, K, generator=gen, device=dev
+                               ).requires_grad_(True)}
+    batch = {"x": torch.randn(4, 8, K, generator=gen, device=dev)}
+    line = next(i for i, text in enumerate(
+        Path(__file__).read_text().splitlines(), 1)
+        if "# the planted fault" in text and "next(" not in text)
+    want = f"chip_smoke.py:{line}"
+    try:
+        make_grad_step(bad_loss, audit_args=(params, batch))
+        fail("the planted weight fft raised nothing")
+    except StructuralContractError as e:
+        if want not in str(e):
+            fail(f"planted fault: {want} not in {e}")
+    print(f"analysis (d) planted weight-fft loss: StructuralContractError "
+          f"names {want}")
+    return want
+
+
+def analysis_cli_start():
+    """(e) ``python -m repro_torch.analysis --all-configs`` on the card,
+    started in the background (it runs beside (a)-(d))."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--all-configs"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def analysis_cli_join(proc, timeout=120):
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"python -m repro_torch.analysis --all-configs ran over "
+             f"{timeout}s")
+    lines = out.strip().splitlines()
+    if proc.returncode != 0:
+        fail("python -m repro_torch.analysis --all-configs exited "
+             f"{proc.returncode}:\n" + "\n".join(lines[-20:]))
+    ok = [ln for ln in lines if ln.startswith("[  ok]")]
+    if len(ok) != 11 or "total: 0 violation(s)" not in lines[-1]:
+        fail("analysis CLI: " + "\n".join(lines[-15:]))
+    print("analysis (e) python -m repro_torch.analysis --all-configs on the "
+          "card: " + "; ".join(ln[7:].split(" surfaces")[0].strip()
+                                for ln in ok) + f"; {lines[-1]}")
+    return len(ok) - 1
+
+
+def phase_analysis(torch, kernel, dev, engine):
+    """The analysis layer on the card, parts (a)-(e) (module docstring).
+    Its launches are counted apart from every other phase's. Returns
+    (report row, launches)."""
+    t_phase = time.perf_counter()
+    saved = dict(kernel.LAUNCHES)
+    kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+    proc = analysis_cli_start()
+    try:
+        n_opcheck = analysis_opcheck(torch, kernel, dev)
+        serve = analysis_serve(torch, engine)
+        train = analysis_train(torch, dev)
+        planted = analysis_planted(torch, dev)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    archs = analysis_cli_join(proc)
+    torch.cuda.synchronize()
+    launches = dict(kernel.LAUNCHES)
+    kernel.LAUNCHES.update(saved)
+    secs = time.perf_counter() - t_phase
+    print(f"analysis phase: {secs:.1f}s; launches {launches}")
+    return dict(opcheck_cases=n_opcheck, serve=serve, train=train,
+                planted=planted, cli_archs=archs, seconds=secs), launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4903,6 +5220,8 @@ def main() -> int:
         phase_train(torch, dev)
     dist_row, dist_launches, dist_rows = phase_dist(
         torch, kernel, dev, train_busy, decode_busy, step_ms, train_ms)
+    analysis_row, analysis_launches = phase_analysis(torch, kernel, dev,
+                                                     engine)
     max_abs = phase_kernels(
         torch, kernel, quant, dev,
         sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows
@@ -4917,7 +5236,7 @@ def main() -> int:
         torch, kernel, dev,
         [(n, p, q, per, B) for n, p, q, per in SLICE_SHAPES for B in (4, 512)]
         + [(n, p, q, per, train_rows) for n, p, q, per in DX_SHAPES])
-    phase_host_time(torch, kernel, dev)
+    host = phase_host_time(torch, kernel, dev)
     dw_rows = phase_dw_times(torch, kernel, dev, train_rows)
     paper_rows, paper_mm = phase_paper(torch, kernel, dev)
     paper_train, paper_train_launches = phase_paper_train(torch, kernel, dev)
@@ -5023,6 +5342,7 @@ def main() -> int:
                      + tier["launches"]
                      + train_launches["bc_matmul"]
                      + dist_launches["bc_matmul"]
+                     + analysis_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
@@ -5036,6 +5356,7 @@ def main() -> int:
                              "serve_tier": tier["launches"],
                              "train": train_launches["bc_matmul"],
                              "dist": dist_launches["bc_matmul"],
+                             "analysis": analysis_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
                              "rwkv": hybrid_launches["rwkv6-7b"],
@@ -5054,6 +5375,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": "fused QKV at decode: x (4, 1024) bf16, tables "
                  "(32, 8, 65) f32, k=128",
+        **host,
         "all_shapes": (rows + paper_times + hybrid_times + family_times
                        + encdec_times + tf_times),
     }, {
@@ -5062,6 +5384,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
         "launches": (train_launches["bc_dw"] + dist_launches["bc_dw"]
+                     + analysis_launches["bc_dw"]
                      + paper_launches["bc_dw"]
                      + durable["launches"]["bc_dw"]
                      + example_launches["bc_dw"]
@@ -5069,6 +5392,7 @@ def main() -> int:
                      + remat_launches["bc_dw"]),
         "launches_by_path": {"train": train_launches["bc_dw"],
                              "dist": dist_launches["bc_dw"],
+                             "analysis": analysis_launches["bc_dw"],
                              "durable": durable["launches"]["bc_dw"],
                              "paper": paper_launches["bc_dw"],
                              "examples": example_launches["bc_dw"],
@@ -5093,7 +5417,7 @@ def main() -> int:
         "examples": example_rows, "train_family": tf_rows,
         "scan_remat": remat_rows, "dft": dft_row,
         "serve_resilient": resilient, "durable": durable,
-        "serve_tier": tier, "dist": dist_row}
+        "serve_tier": tier, "dist": dist_row, "analysis": analysis_row}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -23,11 +23,17 @@ numpy arrays (bf16 leaves as exact float32 copies, since numpy has no
 bf16), so trees can be compared leaf by leaf. The paper models keep flat
 trees (nested dicts, no stacked groups); :func:`tree_from_reference` and
 :func:`tree_to_reference` carry those across leaf by leaf.
+
+:func:`layer_stacks` names the port subtrees that the reference stacks,
+which Adafactor updates as stacks; :func:`opt_to_reference` and
+:func:`opt_from_reference` carry an optimizer state both ways (an
+Adafactor stack's shared column moment, one copy per layer in the port,
+once in the reference).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.module import tree_map
 
 __all__ = ["from_reference", "to_reference", "tree_from_reference",
-           "tree_to_reference"]
+           "tree_to_reference", "layer_stacks", "opt_from_reference",
+           "opt_to_reference"]
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -74,6 +81,82 @@ def _stack(subs):
     if isinstance(subs[0], dict):
         return {k: _stack([s[k] for s in subs]) for k in subs[0]}
     return np.stack(subs)
+
+
+def layer_stacks(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, str], ...],
+                                             ...]:
+    """The port subtrees that the reference stacks on a leading layer
+    axis: one tuple of ``("layers", n)`` paths per layer of a repeated
+    group (``group.repeat > 1``), in stack order; the enc-dec family's
+    ``encoder``/``decoder`` layers, one stack each. The optimizer updates
+    each stack as the reference updates its stacked leaf
+    (``optim.optimizers.adafactor_groups``)."""
+    if cfg.family == "encdec":
+        depths = (cfg.n_enc_layers or cfg.n_layers, cfg.n_layers)
+        return tuple(tuple((name, str(i)) for i in range(n))
+                     for name, n in zip(ENCDEC_STACKS, depths))
+    stacks: Dict[tuple, list] = {}
+    for n, (gi, lkey, r) in enumerate(_layer_slots(cfg)):
+        if r is not None:
+            stacks.setdefault((gi, lkey), []).append(("layers", str(n)))
+    return tuple(tuple(v) for v in stacks.values())
+
+
+def _ref_stacks(cfg: ModelConfig):
+    """(reference subtree path, layers) of every stacked reference
+    subtree."""
+    if cfg.family == "encdec":
+        depths = (cfg.n_enc_layers or cfg.n_layers, cfg.n_layers)
+        return [((name,), n) for name, n in zip(ENCDEC_STACKS, depths)]
+    return [((f"group{gi}", f"l{li}"), group.repeat)
+            for gi, group in enumerate(cfg.layer_groups())
+            if group.repeat > 1 for li in range(len(group.layers))]
+
+
+def _map_shared(cfg: ModelConfig, vr, vc, fn):
+    """The reference-layout Adafactor ``vc`` tree with ``fn(leaf, L)``
+    applied to each leaf that a stack shares: the column moment of a leaf
+    that is at most 1-d per layer, whose stacked ``vr`` is ``(L,)``."""
+    def rec(r, c, L):
+        if isinstance(c, dict):
+            return {k: rec(r[k], v, L) for k, v in c.items()}
+        return fn(c, L) if np.ndim(r) == 1 else c
+
+    out = dict(vc)
+    for path, L in _ref_stacks(cfg):
+        node, sub_r = out, vr
+        for key in path[:-1]:
+            node[key] = dict(node[key])
+            node, sub_r = node[key], sub_r[key]
+        node[path[-1]] = rec(sub_r[path[-1]], node[path[-1]], L)
+    return out
+
+
+def opt_to_reference(cfg: ModelConfig, opt: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+    """The port's optimizer state (AdamW's ``{"m", "v"}``, or Adafactor's
+    ``{"vr", "vc"}`` made with ``stacks=layer_stacks(cfg)``) -> the
+    reference's layout as numpy trees: each moment tree as
+    :func:`to_reference` carries params, and a stack's shared column
+    moment ``(d,)`` once (every layer's leaf holds an equal copy)."""
+    out = {k: to_reference(cfg, v) for k, v in opt.items()}
+    if "vc" in out:
+        out["vc"] = _map_shared(cfg, out["vr"], out["vc"],
+                                lambda a, L: a[0])
+    return out
+
+
+def opt_from_reference(cfg: ModelConfig, opt: Dict[str, Any],
+                       device="cuda") -> Dict[str, Any]:
+    """The reference's optimizer state -> the port's (the inverse of
+    :func:`opt_to_reference`): a stack's shared column moment copied to
+    every layer's leaf."""
+    if "vc" in opt:
+        opt = dict(opt, vc=_map_shared(
+            cfg, opt["vr"], opt["vc"],
+            lambda a, L: np.broadcast_to(np.asarray(a),
+                                         (L,) + np.shape(a))))
+    return {k: from_reference(cfg, v, device) for k, v in opt.items()}
 
 
 def from_reference(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"

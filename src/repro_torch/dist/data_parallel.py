@@ -11,8 +11,12 @@ state is made so by ``train.loop.init_train_state(opt_shardings=,
 mesh=)``, and a step on whole moments raises): AdamW
 updates the matching slice of each param, and the updated slices are
 all-gathered, one collective per param dtype. Adafactor's row and column
-means span a whole leaf, so its moments are stored sharded but gathered for
-the update.
+means span a whole leaf (a repeated layer group's whole stack), so its
+moments are stored sharded but gathered for the update.
+
+A MoE model routes its tokens over the global batch, as the reference
+does (:meth:`DataParallel.routing`, ``nn.moe.global_routing``): one
+all-gather of per-expert counts per MoE layer call.
 
 The mesh is a ``DeviceMesh`` with a ``"model"`` axis of size 1: tensor
 parallelism is not ported, and a mesh that asks for it is refused. On a
@@ -22,6 +26,7 @@ parallelism is not ported, and a mesh that asks for it is refused. On a
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import torch
@@ -32,7 +37,9 @@ from repro_torch.dist.sharding import (all_gather_list, all_reduce_flat,
                                        data_axes, dp_size, local_slices,
                                        opt_shardings, sharded_dim)
 from repro_torch.nn.module import map_specs, tree_leaves, tree_map
-from repro_torch.optim.optimizers import (adafactor_consts, adafactor_leaf,
+from repro_torch.convert import layer_stacks
+from repro_torch.optim.optimizers import (adafactor_consts, adafactor_group,
+                                          adafactor_groups,
                                           adafactor_state_specs, adamw_consts,
                                           adamw_leaf, adamw_state_specs)
 
@@ -51,6 +58,16 @@ def refuse_tensor_parallel(mesh) -> None:
 
 def _sizes(mesh):
     return [axis_size(mesh, a) for a in axis_names(mesh)]
+
+
+@contextlib.contextmanager
+def _counted(dp, ctx):
+    with ctx as route:
+        try:
+            yield route
+        finally:
+            if route is not None:
+                dp.collectives += route.collectives
 
 
 def _slicer(sl) -> tuple:
@@ -80,8 +97,11 @@ class DataParallel:
         self.group = (mesh.get_group(dp[0]) if len(dp) == 1
                       else dist.group.WORLD)
         self.adafactor = cfg.optimizer == "adafactor"
-        mk = adafactor_state_specs if self.adafactor else adamw_state_specs
-        self.mom_specs = mk(param_specs, tcfg)
+        self.stacks = layer_stacks(cfg) if self.adafactor else ()
+        self.mom_specs = (adafactor_state_specs(param_specs, tcfg,
+                                                self.stacks)
+                          if self.adafactor
+                          else adamw_state_specs(param_specs, tcfg))
         self.opt_specs = {
             k: opt_shardings(mesh, v, fsdp=cfg.fsdp, low_tp=cfg.low_tp)
             for k, v in self.mom_specs.items()}
@@ -116,6 +136,20 @@ class DataParallel:
                 spec = batch_pspec(self.mesh, v.ndim, batch=B)
                 out[k] = v[_slicer(local_slices(v.shape, spec, self.mesh))]
         return out
+
+    def routing(self, batch, local):
+        """The MoE routing context of one step (``nn.moe.global_routing``):
+        the global batch's when this rank's ``local`` rows are a shard of
+        ``batch``, else the local batch's. Its collectives join
+        ``collectives`` when it closes."""
+        from repro_torch.nn.moe import GlobalRouting, global_routing
+
+        rows = lambda b: next(iter(b.values())).shape[0]
+        route = None
+        if self.world > 1 and rows(local) < rows(batch):
+            route = GlobalRouting(self.group, self.world,
+                                  dist.get_rank(self.group))
+        return _counted(self, global_routing(route))
 
     def average(self, grads, loss, metrics):
         """Mean of grads, loss and metrics over the data ranks, with one
@@ -178,23 +212,29 @@ class DataParallel:
                     off += n
 
     def _adafactor(self, params, grads, opt, step: int) -> None:
+        """Adafactor on whole moments: each sharded moment gathered, every
+        group of ``adafactor_groups`` (a stack of per-layer leaves as one)
+        updated whole, and this rank's shards written back."""
         consts = adafactor_consts(step, self.tcfg)
-        for i, (p, g) in enumerate(zip(tree_leaves(params),
-                                       tree_leaves(grads))):
-            full, cuts = [], []
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        moms = {k: tree_leaves(opt[k]) for k in ("vr", "vc")}
+        specs = {k: tree_leaves(self.opt_specs[k]) for k in ("vr", "vc")}
+        for idx, stacked in adafactor_groups(params, self.stacks):
+            full, cuts = {"vr": [], "vc": []}, []
             for key in ("vr", "vc"):
-                t = tree_leaves(opt[key])[i]
-                spec = tree_leaves(self.opt_specs[key])[i]
-                d = sharded_dim(spec, self.dp_entry)
-                if d is None:
-                    full.append(t)
-                    cuts.append(None)
-                    continue
-                full.append(torch.cat(self._all_gather(t), dim=d))
-                cuts.append((t, _slicer(local_slices(full[-1].shape, spec,
-                                                     self.mesh))))
-            adafactor_leaf(p, g, full[0], full[1], consts, self.tcfg)
+                for i in idx:
+                    t, spec = moms[key][i], specs[key][i]
+                    d = sharded_dim(spec, self.dp_entry)
+                    if d is None:
+                        full[key].append(t)
+                        continue
+                    f = torch.cat(self._all_gather(t), dim=d)
+                    full[key].append(f)
+                    cuts.append((t, f, _slicer(local_slices(
+                        f.shape, spec, self.mesh))))
+            adafactor_group([ps[i] for i in idx], [gs[i] for i in idx],
+                            full["vr"], full["vc"], consts, self.tcfg,
+                            stacked=stacked)
             with torch.no_grad():
-                for f, c in zip(full, cuts):
-                    if c is not None:
-                        c[0].copy_(f[c[1]])
+                for t, f, sl in cuts:
+                    t.copy_(f[sl])

@@ -33,6 +33,13 @@ k runs dense DFT loops over ``dft_bases`` staged in shared memory.
 directory beside this file, keyed by the hash of each source and the
 headers beside it (:func:`_source_key`); the libraries are bound with
 ``ctypes`` at first use. ``LAUNCHES`` counts kernel launches per wrapper.
+
+Both wrappers call registered ``torch.library`` ops (``OPS``:
+``repro_torch::bc_matmul``, ``repro_torch::bc_dw`` and
+``repro_torch::bc_dw_freq``, the last returning ``(dwr, dwi)``), so
+PyTorch's dispatcher, its dispatch modes and its fake tensors see every
+launch as one op: the CPU impl is the plain version, the CUDA impl the
+ctypes launch, and a fake impl gives the output shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from repro_torch.core.quant import dequantize_symmetric
 
 __all__ = ["ACTIVATIONS", "apply_activation", "bc_dw", "bc_dw_plain",
            "bc_matmul", "bc_matmul_plain", "build", "fft_twiddles",
-           "LAUNCHES", "SOURCES"]
+           "LAUNCHES", "OPS", "SOURCES"]
 
 # Epilogue activations fused into the writeback. Keys are the only legal
 # ``activation=`` values; the index is the kernel's activation code.
@@ -372,6 +379,23 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _launch_on(device: torch.device, launch, *args) -> int:
+    """Call the C entry point ``launch`` on ``device``'s current stream
+    (every entry point takes the stream last), with ``device`` the current
+    device for the call. The raw stream handle and the device switch only
+    when needed cost less host time per launch than ``torch.cuda.device``
+    and a ``Stream`` object."""
+    idx = device.index
+    prev = torch._C._cuda_getDevice()
+    if prev != idx:
+        torch._C._cuda_setDevice(idx)
+    try:
+        return launch(*args, torch._C._cuda_getCurrentRawStream(idx))
+    finally:
+        if prev != idx:
+            torch._C._cuda_setDevice(prev)
+
+
 # most groups of one launch: the grid's z dimension
 _MAX_GROUPS = 65535
 
@@ -435,18 +459,24 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     ``w_scale`` (p, q) f32 marks wr/wi as int8 tables dequantized in the
     kernel. Grouped: x (G, B, q·k), tables (G, p, q, K), ``w_scale`` (G, p,
     q), ``bias`` (G, p·k) -> y (G, B, p·k), G products in ONE launch (the
-    reference's ``_bc_kernel`` under ``jax.vmap``). CPU tensors take
-    :func:`bc_matmul_plain`; CUDA tensors launch the kernel on the current
-    stream or raise.
+    reference's ``_bc_kernel`` under ``jax.vmap``). The call is the
+    registered op ``repro_torch::bc_matmul``: CPU tensors take
+    :func:`bc_matmul_plain`, CUDA tensors launch the kernel on the current
+    stream or raise, meta tensors take the fake implementation.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(
             f"unknown activation {activation!r}; one of {ACTIVATIONS}")
-    if x2d.device.type == "cpu":
-        return bc_matmul_plain(x2d, wr, wi, bias, w_scale, k=k,
-                               activation=activation)
-    if x2d.device.type != "cuda":
-        raise RuntimeError(f"bc_matmul runs on cuda or cpu, not {x2d.device}")
+    return OPS["bc_matmul"](x2d, wr, wi, bias, w_scale, k, activation)
+
+
+def _bc_matmul_cpu(x2d, wr, wi, bias, w_scale, k, activation):
+    return bc_matmul_plain(x2d, wr, wi, bias, w_scale, k=k,
+                           activation=activation)
+
+
+def _bc_matmul_cuda(x2d, wr, wi, bias, w_scale, k, activation):
+    """The CUDA impl of ``repro_torch::bc_matmul``: the kernel launch."""
     G = _check_cuda_args(x2d, wr, wi, bias, w_scale, k)
     B = x2d.shape[-2]
     p, q, _ = wr.shape[-3:]
@@ -458,18 +488,29 @@ def bc_matmul(x2d: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     g = _mm_geometry(B, p, q, k)
     tw, bases = ((fft_twiddles(k, device=x2d.device), (None,) * 4) if g.fft
                  else (None, dft_bases(k, device=x2d.device)))
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = launch(
-            _ptr(x2d), _ptr(wr), _ptr(wi), _ptr(w_scale), _ptr(bias),
-            _ptr(tw), *map(_ptr, bases), _ptr(y), B, p, q, k, G,
-            int(x2d.dtype == torch.bfloat16), int(wr.dtype == torch.int8),
-            ACTIVATIONS.index(activation), g.rows, g.p_group, g.q_chunk,
-            g.q_groups, g.p_inner, g.p_per_thread, g.smem_bytes, stream)
+    rc = _launch_on(
+        x2d.device, launch,
+        _ptr(x2d), _ptr(wr), _ptr(wi), _ptr(w_scale), _ptr(bias),
+        _ptr(tw), *map(_ptr, bases), _ptr(y), B, p, q, k, G,
+        int(x2d.dtype == torch.bfloat16), int(wr.dtype == torch.int8),
+        ACTIVATIONS.index(activation), g.rows, g.p_group, g.q_chunk,
+        g.q_groups, g.p_inner, g.p_per_thread, g.smem_bytes)
     if rc != 0:
         raise RuntimeError(f"bc_matmul kernel launch failed: CUDA error {rc}")
     LAUNCHES["bc_matmul"] += 1
     return y
+
+
+def _bc_matmul_fake(x2d, wr, wi, bias, w_scale, k, activation):
+    """Output shape and dtype of ``repro_torch::bc_matmul``."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(
+            f"unknown activation {activation!r}; one of {ACTIVATIONS}")
+    if wr.dim() not in (3, 4) or x2d.dim() != wr.dim() - 1:
+        raise ValueError(f"x {tuple(x2d.shape)} against tables "
+                         f"{tuple(wr.shape)}: x is 2-D with 3-D tables, "
+                         f"3-D with 4-D (grouped) tables")
+    return x2d.new_empty(x2d.shape[:-1] + (wr.shape[-3] * k,))
 
 
 class DWGeometry(NamedTuple):
@@ -598,18 +639,33 @@ def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
     Q·k) or (dwr, dwi) each (G, P, Q, K), G adjoints in ONE launch (the
     reference's ``_bc_dw_kernel`` under ``jax.vmap``).
 
-    CPU tensors take :func:`bc_dw_plain`; CUDA tensors launch the kernel
+    The call is the registered op ``repro_torch::bc_dw`` (``bc_dw_freq``
+    when ``freq_out``; a schema has fixed returns): CPU tensors take
+    :func:`bc_dw_plain`; CUDA tensors launch the kernel
     (``csrc/bc_dw.cu``: partial sums over row ranges in an f32 workspace,
     then a fixed-order reduction and the epilogue) on the current stream or
-    raise.
+    raise; meta tensors take the fake implementation.
     """
-    if x2d.device.type == "cpu":
-        return bc_dw_plain(x2d, g2d, P=P, Q=Q, k=k, freq_out=freq_out)
-    if x2d.device.type != "cuda":
-        raise RuntimeError(f"bc_dw runs on cuda or cpu, not {x2d.device}")
+    if freq_out:
+        return OPS["bc_dw_freq"](x2d, g2d, P, Q, k)
+    return OPS["bc_dw"](x2d, g2d, P, Q, k)
+
+
+def _bc_dw_cpu(x2d, g2d, P, Q, k):
+    return bc_dw_plain(x2d, g2d, P=P, Q=Q, k=k)
+
+
+def _bc_dw_freq_cpu(x2d, g2d, P, Q, k):
+    return bc_dw_plain(x2d, g2d, P=P, Q=Q, k=k, freq_out=True)
+
+
+def _bc_dw_launch(x2d, g2d, P, Q, k, freq_out):
+    """The CUDA impls of ``repro_torch::bc_dw`` / ``bc_dw_freq``: the
+    kernel launch."""
     G = _check_dw_args(x2d, g2d, P, Q, k)
     lead = x2d.shape[:-2]
     B, K, dev = x2d.shape[-2], k // 2 + 1, x2d.device
+
     def out(shape):
         return torch.empty(lead + shape, dtype=torch.float32, device=dev)
 
@@ -626,16 +682,59 @@ def bc_dw(x2d: torch.Tensor, g2d: torch.Tensor, *, P: int, Q: int, k: int,
                        dtype=torch.float32, device=dev)
     tw, bases = ((fft_twiddles(k, device=dev), (None, None)) if geo.fft
                  else (None, dft_bases(k, device=dev)[:2]))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            _ptr(x2d), _ptr(g2d), _ptr(tw), *map(_ptr, bases), _ptr(part),
-            _ptr(outs[0]), _ptr(outs[1]), B, P, Q, k, G,
-            int(x2d.dtype == torch.bfloat16), int(g2d.dtype == torch.bfloat16),
-            int(freq_out), geo.rows, geo.p_groups, geo.q_groups,
-            geo.p_per_thread, geo.q_per_thread, geo.splits, geo.smem_bytes,
-            stream)
+    rc = _launch_on(
+        dev, launch,
+        _ptr(x2d), _ptr(g2d), _ptr(tw), *map(_ptr, bases), _ptr(part),
+        _ptr(outs[0]), _ptr(outs[1]), B, P, Q, k, G,
+        int(x2d.dtype == torch.bfloat16), int(g2d.dtype == torch.bfloat16),
+        int(freq_out), geo.rows, geo.p_groups, geo.q_groups,
+        geo.p_per_thread, geo.q_per_thread, geo.splits, geo.smem_bytes)
     if rc != 0:
         raise RuntimeError(f"bc_dw kernel launch failed: CUDA error {rc}")
     LAUNCHES["bc_dw"] += 1
     return outs if freq_out else outs[0]
+
+
+def _bc_dw_fake(x2d, g2d, P, Q, k):
+    return x2d.new_empty(x2d.shape[:-2] + (P, Q * k), dtype=torch.float32)
+
+
+def _bc_dw_freq_fake(x2d, g2d, P, Q, k):
+    shape = x2d.shape[:-2] + (P, Q, k // 2 + 1)
+    return (x2d.new_empty(shape, dtype=torch.float32),
+            x2d.new_empty(shape, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The registered ops
+# ---------------------------------------------------------------------------
+
+# Low-level define/impl (not the custom_op decorator, whose wrapper costs
+# more host time per call): one schema each, a CPU impl (the plain
+# version), a CUDA impl (the launch) and a fake impl (shapes and dtypes,
+# for meta and fake tensors). No fallback between them: the dispatcher
+# sends a CUDA tensor to the launch, which raises on what it cannot take.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_SCHEMAS = {
+    "bc_matmul": ("bc_matmul(Tensor x, Tensor wr, Tensor wi, Tensor? bias, "
+                  "Tensor? w_scale, int k, str activation) -> Tensor",
+                  _bc_matmul_cpu, _bc_matmul_cuda, _bc_matmul_fake),
+    "bc_dw": ("bc_dw(Tensor x, Tensor g, int P, int Q, int k) -> Tensor",
+              _bc_dw_cpu,
+              lambda x, g, P, Q, k: _bc_dw_launch(x, g, P, Q, k, False),
+              _bc_dw_fake),
+    "bc_dw_freq": ("bc_dw_freq(Tensor x, Tensor g, int P, int Q, int k) "
+                   "-> (Tensor, Tensor)", _bc_dw_freq_cpu,
+                   lambda x, g, P, Q, k: _bc_dw_launch(x, g, P, Q, k, True),
+                   _bc_dw_freq_fake),
+}
+for _name, (_schema, _cpu, _cuda, _fake) in _SCHEMAS.items():
+    _LIB.define(_schema)
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+
+#: the ops' overloads, called by the public wrappers (and named by the
+#: analysis layer's capture, which records each launch as one op)
+OPS = {name: getattr(torch.ops.repro_torch, name).default
+       for name in _SCHEMAS}

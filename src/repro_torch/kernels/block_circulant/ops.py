@@ -48,7 +48,35 @@ from repro_torch.kernels.block_circulant.kernel import (apply_activation,
                                                         bc_dw, bc_matmul)
 
 __all__ = ["block_circulant_matmul", "block_circulant_matmul_multi",
-           "freq_weights", "freq_weights_trace_count"]
+           "count_kernel_launches", "freq_weights",
+           "freq_weights_trace_count", "outer_mm_shapes"]
+
+
+# ---------------------------------------------------------------------------
+# Structural probes over a capture (``analysis.walker.capture``), the
+# counterparts of the reference's jaxpr probes: the "no dense (P, Q)
+# contraction in the train step" checks inspect what ran, not numerics
+# ---------------------------------------------------------------------------
+
+
+def outer_mm_shapes(trace) -> List[Tuple[int, ...]]:
+    """Output shapes of every dense contraction (``aten.mm``, ``bmm``,
+    ...) OUTSIDE the kernel ops: a kernel op is one record of the capture,
+    so the contractions of its plain version never appear. A regression
+    test asserts that none of them spans a circulant layer's (P, Q) block
+    grid (the signature of an einsum weight adjoint)."""
+    from repro_torch.analysis.rules import DOT_OPS
+
+    return [shape for op in trace if op.name in DOT_OPS
+            for shape in op.out_shapes]
+
+
+def count_kernel_launches(trace) -> int:
+    """Number of kernel ops (``bc_matmul``, ``bc_dw``, ``bc_dw_freq``) in
+    a capture: one launch each."""
+    from repro_torch.analysis.rules import LAUNCH_OPS
+
+    return sum(1 for op in trace if op.name in LAUNCH_OPS)
 
 # Counts every rfft(w) issued. Serving freezes weights exactly once, so the
 # tests assert this does not move across an engine's lifetime after freeze;

@@ -15,20 +15,29 @@ max-abs scale per (p, q) block (``w_scale``), dequantized in the kernel.
 The reference's TPU tile choosers (``plan_geometry``/``choose_blocks``)
 have no counterpart: the CUDA kernel picks its own launch geometry and
 masks ragged edges, so frozen tables are stored unpadded.
+
+:class:`BCPlan` is one frozen projection (or a stack of projections that
+share one input) as an object: :func:`build_plan` / :func:`build_multi_plan`
+run rfft(w) once, and ``plan.apply(x)`` is one ``bc_matmul`` launch with
+no weight-side work. The port's plans carry no tile padding and no
+``interpret`` flag (the reference's Pallas-only fields).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.circulant import concat_biases, split_outputs
 from repro_torch.core.quant import (dequantize_symmetric, quantize_symmetric,
                                     symmetric_scales)
 from repro_torch.kernels.block_circulant import ops as bc_ops
 
-__all__ = ["freeze_params", "count_frozen_tables", "frozen_table_bytes",
-           "dequantize_frozen", "FUSED_KEY", "QUANTIZE_MODES"]
+__all__ = ["BCPlan", "build_plan", "build_multi_plan", "freeze_params",
+           "count_frozen_tables", "frozen_table_bytes", "dequantize_frozen",
+           "FUSED_KEY", "QUANTIZE_MODES"]
 
 # Legal ``quantize=`` values (and, transitively, ServeEngine / --quantize).
 QUANTIZE_MODES = ("off", "int8")
@@ -42,6 +51,104 @@ def _check_quantize(quantize: str) -> None:
     if quantize not in QUANTIZE_MODES:
         raise ValueError(
             f"quantize={quantize!r}; expected one of {QUANTIZE_MODES}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BCPlan:
+    """A frozen frequency-domain plan for one projection, or for N
+    projections sharing one input stacked along p (``splits`` their p_i).
+
+    ``wr``/``wi`` ``(p, q, K)`` are f32, or int8 with the per-(p, q) block
+    f32 ``scale``, dequantized in the kernel; ``bias`` is ``(p·k,)`` f32 or
+    None, and ``activation`` the epilogue."""
+
+    wr: torch.Tensor
+    wi: torch.Tensor
+    bias: Optional[torch.Tensor]
+    k: int
+    p: int
+    q: int
+    splits: Tuple[int, ...]
+    activation: str = "none"
+    scale: Optional[torch.Tensor] = None
+
+    @property
+    def in_dim(self) -> int:
+        return self.q * self.k
+
+    @property
+    def out_dim(self) -> int:
+        return self.p * self.k
+
+    @property
+    def n_projections(self) -> int:
+        return len(self.splits)
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
+
+    def table_bytes(self) -> int:
+        """Resident bytes of the frozen tables (and scales when
+        quantized)."""
+        n = self.wr.nbytes + self.wi.nbytes
+        return n + (self.scale.nbytes if self.scale is not None else 0)
+
+    def cache_key(self) -> Tuple:
+        """(p, q, k, table dtype name), as the reference's."""
+        return (self.p, self.q, self.k,
+                str(self.wr.dtype).replace("torch.", ""))
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., q·k) -> (..., p·k), the fused epilogue included: one
+        ``bc_matmul`` launch, no transform of the tables."""
+        return bc_ops.block_circulant_matmul(
+            x, None, w_freq=(self.wr, self.wi), w_scale=self.scale,
+            bias=self.bias, activation=self.activation, k=self.k, q=self.q)
+
+    __call__ = apply
+
+    def apply_multi(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The stacked projections' outputs: one launch, N outputs."""
+        return tuple(split_outputs(self.apply(x), self.splits, self.k))
+
+
+def build_plan(w: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
+               activation: str = "none", quantize: str = "off") -> BCPlan:
+    """A plan from a time-domain block table ``w (p, q, k)``: rfft(w) runs
+    here, once (call at init or after a checkpoint load, never per step);
+    ``quantize="int8"`` stores the tables int8 with per-block scales."""
+    _check_quantize(quantize)
+    p, q, k = w.shape
+    with torch.no_grad():
+        wr, wi = bc_ops.freq_weights(w)
+        scale = None
+        if quantize == "int8":
+            wr, wi, scale = _quantize_pair(wr, wi)
+        b = None if bias is None else bias.reshape(-1).float().contiguous()
+    return BCPlan(wr=wr, wi=wi, bias=b, k=int(k), p=int(p), q=int(q),
+                  splits=(int(p),), activation=activation, scale=scale)
+
+
+def build_multi_plan(ws: Sequence[torch.Tensor], *,
+                     biases: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                     activation: str = "none",
+                     quantize: str = "off") -> BCPlan:
+    """N projections of one (q, k) that read the same input, stacked
+    along p into ONE plan and one launch (``apply_multi`` splits the
+    output). Quantization commutes with the stacking: scales are per
+    block."""
+    q, k = ws[0].shape[1], ws[0].shape[2]
+    for w in ws:
+        if tuple(w.shape[1:]) != (q, k):
+            raise ValueError(f"multi-plan tables must share (q, k); got "
+                             f"{[tuple(w.shape) for w in ws]}")
+    splits = tuple(int(w.shape[0]) for w in ws)
+    with torch.no_grad():
+        w_cat = torch.cat(list(ws), 0)
+    plan = build_plan(w_cat, bias=concat_biases(splits, biases, k),
+                      activation=activation, quantize=quantize)
+    return dataclasses.replace(plan, splits=splits)
 
 
 def _frozen_pair(d) -> bool:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.convert import layer_stacks
 from repro_torch.dist.sharding import (axis_names, axis_size, batch_pspec,
                                        data_axes, dp_size, opt_shardings,
                                        param_shardings)
@@ -94,9 +95,9 @@ def state_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     """(state stand-ins, state shardings) for the train step: params,
     the optimizer's moments (``cfg.optimizer``) and ``step``."""
     pspecs = build_model(cfg, device="cpu").specs()
-    mk = adafactor_state_specs if cfg.optimizer == "adafactor" \
-        else adamw_state_specs
-    opt = mk(pspecs, tcfg)
+    opt = (adafactor_state_specs(pspecs, tcfg, layer_stacks(cfg))
+           if cfg.optimizer == "adafactor"
+           else adamw_state_specs(pspecs, tcfg))
     sds = {"params": _sds(pspecs),
            "opt": {k: _sds(v) for k, v in opt.items()},
            "step": ((), torch.int32)}

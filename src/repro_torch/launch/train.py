@@ -124,7 +124,8 @@ def _run(args, arch, dev):
     step_fn = make_train_step(model, cfg, tcfg, mesh=mesh)
     shardings = step_fn.data_parallel.state_shardings
     state = init_train_state(params, tcfg, cfg.optimizer,
-                             opt_shardings=shardings["opt"], mesh=mesh)
+                             opt_shardings=shardings["opt"], mesh=mesh,
+                             stacks=step_fn.data_parallel.stacks)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
                        seed=tcfg.seed)
 

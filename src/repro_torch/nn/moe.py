@@ -13,10 +13,28 @@ as the reference's ``@jax.checkpoint`` expert: their hidden ``(E, C, d_ff)``
 is recomputed in the backward instead of kept, which changes no value. On
 the kernel impl the backward of each expert projection is one grouped
 ``bc_matmul`` (dx) and one grouped ``bc_dw`` (dw) over all experts.
+
+Under data parallelism each rank holds a contiguous, rank-major block of
+the global batch, while the reference routes the global batch. Inside
+:func:`global_routing` (the data-parallel train step opens it,
+``dist.data_parallel.DataParallel.routing``) a training forward routes as
+the reference does: one all-gather of the per-expert counts ``(W, E)``
+per MoE layer call gives the capacity ``C`` from the global token count,
+each (token, slot)'s queue position as its local stable-sort position plus
+the counts of the ranks before it, and the global ``f`` of the aux loss.
+Each rank's aux takes the global ``f`` against its local mean ``P``, so
+the mean over ranks is the full batch's aux and its gradient is exact. A
+rank's dispatch buffer holds ``min(C, N_local)`` rows per expert (a rank
+places at most ``N_local`` tokens on an expert). Where remat recomputes a
+block in the backward, its MoE call gathers the counts again: every rank
+runs the same backward, so the collectives stay in the same order. Serving
+(``no_drop``) depends on no other row and never gathers. ``dropped`` holds
+the (token, slot) pairs the last forward dropped for capacity.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -27,7 +45,40 @@ from repro_torch.configs.base import SWMConfig
 from repro_torch.nn.ffn import SwiGLU
 from repro_torch.nn.linear import Linear
 
-__all__ = ["MoE", "top_k_lower_index"]
+__all__ = ["MoE", "GlobalRouting", "global_routing", "top_k_lower_index"]
+
+# The routing of the data-parallel step in progress (None: route the local
+# batch). A module global, not thread-local: on CUDA a remat recompute runs
+# on autograd's device thread.
+_ROUTING = [None]
+
+
+class GlobalRouting:
+    """A data-parallel group whose ranks hold equal, rank-major blocks of
+    one global batch; counts the collectives the MoE layers run."""
+
+    def __init__(self, group, world: int, rank: int):
+        self.group, self.world, self.rank = group, int(world), int(rank)
+        self.collectives = 0
+
+    def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every rank's per-expert counts, ``(W, E)`` in rank order."""
+        from repro_torch.dist.sharding import all_gather_list
+
+        self.collectives += 1
+        return torch.stack(all_gather_list(counts, self.group))
+
+
+@contextlib.contextmanager
+def global_routing(routing: Optional[GlobalRouting]):
+    """Route every training MoE forward inside on the global batch of
+    ``routing`` (None: the local batch)."""
+    prev = _ROUTING[0]
+    _ROUTING[0] = routing
+    try:
+        yield routing
+    finally:
+        _ROUTING[0] = prev
 
 
 def top_k_lower_index(probs: torch.Tensor, k: int):
@@ -84,11 +135,25 @@ class MoE(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         gate, expert_idx = top_k_lower_index(probs, T)              # (N, T)
         gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-        C = self.capacity(N, no_drop)
+        flat_e = expert_idx.reshape(-1)                            # (N·T,)
+        route = None if no_drop else _ROUTING[0]
+        # per-expert counts as exact f32 integers (index_add_: no host
+        # sync, where bincount reads its input's max back)
+        counts = torch.zeros(E, dtype=torch.float32,
+                             device=x.device).index_add_(
+            0, flat_e, torch.ones(N * T, dtype=torch.float32,
+                                  device=x.device))                # (E,)
+        if route is None:
+            n_global, before, total = N, None, counts
+        else:
+            every = route.gather_counts(counts)                    # (W, E)
+            n_global = N * route.world
+            before = every[:route.rank].sum(0).long()
+            total = every.sum(0)
+        C = self.capacity(n_global, no_drop)
 
         # position of each (token, slot) within its expert's capacity:
         # stable sort by expert, rank inside the expert's segment
-        flat_e = expert_idx.reshape(-1)                            # (N·T,)
         order = torch.argsort(flat_e, stable=True)
         sorted_e = flat_e[order]
         seg_start = torch.searchsorted(
@@ -98,8 +163,10 @@ class MoE(nn.Module):
         pos = torch.zeros(N * T, dtype=torch.long, device=x.device)
         pos[order] = pos_sorted
         pos = pos.reshape(N, T)
-        keep = pos < C
+        # the global queue position: the ranks before this one come first
+        keep = (pos if before is None else pos + before[expert_idx]) < C
         pos = torch.where(keep, pos, torch.zeros_like(pos))
+        self.dropped = (~keep).sum()
 
         # dispatch: scatter-add tokens into (E, C, d). On CUDA the
         # accumulate is atomic, so its order is not fixed; the sum does not
@@ -107,7 +174,8 @@ class MoE(nn.Module):
         # alone (positions are ranks within the expert), and a dropped one
         # adds an exact zero to slot 0, so every slot sums one value and
         # zeros
-        disp = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
+        disp = torch.zeros((E, min(C, N), d), dtype=x.dtype,
+                           device=x.device)
         contrib = xt[:, None, :] * keep[..., None].to(x.dtype)      # (N,T,d)
         disp.index_put_((expert_idx, pos), contrib, accumulate=True)
 
@@ -121,9 +189,8 @@ class MoE(nn.Module):
         y = (y_tok * w).sum(dim=1).reshape(B, S, d)
 
         # load-balance aux loss (Switch): E · Σ_e f_e · P_e
-        f = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-            0, flat_e, torch.ones(N * T, dtype=torch.float32,
-                                  device=x.device)) / (N * T)
+        # f global under data parallelism, P this rank's rows
+        f = total / (n_global * T)
         P = probs.mean(dim=0)
         aux = E * torch.sum(f * P)
         return y, aux

@@ -7,8 +7,10 @@ trees, with the axes the reference derives, without allocating. The math
 is the reference's, in f32, with params and moments cast back to their
 storage dtype; unlike the reference's pure functions, the updates write
 params, moments and (for clipping) grads in place, so a step allocates no
-second copy of the model. ``adamw_leaf`` / ``adafactor_leaf`` update one
-leaf, so the data-parallel step can run them on this rank's slices.
+second copy of the model. ``adamw_leaf`` updates one leaf, so the
+data-parallel step can run it on this rank's slices; ``adafactor_group``
+updates one leaf, or the per-layer leaves of one repeated-layer stack, as
+a whole (its means and RMS span the stack).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.nn.module import ParamSpec, map_specs, tree_leaves, tree_map
 
 __all__ = ["adamw_state_specs", "adamw_init", "adamw_update", "adamw_consts",
            "adamw_leaf", "adafactor_state_specs", "adafactor_init",
-           "adafactor_update", "adafactor_consts", "adafactor_leaf",
+           "adafactor_update", "adafactor_consts", "adafactor_group",
+           "adafactor_groups",
            "lr_schedule", "global_norm", "clip_by_global_norm"]
 
 _F32 = torch.float32
@@ -114,50 +117,116 @@ def adamw_leaf(p, g, m, v, consts, tcfg: TrainConfig) -> None:
 # ---------------------------------------------------------------------------
 # Adafactor (Shazeer & Stern, 2018) — factored second moment: for a
 # (…, r, c) parameter, row/col accumulators of size O(r + c).
+#
+# The reference stacks every leaf of a repeated layer group on a leading
+# layer axis and updates the stack as one leaf; the port keeps one leaf per
+# layer. ``stacks`` (``convert.layer_stacks(cfg)``: tuples of the subtree
+# paths the reference stacks) makes the port update each stacked set of
+# per-layer leaves as the reference updates their stack: a 1-d per-layer
+# leaf (a norm scale) is factored across the layers, its ``vr`` one entry
+# per layer (a 0-d leaf per layer) and its ``vc`` the stack's ``(d,)``
+# column moment, held as an equal copy by every layer's leaf; leaves of 2
+# or more dims keep their per-layer ``vr``/``vc`` (the stack's slices);
+# and the relative-update clip takes its RMS over the whole stack.
 # ---------------------------------------------------------------------------
 
 
-def adafactor_state_specs(param_specs, tcfg: TrainConfig):
+def _leaf_paths(tree, path=()):
+    """(path, leaf) pairs in :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _stacked(path, stacks) -> bool:
+    return any(path[:len(pre)] == tuple(pre)
+               for stack in stacks for pre in stack)
+
+
+def _moment_shapes(shape, stacked: bool):
+    """(vr, vc) shapes of a leaf of ``shape``: the reference's for a plain
+    leaf; for one layer's leaf of a stack, the stack's moments without
+    the layer axis (a shared ``vc`` keeps its whole shape)."""
+    shape = tuple(shape)
+    if stacked:
+        if not shape:
+            return (), (1,)
+        return shape[:-1], shape[:-2] + shape[-1:]
+    if len(shape) >= 2:
+        return shape[:-1], shape[:-2] + shape[-1:]
+    return shape, (1,)
+
+
+def adafactor_state_specs(param_specs, tcfg: TrainConfig, stacks=()):
     """Factored-moment ParamSpecs: ``vr`` drops the last dim, ``vc`` the
     second-to-last (a 1-d param keeps its shape in ``vr`` and a (1,)
-    ``vc``), each keeping the remaining dims' axes."""
+    ``vc``), each keeping the remaining dims' axes; a leaf in ``stacks``
+    takes its stack's moments without the layer axis (``vr`` () and
+    ``vc`` (d,) for a 1-d leaf)."""
     def vr(path, s):
-        if len(s.shape) >= 2:
-            return ParamSpec(s.shape[:-1], _F32, init="zeros",
-                             axes=s.axes[:-1])
-        return ParamSpec(s.shape, _F32, init="zeros", axes=s.axes)
+        shape = _moment_shapes(s.shape, _stacked(path, stacks))[0]
+        return ParamSpec(shape, _F32, init="zeros",
+                         axes=s.axes[:len(shape)])
 
     def vc(path, s):
-        if len(s.shape) >= 2:
-            return ParamSpec(s.shape[:-2] + s.shape[-1:], _F32, init="zeros",
-                             axes=s.axes[:-2] + s.axes[-1:])
-        return ParamSpec((1,), _F32, init="zeros", axes=(None,))
+        stacked = _stacked(path, stacks)
+        shape = _moment_shapes(s.shape, stacked)[1]
+        factored = len(s.shape) >= 2 or (stacked and len(s.shape) == 1)
+        return ParamSpec(shape, _F32, init="zeros",
+                         axes=s.axes[:-2] + s.axes[-1:] if factored
+                         else (None,))
 
     return {"vr": map_specs(vr, param_specs),
             "vc": map_specs(vc, param_specs)}
 
 
-def adafactor_init(params, tcfg: TrainConfig):
-    def vr(p):
-        return torch.zeros(p.shape[:-1] if p.dim() >= 2 else p.shape,
-                           dtype=_F32, device=p.device)
+def adafactor_init(params, tcfg: TrainConfig, stacks=()):
+    """Zero moments of the shapes :func:`adafactor_state_specs` gives."""
+    def make(key):
+        def rec(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: rec(v, path + (k,)) for k, v in tree.items()}
+            shape = _moment_shapes(tree.shape, _stacked(path, stacks))[key]
+            return torch.zeros(shape, dtype=_F32, device=tree.device)
+        return rec(params)
 
-    def vc(p):
-        return torch.zeros(p.shape[:-2] + p.shape[-1:] if p.dim() >= 2
-                           else (1,), dtype=_F32, device=p.device)
+    return {"vr": make(0), "vc": make(1)}
 
-    return {"vr": tree_map(vr, params), "vc": tree_map(vc, params)}
+
+def adafactor_groups(params, stacks=()):
+    """Lists of leaf indices (:func:`tree_leaves` order) updated together:
+    one per leaf of a layer of each stack, holding that leaf of every
+    layer of the stack; every other leaf alone. Returns
+    ``[(indices, stacked)]``."""
+    paths = [p for p, _ in _leaf_paths(params)]
+    index = {p: i for i, p in enumerate(paths)}
+    out, seen = [], set()
+    for stack in stacks:
+        pres = [tuple(pre) for pre in stack]
+        n = len(pres[0])
+        for path in paths:
+            if path[:n] != pres[0]:
+                continue
+            idx = [index[pre + path[n:]] for pre in pres]
+            out.append((idx, True))
+            seen.update(idx)
+    out += [([i], False) for i in range(len(paths)) if i not in seen]
+    return out
 
 
 @torch.no_grad()
-def adafactor_update(params, grads, opt, step: int, tcfg: TrainConfig):
+def adafactor_update(params, grads, opt, step: int, tcfg: TrainConfig,
+                     stacks=()):
     """Factored RMS update (no first moment), decay 1 - t^-0.8, update
-    clipping at RMS 1.0, weight decay as in AdamW; in place. Returns
-    (params, opt)."""
+    clipping at RMS 1.0, weight decay as in AdamW; in place, each group of
+    :func:`adafactor_groups` as one leaf. Returns (params, opt)."""
     consts = adafactor_consts(step, tcfg)
-    for p, g, vr, vc in zip(*(tree_leaves(x) for x in (
-            params, grads, opt["vr"], opt["vc"]))):
-        adafactor_leaf(p, g, vr, vc, consts, tcfg)
+    trees = [tree_leaves(x) for x in (params, grads, opt["vr"], opt["vc"])]
+    for idx, stacked in adafactor_groups(params, stacks):
+        adafactor_group(*([t[i] for i in idx] for t in trees), consts, tcfg,
+                        stacked=stacked)
     return params, opt
 
 
@@ -167,28 +236,68 @@ def adafactor_consts(step: int, tcfg: TrainConfig):
             float(1.0 - _f32(step + 1) ** -0.8))
 
 
+_EPS = 1e-30
+
+
+def _factored(g32, vr, vc, beta2):
+    """The reference's factored step on one array of 2 or more dims:
+    (update before clipping, vr, vc)."""
+    g2 = g32.square() + _EPS
+    vr_n = beta2 * vr + (1 - beta2) * g2.mean(-1)
+    vc_n = beta2 * vc + (1 - beta2) * g2.mean(-2)
+    denom = (vr_n[..., :, None] * vc_n[..., None, :]
+             / torch.clamp(vr_n.mean(-1)[..., None, None], min=_EPS))
+    return g32 * torch.rsqrt(denom + _EPS), vr_n, vc_n
+
+
+def _unfactored(g32, vr, beta2):
+    vr_n = beta2 * vr + (1 - beta2) * (g32.square() + _EPS)
+    return g32 * torch.rsqrt(vr_n + _EPS), vr_n
+
+
 @torch.no_grad()
-def adafactor_leaf(p, g, vr, vc, consts, tcfg: TrainConfig) -> None:
-    """Adafactor on one whole leaf, in place (its row/column means and
-    update RMS span the leaf, so it takes no slices)."""
+def adafactor_group(ps, gs, vrs, vcs, consts, tcfg: TrainConfig,
+                    stacked: bool = False) -> None:
+    """Adafactor on one leaf (``stacked=False``, lists of one) or on the
+    per-layer leaves of one stack, as the reference updates the stacked
+    leaf; in place. Row/column means and the update RMS span the whole
+    leaf or stack, so it takes no slices."""
     lr, beta2 = consts
-    eps = 1e-30
-    wd = tcfg.weight_decay
-    g32 = g.float()
-    g2 = g32.square() + eps
-    if p.dim() >= 2:
-        vr_n = beta2 * vr + (1 - beta2) * g2.mean(-1)
-        vc_n = beta2 * vc + (1 - beta2) * g2.mean(-2)
-        denom = (vr_n[..., :, None] * vc_n[..., None, :]
-                 / torch.clamp(vr_n.mean(-1)[..., None, None], min=eps))
-        upd = g32 * torch.rsqrt(denom + eps)
+    for p, vr, vc in zip(ps, vrs, vcs):
+        want = _moment_shapes(p.shape, stacked)
+        if (tuple(vr.shape), tuple(vc.shape)) != want:
+            raise ValueError(
+                f"Adafactor moments {tuple(vr.shape)}/{tuple(vc.shape)} do "
+                f"not fit a {'stacked ' if stacked else ''}leaf of shape "
+                f"{tuple(p.shape)} (want {want[0]}/{want[1]}): make the "
+                f"state with the same stacks= the step uses")
+    if stacked and ps[0].dim() <= 1:
+        # factored (1-d per layer) or unfactored (0-d) across the stack
+        g32 = torch.stack([g.float() for g in gs])
+        if ps[0].dim() == 1:
+            upd, vr_n, vc_n = _factored(g32, torch.stack(vrs), vcs[0], beta2)
+        else:
+            (upd, vr_n), vc_n = _unfactored(g32, torch.stack(vrs), beta2), \
+                vcs[0]
+        upds = list(upd)
+        vr_new = list(vr_n)
+        vc_new = [vc_n] * len(ps)
     else:
-        vr_n = beta2 * vr + (1 - beta2) * g2
-        vc_n = vc
-        upd = g32 * torch.rsqrt(vr_n + eps)
-    rms = torch.sqrt(upd.square().mean() + eps)
-    upd = upd / torch.clamp(rms, min=1.0)
-    p32 = p.float()
-    p.copy_(p32 - lr * (upd + wd * p32))
-    vr.copy_(vr_n)
-    vc.copy_(vc_n)
+        upds, vr_new, vc_new = [], [], []
+        for g, vr, vc in zip(gs, vrs, vcs):
+            g32 = g.float()
+            if g32.dim() >= 2:
+                u, a, b = _factored(g32, vr, vc, beta2)
+            else:
+                (u, a), b = _unfactored(g32, vr, beta2), vc
+            upds.append(u)
+            vr_new.append(a)
+            vc_new.append(b)
+    n = sum(u.numel() for u in upds)
+    rms = torch.sqrt(sum(u.square().sum() for u in upds) / n + _EPS)
+    scale = torch.clamp(rms, min=1.0)
+    for p, u, vr, vc, a, b in zip(ps, upds, vrs, vcs, vr_new, vc_new):
+        p32 = p.float()
+        p.copy_(p32 - lr * (u / scale + tcfg.weight_decay * p32))
+        vr.copy_(a)
+        vc.copy_(b)

@@ -119,9 +119,9 @@ family) carry their conditioning as ``Request.extra``, the encoder frames
 ``(enc_seq, d_model)``: the runner's ``validate_request`` checks it at
 ``submit``/``generate`` (decoder families refuse it), and a prefill
 chunk's frames go to the runner stacked as f32 (and ride in a snapshot's
-array section). ``audit()`` (and ``prewarm(audit=True)``) raise
-``NotImplementedError``: the structural contracts they check live in the
-analysis layer, which is not ported yet.
+array section). ``audit()`` checks the structural contracts of every
+bucket (:mod:`repro_torch.analysis.contracts`) and ``prewarm(audit=True)``
+runs it before any warm-up launch.
 """
 
 from __future__ import annotations
@@ -132,7 +132,7 @@ import heapq
 import json
 import time
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -836,6 +836,8 @@ class ServeEngine:
         # decode_compiles, kept out of stats (and so out of snapshots)
         self._warm_prefill: Set[Tuple[int, int]] = set()
         self._warm_decode: Set[int] = set()
+        # the last audit()'s captures, (surface, capture) per bucket
+        self.audit_traces: List[Tuple[str, Any]] = []
         self.max_queue = None if max_queue is None else int(max_queue)
         self.shed_policy = shed_policy
         self.tenant_weights = {str(t): int(w)
@@ -1089,7 +1091,7 @@ class ServeEngine:
                 f"engine is dead ({self._fatal}); build a replacement "
                 f"engine and restore() its latest snapshot")
 
-    def _die(self, e: Exception) -> None:
+    def _die(self, e: BaseException) -> None:
         """Engine-fatal error: a launch may have written the slot state
         partway, so no device state can be trusted. Mark the engine dead
         (every later submit/step refuses) and raise."""
@@ -1362,7 +1364,9 @@ class ServeEngine:
             logits, ok, self.cache = self.runner.prefill(
                 self._tensor(toks), self._tensor(pos), self.cache,
                 self._tensor(np.asarray(slots, np.int64)), **kw)
-        except Exception as e:
+        # lint: allow-broad-except — fault-isolation boundary:
+        # classify_error decides request-fatal vs engine-fatal
+        except BaseException as e:
             if classify_error(e) != "request":
                 self._die(e)
             # transient fault BEFORE the launch: state intact, slot rows
@@ -1443,7 +1447,9 @@ class ServeEngine:
                     self._tensor(self._slot_last[idx][:, None]), self.cache,
                     self._tensor(self._slot_pos[idx]), self._tensor(idx))
                 break
-            except Exception as e:
+            # lint: allow-broad-except — fault-isolation boundary:
+            # classify_error decides retry vs engine-fatal
+            except BaseException as e:
                 if classify_error(e) != "request" or attempt >= 1:
                     self._die(e)
                 attempt += 1
@@ -1468,14 +1474,28 @@ class ServeEngine:
             self._push_token(slot, lg[j])
 
     def audit(self, raise_on_violation: bool = False):
-        """The reference's structural-contract audit. Not available: its
-        contracts (no weight FFT in any launch, no dense fallback, frozen
-        table dtypes) are checked by the analysis layer, which is not
-        ported yet."""
-        raise NotImplementedError(
-            "ServeEngine.audit() checks the structural contracts of the "
-            "analysis layer (repro.analysis: contracts, auditor), which is "
-            "not ported yet")
+        """Run every single-engine structural contract
+        (``analysis.contracts.audit_engine``: each bucket's prefill and
+        decode captured on prewarm's synthetic rows and a clone of the
+        cache, and the frozen-table dtypes) and return the violations; an
+        empty list is the pass condition. The engine's state, stats,
+        prefix index and warm shapes are left as they were. With
+        ``raise_on_violation=True`` a non-empty result raises
+        :class:`~repro_torch.analysis.contracts.StructuralContractError`,
+        whose message carries each violation's ``file:line``.
+        ``audit_traces`` keeps the captures, ``(surface, capture)`` per
+        bucket (none for a dense config), for launch counts."""
+        from repro_torch.analysis.contracts import (StructuralContractError,
+                                                    audit_engine,
+                                                    serve_traces)
+
+        self._check_alive()
+        traces = serve_traces(self) if self.cfg.swm.enabled else []
+        violations = audit_engine(self, traces)
+        self.audit_traces = traces
+        if raise_on_violation and violations:
+            raise StructuralContractError(violations)
+        return violations
 
     def prewarm(self, audit: bool = False) -> int:
         """Launch every (batch-bucket, prompt-bucket) prefill shape and
@@ -1493,8 +1513,8 @@ class ServeEngine:
         IDLE engine (no active slots) and flushes the prefix index first
         (spilling to the store, when one is attached). Warm-up launches
         are not counted in ``stats`` and reach no fault injector.
-        ``audit=True`` needs the analysis layer and raises
-        ``NotImplementedError``."""
+        ``audit=True`` runs :meth:`audit` first and raises on any
+        violation before a single warm-up launch."""
         self._check_alive()
         if self._active.any():
             raise RuntimeError(

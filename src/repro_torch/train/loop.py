@@ -30,18 +30,24 @@ with one bucketed all-reduce, and the optimizer moments are held as this
 rank's ZeRO-1 shard. The mesh also becomes the ambient mesh that
 ``impl="freq_shmap"`` reads. Refused: a mesh with a ``model`` axis > 1
 (tensor parallelism is not ported); FSDP configs keep their params whole
-on every rank (the numbers are the same). Not in the port yet, and refused
-with ``NotImplementedError``: the structural audit (``audit_args``, which
-needs ``analysis/``).
+on every rank (the numbers are the same).
+
+``audit_args`` gates a step on its structural contract
+(:mod:`repro_torch.analysis`): the step runs once, captured, on a clone of
+the state, and a violation raises ``StructuralContractError`` with the
+``file:line`` of each offending op.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.convert import layer_stacks
 from repro_torch.core.quant import default_exempt, quantize_tree
 from repro_torch.dist.sharding import local_slices
 from repro_torch.nn.module import load_tree, tree_leaves, tree_map
@@ -54,11 +60,24 @@ __all__ = ["make_loss_fn", "make_train_step", "init_train_state",
            "make_grad_step", "value_and_grad"]
 
 
-def _refuse_audit(audit_args) -> None:
-    if audit_args is not None:
-        raise NotImplementedError(
-            "audit_args needs the structural auditor (repro.analysis), "
-            "which is not ported yet")
+def _audit_step(step_fn, audit_args, rules, name: str):
+    """Run ``step_fn`` once, captured, on a clone of ``audit_args``' first
+    element (the state or the params: all its tensors are weight data) and
+    the batch; raise ``StructuralContractError`` (its ``trace`` the
+    capture) on any violation of ``rules``, else return the capture."""
+    from repro_torch.analysis.contracts import (Contract,
+                                                StructuralContractError,
+                                                clone_tree, run_contract)
+    from repro_torch.analysis.walker import Trace, capture
+
+    state, *rest = audit_args
+    state = clone_tree(state)
+    # the ops only: the step's result is the clone, which is let go
+    trace = Trace(capture(step_fn, state, *rest, pure=state).ops)
+    violations = run_contract(Contract(name=name, rules=tuple(rules)), trace)
+    if violations:
+        raise StructuralContractError(violations, trace=trace)
+    return trace
 
 
 def value_and_grad(fn: Callable, params, batch, *, has_aux: bool = False):
@@ -79,11 +98,19 @@ def _or_zeros(g, p):
     return torch.zeros_like(p) if g is None else g
 
 
-def make_grad_step(loss_fn: Callable, lr: float = 0.1, audit_args=None):
+def make_grad_step(loss_fn: Callable, lr: float = 0.1, audit_args=None,
+                   audit_rules=None):
     """Minimal SGD step over a bare ``loss_fn(params, batch)`` (no
     optimizer state): ``p -= lr * g`` in the param's dtype, in place.
-    Returns ``step(params, batch) -> (params, loss)``."""
-    _refuse_audit(audit_args)
+    Returns ``step(params, batch) -> (params, loss)``.
+
+    ``audit_args=(params, batch)`` gates the step on the train-step
+    structural contract before it returns: the step runs once, captured,
+    on a clone of the params (``step.audit_trace`` keeps the capture), and
+    any violation raises ``StructuralContractError`` with ``file:line``.
+    ``audit_rules``
+    overrides the rules (default ``NoFFT`` + ``NoDenseDotGeneral``, right
+    for plan-path losses, whose adjoint must stay in the kernels)."""
 
     def step(params, batch):
         loss, grads = value_and_grad(loss_fn, params, batch)
@@ -92,6 +119,14 @@ def make_grad_step(loss_fn: Callable, lr: float = 0.1, audit_args=None):
                 p.sub_(lr * g.to(p.dtype))
         return params, loss
 
+    step.audit_trace = None
+    if audit_args is not None:
+        from repro_torch.analysis.rules import NoDenseDotGeneral, NoFFT
+
+        rules = (audit_rules if audit_rules is not None
+                 else (NoFFT(), NoDenseDotGeneral()))
+        step.audit_trace = _audit_step(step, audit_args, rules,
+                                       name="grad_step")
     return step
 
 
@@ -144,18 +179,23 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
 
 
 def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw",
-                     opt_shardings=None, mesh=None):
+                     opt_shardings=None, mesh=None, stacks=()):
     """``{"params", "opt", "step": 0}``. Every param leaf becomes a leaf
     tensor that requires grad, in place (the tree keeps its tensors).
     With ``opt_shardings`` (the ``"opt"`` subtree of the data-parallel
     step's ``state_shardings``) and ``mesh``, each moment is made as this
-    rank's shard only."""
+    rank's shard only. Adafactor's moments take ``stacks``
+    (``convert.layer_stacks(cfg)``, the stacks the step updates as one
+    leaf each; :mod:`repro_torch.optim.optimizers`)."""
     for p in tree_leaves(params):
         if not p.is_leaf:
             raise ValueError("param leaves must be leaf tensors (no grad "
                              "history); detach them first")
         p.requires_grad_(True)
-    init = adafactor_init if optimizer == "adafactor" else adamw_init
+    if optimizer == "adafactor":
+        init = functools.partial(adafactor_init, stacks=stacks)
+    else:
+        init = adamw_init
     if opt_shardings is None:
         return {"params": params, "opt": init(params, tcfg), "step": 0}
     # the moments' shapes at no allocation, then zeros of the local shape
@@ -172,7 +212,7 @@ def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw",
 
 
 def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
-                    audit_args=None):
+                    audit_args=None, audit_rules=None):
     """``train_step(state, batch) -> (state, metrics)``: grads (averaged
     over ``tcfg.microbatch`` equal slices of the batch when > 1; a batch
     that ``microbatch`` does not divide raises ``ValueError``), global-norm
@@ -186,8 +226,17 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     .state_shardings["opt"], mesh=mesh)`` makes them (whole moments raise
     ``ValueError``). ``train_step.data_parallel`` is the
     :class:`~repro_torch.dist.data_parallel.DataParallel` (its
-    ``collectives`` counter included), None without a mesh."""
-    _refuse_audit(audit_args)
+    ``collectives`` counter included), None without a mesh.
+
+    ``audit_args=(state, batch)`` audits the step before it returns: one
+    step, captured, on a clone of the state (``train_step.audit_trace``
+    keeps the capture). The default rules are the
+    reference's: an SWM config gets ``DenseFallbackDot`` (no contraction
+    against a circulant layer's dense-equivalent kernel; state-derived
+    operands only, so activations pass) and a kernel- or DFT-backed impl
+    also ``NoFFT``. The ``paper``/``freq`` impls transform the weights
+    every forward in training by design (freezing happens at serve), so
+    no weight-fft rule applies. ``audit_rules`` overrides them."""
     loss_fn = make_loss_fn(model, cfg, tcfg)
     dp = None
     if mesh is not None:
@@ -226,13 +275,21 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                                                 has_aux=True)
         return loss, metrics, grads
 
-    update = adafactor_update if cfg.optimizer == "adafactor" else adamw_update
+    if cfg.optimizer == "adafactor":
+        update = functools.partial(adafactor_update,
+                                   stacks=layer_stacks(cfg))
+    else:
+        update = adamw_update
 
     def train_step(state, batch):
+        routing = contextlib.nullcontext()
         if dp is not None:
             dp.check_shards(state["opt"])
-            batch = dp.local_batch(batch)
-        loss, metrics, grads = compute_grads(state["params"], batch)
+            local = dp.local_batch(batch)
+            routing = dp.routing(batch, local)
+            batch = local
+        with routing:
+            loss, metrics, grads = compute_grads(state["params"], batch)
         if dp is not None:
             grads, loss, metrics = dp.average(grads, loss, metrics)
         # the norm is taken leaf by leaf, after the average, in the same
@@ -246,4 +303,27 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         return state, {"loss": loss, "grad_norm": gnorm, **metrics}
 
     train_step.data_parallel = dp
+    train_step.audit_trace = None
+    if audit_args is not None:
+        rules = audit_rules
+        if rules is None:
+            from repro_torch.analysis.contracts import (
+                FFT_FREE_IMPLS, dense_equivalent_shapes)
+            from repro_torch.analysis.rules import DenseFallbackDot, NoFFT
+
+            rules = []
+            if cfg.swm.enabled:
+                rules.append(DenseFallbackDot(
+                    dense_equivalent_shapes(model.specs()),
+                    weight_side=True))
+                if cfg.swm.impl in FFT_FREE_IMPLS:
+                    rules.append(NoFFT())
+        if rules:
+            try:
+                train_step.audit_trace = _audit_step(
+                    train_step, audit_args, rules, name="train_step")
+            finally:
+                # the model holds the clone's stepped params: give it back
+                # the caller's, violations or not
+                load_tree(model, audit_args[0]["params"])
     return train_step

@@ -7,11 +7,15 @@ same numpy inputs, with mirrors of ``tests/test_compress.py``.
 
 The multi-rank half spawns two ``gloo`` ranks on the CPU once for the
 module: each builds ``make_local_mesh(device="cpu")`` (a (2, 1) mesh), and
-runs a data-parallel ZeRO-1 step of a 3-layer smoke model in f32, the
+runs a data-parallel ZeRO-1 step of a 3-layer smoke model in f32 (AdamW,
+microbatch 2, Adafactor, and qwen3-moe's 2-layer smoke model with
+``remat="block"``, its MoE tokens routed over the global batch), the
 compressed all-reduce, ``freq_shmap``, an elastic restore of a 1-rank
 checkpoint and ``TrainDriver(mesh=)`` through a fault. The ranks' results
 come back to the test process, which holds them against one process
-training on the full batch. Tolerance: rel 1e-5 on params and moments,
+training on the full batch (the MoE variant's dropped tokens and aux loss
+too), and the Adafactor variant's params against the reference's
+Adafactor on the full batch. Tolerance: rel 1e-5 on params and moments,
 f32 (the two ranks' halves of the batch are summed in another order than
 one process's full batch; every other check is exact).
 """
@@ -28,8 +32,11 @@ import torch
 import torch.multiprocessing as mp
 from hypothesis import given, settings, strategies as st
 
+from repro.configs import qwen3_0_6b as jq
 from repro.dist import compress as jc
+from repro_torch import convert
 from repro_torch.configs import qwen3_0_6b as tq
+from repro_torch.configs import qwen3_moe_235b as tqm
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.dist import compress as tc
@@ -37,6 +44,7 @@ from repro_torch.ft import checkpoint as tck
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.specs import build_model
 from repro_torch.nn.module import init_params, tree_leaves
+from repro_torch.nn.moe import MoE
 from repro_torch.train.loop import init_train_state, make_train_step
 import test_torch_threads  # noqa: F401  (one thread budget per worker)
 
@@ -128,26 +136,39 @@ def _batches():
             for i in range(STEPS + 2)]
 
 
+# the MoE variant: qwen3-moe's 2-layer smoke model, every layer a MoE,
+# remat="block" (each MoE call gathers its counts again in the backward),
+# capacity factor 0.5 so that the capacity drops tokens
+MOE_CFG = dataclasses.replace(
+    tqm.SMOKE, remat="block", capacity_factor=0.5,
+    swm=dataclasses.replace(tqm.SMOKE.swm, impl="freq"))
 VARIANTS = {"adamw": (CFG, TCFG),
             "micro": (CFG, dataclasses.replace(TCFG, microbatch=2)),
             "adafactor": (dataclasses.replace(CFG, optimizer="adafactor"),
-                          TCFG)}
+                          TCFG),
+            "moe": (MOE_CFG, TCFG)}
+
+
+def _dropped(model) -> int:
+    """(token, slot) pairs the MoE layers dropped in the last forward."""
+    return sum(int(m.dropped) for m in model.modules()
+               if isinstance(m, MoE))
 
 
 def _train(mesh, tcfg, steps=STEPS, cfg=CFG):
-    """``steps`` steps of the smoke model from seed 0; the state, the step
-    and its last metrics."""
+    """``steps`` steps of the smoke model from seed 0; the state, the step,
+    its last metrics and the tokens its MoE layers dropped last."""
     model = build_model(cfg, device="cpu")
     step = make_train_step(model, cfg, tcfg, mesh=mesh)
     shards = (step.data_parallel.state_shardings["opt"]
               if mesh is not None else None)
     state = init_train_state(init_params(model.specs(), 0, device="cpu"),
                              tcfg, cfg.optimizer, opt_shardings=shards,
-                             mesh=mesh)
+                             mesh=mesh, stacks=convert.layer_stacks(cfg))
     metrics = None
     for b in _batches()[:steps]:
         state, metrics = step(state, b)
-    return state, step, metrics
+    return state, step, metrics, _dropped(model)
 
 
 def _np(tree):
@@ -172,9 +193,10 @@ def _rank_main(rank, port, ckpt, q):
             mesh, ("data", None))]
         out["coord"] = mesh.get_coordinate()
         for name, (cfg, tcfg) in VARIANTS.items():
-            state, step, m = _train(mesh, tcfg, cfg=cfg)
+            state, step, m, dropped = _train(mesh, tcfg, cfg=cfg)
             out[name] = {"params": _np(state["params"]),
                          "opt": _np(state["opt"]), "loss": float(m["loss"]),
+                         "aux": float(m["aux"]), "dropped": dropped,
                          "collectives": step.data_parallel.collectives,
                          "shardings": step.data_parallel.state_shardings}
         out["shardings"] = out["adamw"]["shardings"]
@@ -241,7 +263,7 @@ def ranks(tmp_path_factory):
     """Every rank's results, and the 1-rank checkpoint they restored."""
     root = tmp_path_factory.mktemp("dist")
     ckpt = str(root / "one_rank")
-    state, _, _ = _train(None, TCFG)
+    state, _, _, _ = _train(None, TCFG)
     tck.save_checkpoint(ckpt, STEPS, state)
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -280,7 +302,7 @@ def _moment_specs(shardings):
 def test_data_parallel_zero1_step_matches_full_batch(ranks, variant):
     outs, _ = ranks
     cfg, tcfg = VARIANTS[variant]
-    state, _, m = _train(None, tcfg, cfg=cfg)
+    state, _, m, dropped = _train(None, tcfg, cfg=cfg)
     ref_p, ref_o = _np(state["params"]), _np(state["opt"])
     specs = _moment_specs(outs[0][variant]["shardings"])
     n_sharded = 0
@@ -296,9 +318,42 @@ def test_data_parallel_zero1_step_matches_full_batch(ranks, variant):
             assert _rel(a, want) <= REL
         if variant != "adafactor":
             # per step: one grad all-reduce, one param all-gather (one
-            # param dtype); Adafactor gathers its sharded moments instead
-            assert got["collectives"] == 2 * STEPS
+            # param dtype); Adafactor gathers its sharded moments instead;
+            # each MoE layer gathers its counts in the forward and again
+            # in the remat recompute
+            moe = 2 * cfg.n_layers if variant == "moe" else 0
+            assert got["collectives"] == (2 + moe) * STEPS
     assert n_sharded > 0
+    if variant == "moe":
+        # the global batch routed: the ranks' drops add up to the full
+        # batch's, and the aux loss (mean over ranks) is the full batch's
+        assert dropped > 0
+        assert sum(o["moe"]["dropped"] for o in outs) == dropped
+        aux = np.mean([o["moe"]["aux"] for o in outs])
+        assert aux == pytest.approx(float(m["aux"]), rel=REL)
+
+
+def test_data_parallel_adafactor_matches_reference(ranks):
+    """The two-rank Adafactor step against the reference's Adafactor on
+    the full batch (repeated layers updated as one stacked leaf)."""
+    from test_torch_repairs import reference_adafactor
+
+    outs, _ = ranks
+    cfg, tcfg = VARIANTS["adafactor"]
+    jcfg = dataclasses.replace(jq.SMOKE, optimizer="adafactor",
+                               swm=dataclasses.replace(jq.SMOKE.swm,
+                                                       impl="freq"))
+    tparams = init_params(build_model(cfg, device="cpu").specs(), 0,
+                          device="cpu")
+    ref = convert.to_reference(cfg, tparams)
+    kw = {f: getattr(tcfg, f) for f in ("learning_rate", "warmup_steps",
+                                         "total_steps")}
+    jp, _, _ = reference_adafactor(
+        jcfg, kw, ref, [b["tokens"].numpy() for b in _batches()[:STEPS]])
+    want = tree_leaves(convert.from_reference(cfg, jp, "cpu"))
+    for o in outs:
+        for a, b in zip(o["adafactor"]["params"], want):
+            assert _rel(a, b.numpy()) <= REL
 
 
 def test_placements_and_mesh(ranks):

@@ -12,8 +12,9 @@ equal the reference engine's. The port's counters count launch shapes,
 the reference's jit executables: prewarm fills both to the bucket grid.
 Then, on the port alone: prewarm-then-serve equals serving cold for the
 recurrent (rwkv6), enc-dec (seamless) and ring-cache (gemma3) smoke
-configs, with rwkv6's state back to fresh rows after prewarm; ``audit()``
-refuses naming the analysis layer. The launcher's errors are held to the
+configs, with rwkv6's state back to fresh rows after prewarm. ``audit()`` returns
+no violations on both engines, and ``prewarm(audit=True)`` on a planted
+weight transform raises before its first warm-up launch. The launcher's errors are held to the
 reference launcher's wording, and the torch ``serve_demo`` runs at 20
 training steps with its printed invariants checked.
 """
@@ -181,13 +182,68 @@ def test_prewarm_requires_idle(lm):
     _both(script)
 
 
-def test_audit_refuses_naming_the_analysis_layer(lm):
-    eng = _engine(teng, lm)
-    with pytest.raises(NotImplementedError, match="analysis layer"):
-        eng.audit()
-    with pytest.raises(NotImplementedError, match="analysis layer"):
+@pytest.fixture(scope="module")
+def lm_kernel():
+    """``lm``'s model on the kernel impl (``pallas``), whose serve path
+    holds no transform at all (the ``dft`` impl's frozen path still runs
+    an irfft in both packages: ``tests/test_torch_analysis.py``)."""
+    jcfg = JCfg(**FIELDS, swm=JSWM(block_size=8, impl="pallas"))
+    tcfg = TCfg(**FIELDS, swm=TSWM(block_size=8, impl="pallas"))
+    tparams = init_params(build_model(tcfg, device="cpu").specs(), 0,
+                          device="cpu")
+    ref = convert.to_reference(tcfg, tparams)
+    return jcfg, tcfg, JLM(jcfg), jax.tree.map(jnp.asarray, ref), ref
+
+
+def test_audit_passes_and_prewarm_audits_first(lm_kernel):
+    """``audit()`` on a clean engine returns [] in both packages, and the
+    port's ``prewarm(audit=True)`` warms every shape after it, keeping
+    its audit's captures: one per bucket, with a fresh capture's launch
+    counts."""
+    from repro_torch.analysis.contracts import launch_counts
+
+    for mod in (jeng, teng):
+        assert _engine(mod, lm_kernel, share=False).audit() == []
+    eng = _engine(teng, lm_kernel)
+    assert eng.audit_traces == []
+    n = eng.prewarm(audit=True)
+    assert n == eng.max_prefill_variants + eng.max_decode_variants
+    assert len(eng.audit_traces) == n
+    kept = launch_counts(eng, eng.audit_traces)
+    assert kept == launch_counts(eng) and min(kept.values()) > 0
+
+
+def test_prewarm_audit_raises_before_any_warm_up_launch(lm_kernel):
+    """A planted weight transform in one layer's forward: the audit names
+    it (rule, bucket and this file's line) and prewarm launches
+    nothing."""
+    from repro_torch.analysis.contracts import StructuralContractError
+
+    eng = _engine(teng, lm_kernel)
+    mixer = eng.runner.model.layers[0].mixer
+
+    def weight_fft(module, args):
+        torch.fft.rfft(module.o.wr, dim=-1)          # the planted fault
+
+    handle = mixer.register_forward_pre_hook(weight_fft)
+    before = (eng.cache[0]["k"].clone(), eng.stats.prefill_calls)
+    with pytest.raises(StructuralContractError) as ei:
         eng.prewarm(audit=True)
-    assert eng.prefill_compiles == 0
+    handle.remove()
+    msg = str(ei.value)
+    assert "NoWeightFFT" in msg and "serve_prefill[B1," in msg
+    assert f"test_torch_prewarm_wave.py:{_line_of('the planted fault')}" \
+        in msg
+    assert eng.prefill_compiles == eng.decode_compiles == 0
+    assert torch.equal(eng.cache[0]["k"], before[0])
+    assert eng.stats.prefill_calls == before[1]
+    assert eng.audit() == []
+
+
+def _line_of(marker):
+    with open(__file__) as f:
+        return next(i for i, line in enumerate(f, 1)
+                    if marker in line and "_line_of" not in line)
 
 
 def _smoke_serve(arch, prewarm):

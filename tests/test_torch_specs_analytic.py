@@ -101,13 +101,14 @@ def test_state_specs_match_reference(arch):
         params = _flat(tsds["params"])
 
         def own(key):
-            # Adafactor factors a >= 2-d leaf: the reference's stacked
-            # (layers, d) vector is 2-d there, the port's (d,) is not, so
-            # it keeps an unfactored vr and a (1,) vc (ROADMAP Queue 3)
+            # Adafactor factors a stack's 1-d per-layer leaves across the
+            # layers: the stack's vc (d,) has no layer axis, so every
+            # layer's leaf holds the whole of it (a 0-d leaf's (1,) too)
             def f(path, stacked):
                 shape = params[path][0]
-                if opt == "adafactor" and stacked and len(shape) == 1:
-                    return shape if key == "vr" else (1,)
+                if opt == "adafactor" and stacked and len(shape) <= 1 \
+                        and key == "vc":
+                    return tuple(shape) if shape else (1,)
                 return None
             return f
 

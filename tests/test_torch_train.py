@@ -300,13 +300,64 @@ def test_grad_step_matches_reference():
     assert _rel(tp["w"].detach(), jp["w"]) <= REL_TOL
 
 
-def test_unported_features_raise(smoke):
-    _, tcfg, _, _, _ = smoke
+def test_train_step_audit_passes_on_a_clone(smoke):
+    """``audit_args`` on the smoke model with the ``freq`` impl: the
+    default rules (DenseFallbackDot) pass, and the audited step ran on a
+    clone: the state's tensors are unchanged."""
+    _, tcfg, _, jparams, data = smoke
+    tcfg = dataclasses.replace(tcfg, swm=TSWM(block_size=8, impl="freq"))
     model = build_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="analysis"):
-        make_train_step(model, tcfg, TTrain(), audit_args=({}, {}))
-    with pytest.raises(NotImplementedError, match="analysis"):
-        make_grad_step(lambda p, b: 0.0, audit_args=({}, {}))
+    state = init_train_state(_port_params(tcfg, jparams), TTrain())
+    before = [t.detach().clone() for t in tree_leaves(state["params"])]
+    step = make_train_step(model, tcfg, TTrain(),
+                           audit_args=(state, _tokens(data, 0)))
+    assert state["step"] == 0
+    for a, b in zip(tree_leaves(state["params"]), before):
+        assert torch.equal(a.detach(), b)
+    state, m = step(state, _tokens(data, 0))
+    assert torch.isfinite(m["loss"])
+
+
+def test_train_step_audit_on_the_kernel_impl_flags_freq_weights(smoke):
+    """On the kernel impl the default rules add NoFFT, and both packages
+    fire it: their training forward transforms each time-domain table
+    (``freq_weights``' rfft) every step."""
+    from repro.analysis.contracts import StructuralContractError as JErr
+    from repro_torch.analysis.contracts import StructuralContractError
+
+    jcfg, tcfg, jm, jparams, data = smoke
+    batch = _tokens(data, 0)
+    with pytest.raises(JErr, match="NoFFT"):
+        jmake_step(jm, jcfg, JTrain(), audit_args=(
+            jinit_state(jparams, JTrain()),
+            {"tokens": jnp.asarray(batch["tokens"].numpy())}))
+    state = init_train_state(_port_params(tcfg, jparams), TTrain())
+    with pytest.raises(StructuralContractError, match="NoFFT") as ei:
+        make_train_step(build_model(tcfg, device="cpu"), tcfg, TTrain(),
+                        audit_args=(state, batch))
+    assert "kernels/block_circulant/ops.py" in str(ei.value)
+
+
+def test_grad_step_audit_names_the_bad_line():
+    """A bad ``audit_args`` loss (a weight fft and a dense matmul) raises
+    ``StructuralContractError`` with this file's line for each."""
+    from repro_torch.analysis.contracts import StructuralContractError
+
+    def bad_loss(params, batch):
+        wf = torch.fft.rfft(params["w"], dim=-1)        # planted: fft
+        y = batch["x"] @ params["w"].reshape(8, 8)      # planted: dense
+        return wf.abs().sum() + y.square().mean()
+
+    params = {"w": torch.randn(2, 4, 8, requires_grad=True)}
+    batch = {"x": torch.randn(3, 8)}
+    with pytest.raises(StructuralContractError) as ei:
+        make_grad_step(bad_loss, audit_args=(params, batch))
+    msg = str(ei.value)
+    lines = {n for n, line in enumerate(open(__file__), 1)
+             if "# planted:" in line and "lines =" not in line}
+    assert "grad_step: NoFFT" in msg and "NoDenseDotGeneral" in msg
+    for n in lines:
+        assert f"test_torch_train.py:{n}" in msg
 
 
 def test_train_launcher_runs_on_cpu(capsys):
