@@ -58,6 +58,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    --all-configs`` on the card (every registry arch at SMOKE, both quantize
    legs, and the lint: no violation), run in the background beside
    (a)-(d);
+3d. tensor parallelism and FSDP (``tp`` phase; its ranks are spawned
+   before the analysis phase and run beside it, the rest follows it; its
+   rows join phase 4's checks): (a) qwen3-0.6b and (b) arctic-480b with
+   ``fsdp=True``, each cut to 2 layers at full width in f32
+   (``impl="pallas"``, AdamW, one step at step 1 of the schedule, batch 8
+   x seq 256), on meshes (data=1, model=2) and (data=2, model=2): 2 and 4
+   ranks in ``gloo`` groups on cuda:0 (NCCL refuses two ranks on one GPU;
+   collectives staged through host memory). Each rank saves its state
+   whole (``save_checkpoint(shardings=, mesh=)``); this process takes the
+   same step on one process and holds the checkpoint, restored onto one
+   process, to it (params over the tree and moments leaf by leaf, rel <=
+   1e-5; loss and grad norm of every rank too); launches per rank per step
+   pinned (30/10, 54/16); collectives, bytes per collective, per-rank
+   param and moment bytes beside one process's, and (b)'s peak device
+   memory per rank, which must be below one process's; (c) every shard
+   shape (qwen3's fused QKV (16, 8), o (8, 8), gate/up (12, 8), down
+   (8, 12); arctic's (36, 56), (56, 28), (19, 56), (56, 19) and its 64
+   local experts' (38, 56) and (56, 38) grouped; their dx transposes, and
+   q and k/v alone) against its plain version, f32 and bf16, ``bc_dw`` at
+   every weight shape, and their device times;
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -2865,9 +2885,9 @@ def hybrid_launches(model):
 
 
 def cut_depth(cfg, n):
-    """``cfg`` cut to ``n`` layers: its ``n_layers``, or for a config that
-    lists its layers as one group of one kind (rwkv6) that group's
-    repeat."""
+    """``cfg`` cut to ``n`` layers: its ``n_layers`` (and an enc-dec
+    config's ``n_enc_layers``), or for a config that lists its layers as
+    one group of one kind (rwkv6) that group's repeat."""
     if cfg.groups is not None:
         (group,) = cfg.groups
         if len(group.layers) != 1:
@@ -2876,6 +2896,8 @@ def cut_depth(cfg, n):
         cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(
             group, repeat=n),))
     cfg = dataclasses.replace(cfg, n_layers=n)
+    if cfg.n_enc_layers:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n)
     if len(cfg.layer_specs()) != n:
         fail(f"{cfg.name}: the cut has {len(cfg.layer_specs())} layers, "
              f"not {n}")
@@ -3877,8 +3899,12 @@ MOE_CAPACITY = 160
 # backward also amplifies rounding with depth: on an NVIDIA H100 80GB HBM3
 # at 700 W its 32-layer bf16 grad norms read 9.1106 on the card and 8.5920
 # on the CPU (rel 6.0e-2; losses within 1e-4), where in f32 they agree to
-# 2.4e-6 and at 8 layers in bf16 to 1.5e-4 (PERF.md §6)
-TRAIN_FAMILY_CPU_DEPTH = {"jamba-v0.1-52b": 8, "rwkv6-7b": 8}
+# 2.4e-6 and at 8 layers in bf16 to 1.5e-4 (PERF.md §6). paligemma-3b and
+# seamless-m4t-medium compare 2-layer cuts (seamless: 2 encoder + 2
+# decoder layers): their full-depth CPU steps took 25.6-28.1 s and 5.1-6.2
+# s of a run whose host speed moves its total by a quarter
+TRAIN_FAMILY_CPU_DEPTH = {"jamba-v0.1-52b": 8, "rwkv6-7b": 8,
+                          "paligemma-3b": 2, "seamless-m4t-medium": 2}
 JAMBA_CAPACITY = 320
 ARCTIC_CAPACITY = 40
 # per arch, (name, groups, p, q, rows, bc_matmul launches, bc_dw launches)
@@ -4158,7 +4184,7 @@ def phase_train_family_dw(torch, kernel, dev):
     return worst_abs
 
 
-def phase_dw_group_times(torch, kernel, dev, cases):
+def phase_dw_group_times(torch, kernel, dev, cases, label="train_family"):
     """bc_dw device times at ``cases`` = [(name, groups, P, Q, rows,
     launches per step)], bf16 x and g, dw (G, P, Q·k) f32: the kernel, its
     plain version, the dense weight gradient ``gᵀ @ x`` (``torch.bmm`` over
@@ -4167,7 +4193,7 @@ def phase_dw_group_times(torch, kernel, dev, cases):
     gen = torch.Generator(device=dev).manual_seed(15)
     Kf = K // 2 + 1
     rows = []
-    print("train_family bc_dw device times (bf16 x and g; median of 30 "
+    print(f"{label} bc_dw device times (bf16 x and g; median of 30 "
           "runs, CUDA events; bound as above over all groups; yardstick = "
           "the dense weight gradient g^T @ x, torch.bmm over the groups):")
     for name, G, P, Q, B, per in cases:
@@ -5181,6 +5207,383 @@ def phase_analysis(torch, kernel, dev, engine):
                 planted=planted, cli_archs=archs, seconds=secs), launches
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism and FSDP (``tp`` phase)
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-0.6b on (data=1, model=2) and (b) arctic-480b with fsdp=True on
+# (data=2, model=2): 2-layer cuts at full width in f32 (train_family's
+# depth for arctic; dist (b)'s cut for qwen3), impl="pallas", remat
+# "block", AdamW, one step at step 1 of the schedule on the train batch
+TP_RUNS = {"a": ("qwen3-0.6b", (1, 2)), "b": ("arctic-480b", (2, 2))}
+TP_LAYERS = 2
+TP_TOL = 1e-5
+# bc_matmul / bc_dw launches per rank per step, pinned: one process's
+# (2 layers x qwen3's 15 / 5, arctic's 27 / 8), each at its shard shape
+TP_LAUNCHES = {"a": {"bc_matmul": 30, "bc_dw": 10},
+               "b": {"bc_matmul": 54, "bc_dw": 16}}
+# (name, groups, p, q, launches per rank per step, rows) of every shard
+# shape a rank launches at model = 2, k = 128: forward (and recompute) at
+# (p, q), dx at (q, p). qwen3 runs 2048 rows per rank (data = 1); arctic
+# 1024 (data = 2), its 64 local experts at the capacity's 40 rows
+TP_SHAPES = {
+    "a": [("qwen3.qkv", 1, 16, 8, 4, 2048),
+          ("qwen3.qkv.dx", 1, 8, 16, 2, 2048),
+          ("qwen3.o", 1, 8, 8, 4, 2048), ("qwen3.o.dx", 1, 8, 8, 2, 2048),
+          ("qwen3.wi_wu", 1, 12, 8, 8, 2048),
+          ("qwen3.wi_wu.dx", 1, 8, 12, 4, 2048),
+          ("qwen3.wo", 1, 8, 12, 4, 2048),
+          ("qwen3.wo.dx", 1, 12, 8, 2, 2048)],
+    "b": [("arctic.qkv", 1, 36, 56, 4, 1024),
+          ("arctic.qkv.dx", 1, 56, 36, 2, 1024),
+          ("arctic.o", 1, 56, 28, 4, 1024),
+          ("arctic.o.dx", 1, 28, 56, 2, 1024),
+          ("arctic.wi_wu", 1, 19, 56, 8, 1024),
+          ("arctic.wi_wu.dx", 1, 56, 19, 4, 1024),
+          ("arctic.wo", 1, 56, 19, 4, 1024),
+          ("arctic.wo.dx", 1, 19, 56, 2, 1024),
+          ("arctic.experts.wi_wu", 64, 38, 56, 12, 40),
+          ("arctic.experts.wi_wu.dx", 64, 56, 38, 4, 40),
+          ("arctic.experts.wo", 64, 56, 38, 6, 40),
+          ("arctic.experts.wo.dx", 64, 38, 56, 2, 40)],
+}
+# the q and k/v tables on their own (the fused launch concatenates them)
+TP_SPLIT_SHAPES = [("qwen3.q", 1, 8, 8, 0, 2048),
+                   ("qwen3.kv", 1, 4, 8, 0, 2048),
+                   ("arctic.q", 1, 28, 56, 0, 1024),
+                   ("arctic.kv", 1, 4, 56, 0, 1024)]
+# (name, groups, P, Q, launches per rank per step, rows) of every bc_dw
+TP_DW_SHAPES = {
+    "a": [("qwen3.qkv", 1, 16, 8, 2, 2048), ("qwen3.o", 1, 8, 8, 2, 2048),
+          ("qwen3.wi_wu", 1, 12, 8, 4, 2048), ("qwen3.wo", 1, 8, 12, 2, 2048)],
+    "b": [("arctic.qkv", 1, 36, 56, 2, 1024), ("arctic.o", 1, 56, 28, 2, 1024),
+          ("arctic.wi_wu", 1, 19, 56, 4, 1024),
+          ("arctic.wo", 1, 56, 19, 2, 1024),
+          ("arctic.experts.wi_wu", 64, 38, 56, 4, 40),
+          ("arctic.experts.wo", 64, 56, 38, 2, 40)],
+}
+
+
+def tp_config(run):
+    """(a)'s or (b)'s config: the arch at full width in f32, 2 layers."""
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.registry import get_config
+
+    arch, _ = TP_RUNS[run]
+    return cut_depth(dataclasses.replace(
+        get_config(arch), swm=SWMConfig(block_size=128, impl="pallas"),
+        param_dtype="float32", compute_dtype="float32"), TP_LAYERS)
+
+
+def tp_batch(torch, cfg, dev):
+    from repro_torch.data.pipeline import SyntheticLM
+
+    return {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+        seed=0).batch_np(0)["tokens"]).to(dev)}
+
+
+def tp_bytes(tree):
+    from repro_torch.nn.module import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_step(torch, dev, run, mesh):
+    """One step of ``run`` from seed 0's params, on ``mesh`` (this rank's
+    shards) or in one process (None). Returns (state, step fn, model,
+    metrics, step ms, peak device bytes above the bytes held before the
+    model)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = tp_config(run)
+    tcfg = TrainConfig(warmup_steps=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device=dev)
+    step = make_train_step(model, cfg, tcfg, mesh=mesh)
+    shard = (step.data_parallel.state_shardings if mesh is not None
+             else {"params": None, "opt": None})
+    state = init_train_state(init_params(model.specs(), seed=0, device=dev),
+                             tcfg, opt_shardings=shard["opt"],
+                             param_shardings=shard["params"], mesh=mesh)
+    state["step"] = 1                  # a step whose learning rate is > 0
+    batch = tp_batch(torch, cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, metrics = step(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (state, step, model, metrics, ms,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def tp_rank_main(run, rank, port, ckpt, q):
+    """A rank of (a) or (b): a gloo group on cuda:0 (NCCL refuses two
+    ranks on one GPU), one step on its shards, then the state saved whole
+    (``save_checkpoint(shardings=, mesh=)``, rank 0 writing) for the
+    parent to restore onto one process; its figures go back through
+    ``q``."""
+    import torch
+    import torch.distributed as dist
+
+    arch, shape = TP_RUNS[run]
+    out = {"run": run, "rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_num_threads(1)
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=shape[0] * shape[1], rank=rank)
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.ft.checkpoint import save_checkpoint
+        from repro_torch.kernels.block_circulant import kernel
+
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
+        from repro_torch.nn.attention import Attention
+
+        state, step, model, metrics, ms, peak = tp_step(torch, dev, run,
+                                                        mesh)
+        launches = dict(kernel.LAUNCHES)
+        dp = step.data_parallel
+        out.update(coord=tuple(int(c) for c in mesh.get_coordinate()),
+                   launches=launches, ms=ms, peak=peak,
+                   loss=float(metrics["loss"]),
+                   grad_norm=float(metrics["grad_norm"]),
+                   collectives=dp.collectives, comm_bytes=dp.comm_bytes,
+                   param_bytes=tp_bytes(state["params"]),
+                   moment_bytes=tp_bytes(state["opt"]),
+                   kv=sorted({m.tp.kv for m in model.modules()
+                               if isinstance(m, Attention)
+                               and m.tp is not None}))
+        t = time.perf_counter()
+        save_checkpoint(ckpt, 1, state, shardings=dp.state_shardings,
+                        mesh=mesh)
+        out["save_s"] = time.perf_counter() - t
+    except Exception as e:             # reported by the parent, which fails
+        import traceback
+
+        out["error"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_spawn(tmp):
+    """Start (a)'s two and (b)'s four ranks (``spawn``: this process holds
+    the card), each run with its own group and checkpoint directory under
+    ``tmp``; returns (processes, queue)."""
+    import os
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = []
+    for run, (_, shape) in TP_RUNS.items():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs += [ctx.Process(target=tp_rank_main,
+                              args=(run, r, port, os.path.join(tmp, run), q))
+                  for r in range(shape[0] * shape[1])]
+    for p in procs:
+        p.start()
+    return procs, q
+
+
+def tp_join(procs, q):
+    """Every rank's report, by run and rank; a rank that failed fails."""
+    try:
+        outs = [q.get(timeout=300) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for o in outs:
+        if "error" in o:
+            fail(f"tp ({o['run']}) rank {o['rank']}: {o['error']}")
+    return {run: sorted((o for o in outs if o["run"] == run),
+                        key=lambda o: o["rank"]) for run in TP_RUNS}
+
+
+def tp_compare(torch, ref, ckpt, dev):
+    """The ranks' checkpoint, restored onto one process, against the
+    one-process state ``ref``: params over the tree (||diff|| / ||ref||,
+    and leaf by leaf), moments leaf by leaf (max |diff| / max |ref|)."""
+    from repro_torch.ft.checkpoint import restore_checkpoint
+    from repro_torch.nn.module import tree_leaves
+
+    got = restore_checkpoint(ckpt, 1, device=dev)
+    with torch.no_grad():
+        pairs = list(zip(tree_leaves(got["params"]),
+                         tree_leaves(ref["params"])))
+        if any(a.shape != b.shape for a, b in pairs):
+            fail("tp: a restored param's shape differs from one process's")
+        leaf = max(rel_err(a, b) for a, b in pairs)
+        diff = sum(float((a.double() - b.double()).square().sum())
+                   for a, b in pairs)
+        norm = sum(float(b.double().square().sum()) for _, b in pairs)
+        moments = max(rel_err(a, b) for key in ("m", "v")
+                      for a, b in zip(tree_leaves(got["opt"][key]),
+                                      tree_leaves(ref["opt"][key])))
+    return math.sqrt(diff / norm), leaf, moments, int(got["step"])
+
+
+def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
+    """Tensor parallelism and FSDP on the card, parts (a)-(c) (module
+    docstring). The ranks were started before the analysis phase and ran
+    beside it; here one process takes the same steps (its launches not
+    counted), the shard shapes are checked while the ranks finish, the
+    ranks are joined, their checkpoints restored and held to the steps,
+    and the shard shapes are timed with the card to itself. Returns
+    (report row, the ranks' launches, rows, bc_matmul times, bc_dw
+    times)."""
+    import os
+
+    t_phase = time.perf_counter()
+    saved = dict(kernel.LAUNCHES)
+    refs = {}
+    for run in TP_RUNS:
+        state, _, _, metrics, ms, peak = tp_step(torch, dev, run, None)
+        refs[run] = dict(state=state, loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]), ms=ms,
+                         peak=peak, param_bytes=tp_bytes(state["params"]),
+                         moment_bytes=tp_bytes(state["opt"]))
+    kernel.LAUNCHES.update(saved)
+    t_ref = time.perf_counter() - t_phase
+    # (c) the shard shapes against their plain versions while the ranks
+    # finish (their timing waits for the ranks' exit)
+    shapes = [c for run in TP_RUNS for c in TP_SHAPES[run]] + TP_SPLIT_SHAPES
+    mm_abs = phase_hybrid_kernels(
+        torch, kernel, quant, dev, {c[0]: {c[5]} for c in shapes},
+        shapes=[c[:5] for c in shapes], label="tp", seed=20)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    dw_abs = 0.0
+    dw_shapes = [c for run in TP_RUNS for c in TP_DW_SHAPES[run]]
+    for name, G, P, Q, _, B in dw_shapes:
+        lead = (G,) if G > 1 else ()
+        x32 = torch.randn(*lead, B, Q * K, generator=gen, device=dev)
+        g32 = torch.randn(*lead, B, P * K, generator=gen, device=dev)
+        dw_abs = max(dw_abs, check_dw(torch, kernel, x32, g32, P, Q, K,
+                                      name))
+    print(f"tp bc_dw checks: {4 * len(dw_shapes)} passed at "
+          f"{[(n, G, P, Q, B) for n, G, P, Q, _, B in dw_shapes]}, k = {K}, "
+          f"both epilogues, f32 and bf16 inputs (rel <= {FP32_TOL} x max(1, "
+          f"B/{DW_TOL_ROWS}); repeat launches bit-identical); max abs err "
+          f"(f32) = {dw_abs!r}")
+    t_checks = time.perf_counter() - t_phase
+    outs = tp_join(procs, q)
+    t_join = time.perf_counter() - t_phase
+    report = {}
+    for run, (arch, shape) in TP_RUNS.items():
+        ref, ranks = refs.pop(run), outs[run]
+        t = time.perf_counter()
+        rel_p, rel_leaf, rel_m, step = tp_compare(
+            torch, ref["state"], os.path.join(tmp, run), dev)
+        restore_s = time.perf_counter() - t
+        del ref["state"]
+        torch.cuda.empty_cache()
+        if not (rel_p <= TP_TOL and rel_m <= TP_TOL and step == 2):
+            fail(f"tp ({run}) {arch} on {shape}: the ranks' state vs one "
+                 f"process's: params rel {rel_p!r}, moments rel {rel_m!r} "
+                 f"(limit {TP_TOL}), step {step}")
+        coll = {o["collectives"] for o in ranks}
+        for o in ranks:
+            if o["launches"] != TP_LAUNCHES[run]:
+                fail(f"tp ({run}) rank {o['rank']}: launches "
+                     f"{o['launches']} != {TP_LAUNCHES[run]}")
+            for key in ("loss", "grad_norm"):
+                e = abs(o[key] - ref[key]) / abs(ref[key])
+                if not e <= TP_TOL:
+                    fail(f"tp ({run}) rank {o['rank']}: {key} {o[key]!r} "
+                         f"vs one process's {ref[key]!r}")
+            if run == "b" and not o["peak"] < ref["peak"]:
+                fail(f"tp (b) rank {o['rank']}: peak device memory "
+                     f"{o['peak']} B is not below one process's "
+                     f"{ref['peak']} B")
+        if len(coll) != 1:
+            fail(f"tp ({run}): the ranks issued {sorted(coll)} collectives")
+        o0 = ranks[0]
+        per_coll = o0["comm_bytes"] / max(o0["collectives"], 1)
+        print(f"tp ({run}) {arch} cut to {TP_LAYERS} layers at full width, "
+              f"f32, AdamW, on mesh (data={shape[0]}, model={shape[1]}) = "
+              f"{len(ranks)} gloo ranks on cuda:0 (collectives staged "
+              f"through host memory){', fsdp=True' if run == 'b' else ''}; "
+              f"one step at step 1 of the schedule, batch {TRAIN_BATCH} x "
+              f"seq {TRAIN_SEQ}: params rel {rel_p!r} over the tree (leaf "
+              f"by leaf {rel_leaf!r}), moments rel {rel_m!r} leaf by leaf "
+              f"(limit {TP_TOL}), through the ranks' checkpoint saved whole "
+              f"and restored onto one process ({restore_s:.1f} s restore, "
+              f"{max(o['save_s'] for o in ranks):.1f} s save); loss "
+              f"{o0['loss']!r} vs {ref['loss']!r}, grad norm "
+              f"{o0['grad_norm']!r} vs {ref['grad_norm']!r}; K/V "
+              f"{o0['kv']}; per rank per step: launches {o0['launches']} "
+              f"(pinned), {o0['collectives']} collectives, "
+              f"{o0['comm_bytes']} B sent ({per_coll:.0f} B per "
+              f"collective); per rank: params {o0['param_bytes']} B and "
+              f"moments {o0['moment_bytes']} B vs one process's "
+              f"{ref['param_bytes']} B and {ref['moment_bytes']} B; peak "
+              f"device memory per rank "
+              f"{[o['peak'] for o in ranks]} B vs one process's "
+              f"{ref['peak']} B; step wall "
+              f"{[round(o['ms'], 1) for o in ranks]} ms per rank vs "
+              f"{ref['ms']:.1f} ms in one process ({CARD[0]})")
+        report[run] = dict(arch=arch, mesh=shape, rel_params=rel_p,
+                           rel_params_leaf=rel_leaf, rel_moments=rel_m,
+                           loss=o0["loss"], ref_loss=ref["loss"],
+                           launches=o0["launches"],
+                           collectives=o0["collectives"],
+                           comm_bytes=o0["comm_bytes"],
+                           param_bytes=o0["param_bytes"],
+                           moment_bytes=o0["moment_bytes"],
+                           ref_param_bytes=ref["param_bytes"],
+                           ref_moment_bytes=ref["moment_bytes"],
+                           peak=[o["peak"] for o in ranks],
+                           ref_peak=ref["peak"],
+                           ms=[o["ms"] for o in ranks], ref_ms=ref["ms"],
+                           save_s=max(o["save_s"] for o in ranks),
+                           restore_s=restore_s, kv=o0["kv"])
+    t_cmp = time.perf_counter() - t_phase
+    # each distinct (groups, p, q, rows) timed once: a dx launch runs the
+    # transposed grid of another layer's forward
+    distinct = {}
+    for name, G, p, q, per, B in (c for run in TP_RUNS
+                                  for c in TP_SHAPES[run]):
+        n, total = distinct.get((G, p, q, B), ("", 0))
+        distinct[(G, p, q, B)] = (f"{n} + {name}" if n else name,
+                                  total + per)
+    times = phase_hybrid_times(
+        torch, kernel, dev, [(n, G, p, q, per, B) for (G, p, q, B), (n, per)
+                             in distinct.items()], label="tp", seed=22)
+    dw_times = phase_dw_group_times(
+        torch, kernel, dev, [(n, G, P, Q, B, per)
+                             for n, G, P, Q, per, B in dw_shapes], label="tp")
+    secs = time.perf_counter() - t_phase
+    print(f"tp phase: {secs:.1f}s after the analysis phase (one-process "
+          f"steps until {t_ref:.1f}s, kernel checks until {t_checks:.1f}s, "
+          f"waiting for the ranks until {t_join:.1f}s, their checkpoints "
+          f"held to the steps until {t_cmp:.1f}s, then the times)")
+    launches = {k: sum(o["launches"][k] for run in TP_RUNS
+                       for o in outs[run]) for k in ("bc_matmul", "bc_dw")}
+    report.update(seconds=secs, mm_abs=mm_abs, dw_abs=dw_abs)
+    return (report, launches, {c[5] for c in shapes if c[1] == 1}, times,
+            dw_times)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5200,6 +5603,16 @@ def main() -> int:
     CARD[0] = smi.stdout.strip().splitlines()[0]
     print(CARD[0])
 
+    marks = [t_start]
+
+    def lap(name):
+        """Print the seconds since the last lap: where the command's
+        time goes, phase by phase."""
+        now = time.perf_counter()
+        print(f"time: {name} {now - marks[0]:.1f}s (command "
+              f"{now - t_start:.1f}s)")
+        marks[0] = now
+
     t0 = time.perf_counter()
     libs = kernel.build()
     print(f"built {sorted(lib.name for lib, _ in libs.values())} in "
@@ -5212,23 +5625,50 @@ def main() -> int:
     (cfg, engine, params, reqs, serve_launches, step_ms, serve_rows,
      serve_outs) = phase_serve(torch, dev)
     decode_busy = phase_profile(torch, engine, reqs, step_ms)
+    lap("build, serve")
     resilient, resilient_rows = phase_serve_resilient(torch, kernel, dev)
     durable, durable_rows = phase_durable(torch, kernel, dev)
     tier, tier_rows = phase_serve_tier(torch, kernel, dev, cfg, params,
                                        reqs, serve_outs)
+    lap("serve_resilient, durable, serve_tier")
     train_cfg, train_launches, train_ms, train_rows, train_busy = \
         phase_train(torch, dev)
     dist_row, dist_launches, dist_rows = phase_dist(
         torch, kernel, dev, train_busy, decode_busy, step_ms, train_ms)
-    analysis_row, analysis_launches = phase_analysis(torch, kernel, dev,
-                                                     engine)
+    lap("train, dist")
+    for run in TP_RUNS:
+        mm = sum(c[4] for c in TP_SHAPES[run])
+        dw = sum(c[4] for c in TP_DW_SHAPES[run])
+        if {"bc_matmul": mm, "bc_dw": dw} != TP_LAUNCHES[run]:
+            fail(f"TP_SHAPES' launches of ({run}) do not sum to "
+                 f"{TP_LAUNCHES[run]}")
+    import shutil
+    import tempfile
+
+    tp_tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    print(f"tp: checkpoints under {tp_tmp}, "
+          f"{shutil.disk_usage(tp_tmp).free / 2**30:.1f} GiB free")
+    tp_procs, tp_q = tp_spawn(tp_tmp)
+    try:
+        analysis_row, analysis_launches = phase_analysis(torch, kernel, dev,
+                                                         engine)
+        tp_row, tp_launches, tp_rows, tp_times, tp_dw_times = phase_tp(
+            torch, kernel, quant, dev, tp_procs, tp_q, tp_tmp)
+    finally:
+        for p in tp_procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tp_tmp, ignore_errors=True)
+    lap("analysis, tp")
     max_abs = phase_kernels(
         torch, kernel, quant, dev,
         sorted({1, 4, 512, train_rows} | serve_rows | resilient_rows
-               | durable_rows | tier_rows | dist_rows))
+               | durable_rows | tier_rows | dist_rows | tp_rows))
     dw_abs = phase_dw(torch, kernel, dev,
-                      sorted({512, train_rows, *DW_EXTRA_ROWS} | dist_rows))
+                      sorted({512, train_rows, *DW_EXTRA_ROWS} | dist_rows
+                             | tp_rows))
     print("kernels: [\"bc_matmul\", \"bc_dw\"]")
+    lap("kernel checks")
     phase_cpu_vs_card(torch, cfg, engine, reqs[0])
     train_step_card_vs_cpu(torch, train_cfg, dev, "qwen3-0.6b")
     phase_int8(torch, cfg, params, dev, engine.frozen_table_bytes())
@@ -5238,6 +5678,7 @@ def main() -> int:
         + [(n, p, q, per, train_rows) for n, p, q, per in DX_SHAPES])
     host = phase_host_time(torch, kernel, dev)
     dw_rows = phase_dw_times(torch, kernel, dev, train_rows)
+    lap("card vs cpu, int8, kernel times")
     paper_rows, paper_mm = phase_paper(torch, kernel, dev)
     paper_train, paper_train_launches = phase_paper_train(torch, kernel, dev)
     paper_mm_abs, paper_dw_abs = phase_paper_kernels(torch, kernel, quant,
@@ -5246,6 +5687,7 @@ def main() -> int:
     paper_launches = {"bc_matmul": paper_mm
                       + paper_train_launches["bc_matmul"],
                       "bc_dw": paper_train_launches["bc_dw"]}
+    lap("paper")
 
     for arch, prefix in (("jamba-v0.1-52b", "jamba."), ("rwkv6-7b", "rwkv.")):
         if sum(c[4] for c in HYBRID_SHAPES
@@ -5265,6 +5707,7 @@ def main() -> int:
                              for n, G, p, q, per in HYBRID_SHAPES
                              for B in HYBRID_TIME_ROWS])
     hybrid_launches = {r["model"]: r["launches"] for r in hybrid_rows}
+    lap("hybrid")
 
     for arch, shapes in FAMILY_SHAPES.items():
         want = family_per_forward(arch, serve_cfg(arch,
@@ -5287,6 +5730,7 @@ def main() -> int:
          for B in (GEMMA_TIME_ROWS if arch == "gemma3-27b"
                    else FAMILY_TIME_ROWS)], label="family", seed=11)
     family_launches = {r["model"]: r["launches"] for r in family_rows}
+    lap("family")
 
     if tuple(sum(c[i] for c in ENCDEC_SHAPES) for i in (4, 5)) != \
             ENCDEC_LAUNCHES:
@@ -5304,6 +5748,7 @@ def main() -> int:
     example_rows = phase_examples(torch, kernel, dev)
     example_launches = {name: sum(r["launches"][name] for r in example_rows)
                         for name in ("bc_matmul", "bc_dw")}
+    lap("encdec, examples")
 
     for arch, shapes in TRAIN_FAMILY_SHAPES.items():
         if tuple(sum(c[i] for c in shapes) for i in (5, 6)) != \
@@ -5325,10 +5770,12 @@ def main() -> int:
         torch, kernel, dev, [(n, G, p, q, B, dw)
                              for n, G, p, q, B, _, dw in tf_shapes if dw])
     tf_launches = {r["model"]: r["launches"] for r in tf_rows}
+    lap("train_family")
     remat_rows = phase_scan_remat(torch, kernel, dev)
     remat_launches = {name: sum(r["launches"][name] for r in remat_rows)
                       for name in ("bc_matmul", "bc_dw")}
     dft_row = phase_dft(torch, kernel, dev, train_busy)
+    lap("scan_remat, dft")
 
     main_row = next(r for r in rows if r["shape"] == "qkv" and r["B"] == 4)
     dw_row = next(r for r in dw_rows if r["shape"] == "qkv")
@@ -5343,6 +5790,7 @@ def main() -> int:
                      + train_launches["bc_matmul"]
                      + dist_launches["bc_matmul"]
                      + analysis_launches["bc_matmul"]
+                     + tp_launches["bc_matmul"]
                      + paper_launches["bc_matmul"]
                      + sum(hybrid_launches.values())
                      + sum(family_launches.values())
@@ -5357,6 +5805,7 @@ def main() -> int:
                              "train": train_launches["bc_matmul"],
                              "dist": dist_launches["bc_matmul"],
                              "analysis": analysis_launches["bc_matmul"],
+                             "tp": tp_launches["bc_matmul"],
                              "paper": paper_launches["bc_matmul"],
                              "hybrid": hybrid_launches["jamba-v0.1-52b"],
                              "rwkv": hybrid_launches["rwkv6-7b"],
@@ -5367,7 +5816,7 @@ def main() -> int:
                                 for a, v in tf_launches.items()},
                              "scan_remat": remat_launches["bc_matmul"]},
         "max_abs_err": max(max_abs, paper_mm_abs, hybrid_abs, family_abs,
-                           encdec_abs, tf_abs),
+                           encdec_abs, tf_abs, tp_row["mm_abs"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -5377,14 +5826,14 @@ def main() -> int:
                  "(32, 8, 65) f32, k=128",
         **host,
         "all_shapes": (rows + paper_times + hybrid_times + family_times
-                       + encdec_times + tf_times),
+                       + encdec_times + tf_times + tp_times),
     }, {
         "name": "bc_dw",
         "route": "cuda",
         "source": "src/repro_torch/kernels/block_circulant/csrc/bc_dw.cu",
         "replaces": "src/repro/kernels/block_circulant/kernel.py:374",
         "launches": (train_launches["bc_dw"] + dist_launches["bc_dw"]
-                     + analysis_launches["bc_dw"]
+                     + analysis_launches["bc_dw"] + tp_launches["bc_dw"]
                      + paper_launches["bc_dw"]
                      + durable["launches"]["bc_dw"]
                      + example_launches["bc_dw"]
@@ -5393,13 +5842,15 @@ def main() -> int:
         "launches_by_path": {"train": train_launches["bc_dw"],
                              "dist": dist_launches["bc_dw"],
                              "analysis": analysis_launches["bc_dw"],
+                             "tp": tp_launches["bc_dw"],
                              "durable": durable["launches"]["bc_dw"],
                              "paper": paper_launches["bc_dw"],
                              "examples": example_launches["bc_dw"],
                              **{f"train_family {a}": v["bc_dw"]
                                 for a, v in tf_launches.items()},
                              "scan_remat": remat_launches["bc_dw"]},
-        "max_abs_err": max(dw_abs, paper_dw_abs, tf_dw_abs),
+        "max_abs_err": max(dw_abs, paper_dw_abs, tf_dw_abs,
+                           tp_row["dw_abs"]),
         "ms": dw_row["ms"],
         "plain_ms": dw_row["plain_ms"],
         "bound_ms": dw_row["bound_ms"],
@@ -5409,7 +5860,7 @@ def main() -> int:
         "shape": f"fused QKV weight adjoint in training: x ({train_rows}, "
                  f"1024) and g ({train_rows}, 4096) bf16, dw (32, 1024) "
                  f"f32, k=128",
-        "all_shapes": dw_rows + paper_dw_rows + tf_dw_rows,
+        "all_shapes": dw_rows + paper_dw_rows + tf_dw_rows + tp_dw_times,
     }], "train": {"ms_per_step": train_ms,
                   "tokens_per_s": train_rows / train_ms * 1e3},
         "paper": paper_rows + [paper_train], "hybrid": hybrid_rows,
@@ -5417,7 +5868,8 @@ def main() -> int:
         "examples": example_rows, "train_family": tf_rows,
         "scan_remat": remat_rows, "dft": dft_row,
         "serve_resilient": resilient, "durable": durable,
-        "serve_tier": tier, "dist": dist_row, "analysis": analysis_row}
+        "serve_tier": tier, "dist": dist_row, "analysis": analysis_row,
+        "tp": tp_row}
     print(f"command time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

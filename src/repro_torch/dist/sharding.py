@@ -27,6 +27,18 @@ rank's slice out of a full tensor.
 An *ambient mesh* (set by the launchers and the data-parallel train step)
 lets deep call sites pick up the mesh without threading it through every
 signature.
+
+The collectives at the end of the module carry autograd: the four region
+boundaries of tensor parallelism (:func:`region_input`,
+:func:`region_output`, :func:`gather_along`, :func:`gather_replicated`)
+and FSDP's one-collective gather of many shards (:func:`gather_many`).
+Each runs over one mesh axis of this rank (an :class:`Axis`) and counts
+itself and the bytes of its input buffer in the axis's :class:`CommLog`.
+On NCCL (any backend but ``gloo``) they run in the tensor's own dtype:
+``all_reduce``, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
+On a ``gloo`` group they run in f32, a CUDA tensor is staged through host
+memory, and a reduce-scatter is an f32 all-reduce of the whole buffer of
+which the rank keeps its slice (one collective).
 """
 
 from __future__ import annotations
@@ -55,7 +67,17 @@ __all__ = [
     "local_shard",
     "all_reduce_flat",
     "all_gather_list",
-    "gather_full",
+    "CommLog",
+    "Axis",
+    "mesh_axis",
+    "region_input",
+    "region_output",
+    "gather_along",
+    "gather_replicated",
+    "gather_many",
+    "all_reduce_max",
+    "gather_to",
+    "full_shape",
     "set_ambient_mesh",
     "get_ambient_mesh",
     "constrain_batch_leading",
@@ -306,16 +328,331 @@ def all_gather_list(t: torch.Tensor, group=None) -> list:
     return [p.to(t.device) for p in parts] if staged else parts
 
 
-def gather_full(t: torch.Tensor, full_shape, spec,
-                device_mesh) -> torch.Tensor:
-    """The whole tensor from every rank's shard ``t`` under ``spec`` (a
-    collective over the world's ranks; a replicated spec returns ``t``)."""
+def full_shape(shape, spec, mesh) -> tuple:
+    """The whole tensor's shape from a shard's ``shape`` under ``spec``."""
+    return tuple(int(n) * (axis_size(mesh, e) if e is not None else 1)
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+# ---------------------------------------------------------------------------
+# One mesh axis of this rank, and the collectives with autograd over it
+# ---------------------------------------------------------------------------
+
+
+class CommLog:
+    """The collectives issued through one or more :class:`Axis` and the
+    bytes each carried (the payload of one rank)."""
+
+    def __init__(self):
+        self.collectives = 0
+        self.bytes = 0
+
+    def add(self, nbytes: int, n: int = 1) -> None:
+        self.collectives += n
+        self.bytes += int(nbytes)
+
+
+class Axis:
+    """This rank on one mesh axis (or a tuple of axes taken together):
+    its process ``group``, the axis ``size`` and this rank's ``index``
+    along it (its rank in ``group``). ``log`` counts the collectives.
+    ``native``: the group's backend runs them in the tensor's own dtype
+    with a true reduce-scatter (every backend but ``gloo``, whose
+    collectives go through :func:`_staged_all_reduce` and
+    :func:`_staged_all_gather`)."""
+
+    def __init__(self, group, size: int, index: int, log: CommLog,
+                 native: bool = False):
+        self.group, self.size, self.index = group, int(size), int(index)
+        self.log, self.native = log, native
+
+    def __repr__(self):
+        return f"Axis(size={self.size}, index={self.index})"
+
+
+def mesh_axis(device_mesh, axes, log: CommLog) -> Axis:
+    """The :class:`Axis` of this rank over mesh axis ``axes`` (a name or a
+    tuple of names, flattened row-major as :func:`local_slices` does). A
+    tuple of two or more axes of size > 1 takes a group of its own, made
+    once per mesh by every rank in the same order (``dist.new_group``)
+    and kept on the mesh object, so that it lives as long as the mesh."""
+    import torch.distributed as dist
+
+    axes = _entry_axes(axes)
+    names = axis_names(device_mesh)
+    coord = device_mesh.get_coordinate()
+    size, index = 1, 0
+    for a in axes:
+        size *= axis_size(device_mesh, a)
+        index = index * axis_size(device_mesh, a) + int(
+            coord[names.index(a)])
+    big = [a for a in axes if axis_size(device_mesh, a) > 1]
+    if len(big) <= 1:
+        group = device_mesh.get_group(big[0] if big else axes[0])
+    elif len(big) == len([a for a in names if axis_size(device_mesh, a) > 1]):
+        group = dist.group.WORLD
+    else:
+        groups = device_mesh.__dict__.setdefault("_axis_groups", {})
+        if axes not in groups:
+            ranks = device_mesh.mesh.permute(
+                *[names.index(a) for a in names if a not in axes],
+                *[names.index(a) for a in axes])
+            ranks = ranks.reshape(-1, size)
+            mine = None
+            for row in ranks.tolist():
+                g = dist.new_group(row)
+                if dist.get_rank() in row:
+                    mine = g
+            groups[axes] = mine
+        group = groups[axes]
+    return Axis(group, size, index, log,
+                native=dist.get_backend(group) != "gloo")
+
+
+def _staged_all_reduce(t: torch.Tensor, axis: Axis, op=None) -> torch.Tensor:
+    """A new f32 tensor: ``t`` reduced over a ``gloo`` axis (sum by
+    default), staged through host memory for a CUDA tensor."""
+    import torch.distributed as dist
+
+    buf = t.detach().float().contiguous()
+    axis.log.add(buf.numel() * buf.element_size())
+    # a new buffer: the host copy, or a clone (``float()`` of an f32
+    # tensor is the tensor itself)
+    staged = _host_staged(buf, axis.group)
+    buf = buf.cpu() if staged else buf.clone()
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=axis.group)
+    return buf.to(t.device) if staged else buf
+
+
+def _staged_all_gather(t: torch.Tensor, axis: Axis) -> list:
+    """Every rank's ``t`` along a ``gloo`` axis, in axis order."""
+    axis.log.add(t.numel() * t.element_size())
+    return all_gather_list(t, axis.group)
+
+
+def _all_reduce(t: torch.Tensor, axis: Axis, op=None) -> torch.Tensor:
+    """A new tensor: ``t`` reduced over ``axis`` (sum by default), in
+    ``t``'s dtype on a native axis, in f32 on ``gloo``."""
+    import torch.distributed as dist
+
+    if not axis.native:
+        return _staged_all_reduce(t, axis, op)
+    buf = t.detach().contiguous().clone()
+    axis.log.add(buf.numel() * buf.element_size())
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=axis.group)
+    return buf
+
+
+def _all_gather(t: torch.Tensor, axis: Axis) -> list:
+    """Every rank's ``t`` along ``axis``, in axis order (one
+    ``all_gather_into_tensor`` on a native axis)."""
+    import torch.distributed as dist
+
+    if not axis.native:
+        return _staged_all_gather(t, axis)
+    buf = t.detach().reshape(-1)
+    axis.log.add(buf.numel() * buf.element_size())
+    out = buf.new_empty(axis.size * buf.numel())
+    dist.all_gather_into_tensor(out, buf, group=axis.group)
+    return [c.view(t.shape) for c in out.chunk(axis.size)]
+
+
+def _reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``t`` summed over ``axis``: one
+    ``reduce_scatter_tensor`` in ``t``'s dtype on a native axis; on
+    ``gloo``, one f32 all-reduce of which the rank keeps its chunk."""
+    import torch.distributed as dist
+
+    if not axis.native:
+        return _own_chunk(_staged_all_reduce(t, axis).to(t.dtype), axis,
+                          dim).contiguous()
+    buf = t.detach().movedim(dim, 0).contiguous()
+    axis.log.add(buf.numel() * buf.element_size())
+    out = buf.new_empty((buf.shape[0] // axis.size,) + tuple(buf.shape[1:]))
+    dist.reduce_scatter_tensor(out, buf, group=axis.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _own_chunk(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // axis.size
+    return t.narrow(dim, axis.index * n, n)
+
+
+class _RegionInput(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis).to(g.dtype), None
+
+
+class _RegionOutput(torch.autograd.Function):
+    """All-reduce (sum) forward; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the gradient summed over the axis
+    and this rank's slice kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return torch.cat(_all_gather(x, axis), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the gradient, the same on every
+    rank, cut to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return torch.cat(_all_gather(x, axis), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.axis, ctx.dim).contiguous(), None, None
+
+
+def region_input(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Enter a sharded region: ``x`` unchanged, its gradient (each rank's
+    partial) summed over ``axis``. A no-op without an axis of size > 1."""
+    if axis is None or axis.size == 1:
+        return x
+    return _RegionInput.apply(x, axis)
+
+
+def region_output(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Leave a sharded region: the ranks' partial ``x`` summed over
+    ``axis``; the gradient passes unchanged."""
+    if axis is None or axis.size == 1:
+        return x
+    return _RegionOutput.apply(x, axis)
+
+
+def gather_along(x: torch.Tensor, axis: Optional[Axis],
+                 dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (axis order); the
+    backward reduce-scatters (each rank's gradient is a partial)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherAlong.apply(x, axis, dim % x.dim())
+
+
+def gather_replicated(x: torch.Tensor, axis: Optional[Axis],
+                      dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``; the backward keeps this
+    rank's slice of a gradient that is whole on every rank."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherReplicated.apply(x, axis, dim % x.dim())
+
+
+def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axis`` (no gradient)."""
+    import torch.distributed as dist
+
+    if axis is None or axis.size == 1:
+        return x.detach()
+    return _all_reduce(x, axis, dist.ReduceOp.MAX).to(x.dtype)
+
+
+class _GatherMany(torch.autograd.Function):
+    """FSDP's gather: every shard made whole along its dim with ONE
+    all-gather of a flattened buffer (in the shards' dtype, f32 when they
+    differ); the backward, ONE reduce-scatter of the flattened gradients
+    (summed over the axis, each rank keeping its shards')."""
+
+    @staticmethod
+    def forward(ctx, axis, dims, *shards):
+        ctx.axis, ctx.dims = axis, dims
+        ctx.meta = [(s.shape, s.dtype) for s in shards]
+        dtypes = {s.dtype for s in shards}
+        ctx.dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        flat = torch.cat([s.detach().reshape(-1).to(ctx.dtype)
+                          for s in shards])
+        parts = _all_gather(flat, axis)
+        out, off = [], 0
+        for s, d in zip(shards, dims):
+            n = s.numel()
+            out.append(torch.cat([p[off:off + n].reshape(s.shape)
+                                  for p in parts], dim=d).to(s.dtype))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis = ctx.axis
+        dev = next((g.device for g in grads if g is not None),
+                   torch.device("cpu"))
+        pieces = []
+        for g, (shape, _), d in zip(grads, ctx.meta, ctx.dims):
+            full = list(shape)
+            full[d] *= axis.size
+            if g is None:
+                g = torch.zeros(full, dtype=ctx.dtype, device=dev)
+            pieces.append(g.to(dev, ctx.dtype).chunk(axis.size, dim=d))
+        # rank r's chunk of the flat buffer: its shards' gradients in order
+        flat = torch.cat([p[r].reshape(-1) for r in range(axis.size)
+                          for p in pieces])
+        mine = _reduce_scatter(flat, axis, 0)
+        out, off = [], 0
+        for shape, dtype in ctx.meta:
+            n = int(np.prod(shape))
+            out.append(mine[off:off + n].reshape(shape).to(dtype))
+            off += n
+        return (None, None, *out)
+
+
+def gather_many(shards, dims, axis: Optional[Axis]) -> list:
+    """Each shard made whole along its dim in ``dims`` over ``axis``, with
+    one all-gather forward and one reduce-scatter (a summed gradient)
+    backward."""
+    if axis is None or axis.size == 1 or not shards:
+        return list(shards)
+    return list(_GatherMany.apply(axis, tuple(dims), *shards))
+
+
+def gather_to(t: torch.Tensor, full_shape, spec, device_mesh,
+              dst: int = 0) -> Optional[torch.Tensor]:
+    """The whole tensor in host memory on rank ``dst`` (None on the
+    others) from every rank's shard ``t`` under ``spec``: one gather over
+    the world's ranks, so that ``dst``'s device holds one leaf's shards at
+    a time. A replicated spec returns ``t`` on every rank."""
+    import torch.distributed as dist
+
     full_shape = tuple(full_shape)
     if tuple(t.shape) == full_shape:
         return t
-    out = torch.empty(full_shape, dtype=t.dtype, device=t.device)
+    buf = t.detach().contiguous()
+    if _host_staged(buf, None):
+        buf = buf.cpu()
+    mine = dist.get_rank() == dst
+    parts = ([torch.empty_like(buf) for _ in range(dist.get_world_size())]
+             if mine else None)
+    dist.gather(buf, parts, dst=dst)
+    if not mine:
+        return None
+    out = torch.empty(full_shape, dtype=t.dtype)
     ranks = device_mesh.mesh
-    for r, part in enumerate(all_gather_list(t)):
+    for r, part in enumerate(parts):
         coord = (ranks == r).nonzero()[0].tolist()
         sl = local_slices(full_shape, spec, device_mesh, coord)
         out[tuple(slice(a, b) for a, b in sl)] = part

@@ -22,6 +22,12 @@ and read back as ``torch.bfloat16``.
   where ``Tensor.cpu()`` would alias the live tensor that the next train
   step updates in place), then serializes on a background thread.
 
+``save_checkpoint(shardings=, mesh=)`` saves a state held as this rank's
+shards (the parallel train step's ``state_shardings``) whole, in the same
+layout: every rank calls it, each sharded leaf is gathered whole in turn
+(``dist.sharding.gather_to``: to rank 0's host memory, and rank 0 writes
+it). :func:`gather_state` takes the same route for a writer of its own
+(``ft.TrainDriver``'s async checkpointer): the whole state on rank 0.
 ``restore_checkpoint(shardings=, mesh=)`` is elastic restore: it reads a
 checkpoint written from any mesh and returns each leaf as this rank's
 shard on the current one (``dist.sharding.local_slices``), reading only
@@ -41,10 +47,10 @@ import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import local_slices
+from repro_torch.dist.sharding import full_shape, gather_to, local_slices
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "available_steps", "AsyncCheckpointer"]
+__all__ = ["save_checkpoint", "gather_state", "restore_checkpoint",
+           "latest_step", "available_steps", "AsyncCheckpointer"]
 
 
 def _flatten(tree, prefix=()):
@@ -92,22 +98,66 @@ def _host_array(leaf) -> np.ndarray:
     return data
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
-    """Write ``state`` (nested dicts of leaves) for ``step``. Atomic."""
+def _whole_leaves(state, shardings, mesh):
+    """``(path, leaf)`` of ``state`` in flat order, each leaf whole: with
+    ``shardings`` (per-dim specs keyed like the state; a missing subtree
+    means whole) and ``mesh``, ``state`` is this rank's shard of each
+    leaf, and a sharded leaf is gathered whole in host memory on rank 0
+    (None on the others), one leaf at a time (``dist.sharding.gather_to``:
+    a collective every rank of the mesh joins)."""
+    specs = dict(_flatten(shardings)) if mesh is not None else {}
+    for path, leaf in _flatten(state):
+        spec = specs.get(path)
+        if spec and isinstance(leaf, torch.Tensor):
+            leaf = gather_to(leaf, full_shape(leaf.shape, spec, mesh), spec,
+                             mesh)
+        yield path, leaf
+
+
+def gather_state(state, shardings, mesh):
+    """``state``, held as this rank's shards under ``shardings`` on
+    ``mesh``, made whole on rank 0 (its sharded leaves in host memory);
+    None on every other rank. Every rank of the mesh calls it."""
+    import torch.distributed as dist
+
+    flat = dict(_whole_leaves(state, shardings, mesh))
+    return _unflatten(flat) if dist.get_rank() == 0 else None
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state, shardings=None,
+                    mesh=None) -> str:
+    """Write ``state`` (nested dicts of leaves) for ``step``. Atomic.
+
+    With ``shardings`` and ``mesh``, ``state`` is this rank's shard of
+    each leaf and every rank of the mesh calls this: the leaves are
+    gathered whole on rank 0 one at a time (:func:`gather_state`'s route)
+    and rank 0 writes each as it comes; every rank returns once the
+    checkpoint is complete."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("save_checkpoint takes shardings= and mesh= "
+                         "together")
+    writer = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     # sweep stale step_*.tmp dirs left by writers that crashed between the
     # leaf writes and the rename: invisible to restore, but they would
     # accumulate forever
-    if os.path.isdir(ckpt_dir):
+    if writer and os.path.isdir(ckpt_dir):
         for name in os.listdir(ckpt_dir):
             if name.startswith("step_") and name.endswith(".tmp"):
                 shutil.rmtree(os.path.join(ckpt_dir, name),
                               ignore_errors=True)
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
 
     manifest = {"step": step, "leaves": {}}
-    for path, leaf in _flatten(state):
+    for path, leaf in _whole_leaves(state, shardings, mesh):
+        if not writer:
+            continue
         shape = list(leaf.shape) if hasattr(leaf, "shape") else []
         fn = f"{path}.0.npy"
         np.save(os.path.join(tmp, fn), _host_array(leaf))
@@ -117,6 +167,9 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
             "spec": [],
             "shards": [{"file": fn, "index": [[0, d] for d in shape]}],
         }
+    if not writer:
+        dist.barrier()             # rank 0's checkpoint is on disk
+        return final
 
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
@@ -128,6 +181,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
     with open(ptr_tmp, "w") as f:
         f.write(str(step))
     os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
+    if mesh is not None:
+        dist.barrier()
     return final
 
 

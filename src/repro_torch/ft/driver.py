@@ -16,8 +16,9 @@
   port's train step updates the state's tensors in place, and they are
   the model's own buffers, so the restore copies the checkpoint into
   those tensors instead of handing back a fresh tree. On a mesh
-  (``mesh=``, ``state_shardings=``) the sharded leaves (ZeRO-1 moments)
-  are gathered whole for each checkpoint, which rank 0 writes, and a
+  (``mesh=``, ``state_shardings=``) the sharded leaves (tensor-parallel
+  and FSDP params, ZeRO-1 moments) are gathered whole on rank 0 one at a
+  time for each checkpoint (``ft.checkpoint.gather_state``), and a
   restore reads back this rank's shard of each leaf
   (``restore_checkpoint(shardings=, mesh=)``).
 """
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.ft.checkpoint import (AsyncCheckpointer, latest_step,
-                                       restore_checkpoint)
+from repro_torch.ft.checkpoint import (AsyncCheckpointer, gather_state,
+                                       latest_step, restore_checkpoint)
 
 __all__ = ["TrainDriver", "StragglerWatchdog", "FaultInjector"]
 
@@ -124,30 +125,6 @@ def _load_into(state: dict, restored: dict, path: str = "") -> None:
             state[k] = int(r)
 
 
-def _whole(state, shardings, mesh):
-    """``state`` with every sharded tensor leaf gathered whole (a shard is
-    the full dim over the mesh axes' size, dim by dim)."""
-    from repro_torch.dist.sharding import gather_full
-
-    out = {}
-    for k, v in state.items():
-        spec = shardings.get(k) if isinstance(shardings, dict) else None
-        if isinstance(v, dict):
-            out[k] = _whole(v, spec or {}, mesh)
-        elif isinstance(v, torch.Tensor) and spec:
-            out[k] = gather_full(v, _full_shape(v, spec, mesh), spec, mesh)
-        else:
-            out[k] = v
-    return out
-
-
-def _full_shape(t, spec, mesh):
-    from repro_torch.dist.sharding import axis_size
-
-    return tuple(n * (axis_size(mesh, e) if e is not None else 1)
-                 for n, e in zip(t.shape, spec))
-
-
 class TrainDriver:
     """Checkpointed auto-restart around ``train_step(state, batch)``.
 
@@ -180,18 +157,13 @@ class TrainDriver:
         self.metrics_log = []
 
     # ------------------------------------------------------------------
-    def _rank(self) -> int:
-        import torch.distributed as dist
-
-        return dist.get_rank() if self.mesh is not None else 0
-
     def _save(self, step: int, state) -> None:
         """Checkpoint ``state`` at ``step``: on a mesh its sharded leaves
-        gathered whole (a collective every rank joins) and written by
-        rank 0 only."""
+        gathered whole on rank 0, one at a time (``gather_state``, a
+        collective every rank joins), and written by rank 0 only."""
         if self.mesh is not None:
-            state = _whole(state, self.state_shardings, self.mesh)
-        if self._rank() == 0:
+            state = gather_state(state, self.state_shardings, self.mesh)
+        if state is not None:
             self.ckpt.save(step, state)
 
     def _restore(self, state):

@@ -30,10 +30,13 @@ that ``torchrun`` sets up (``WORLD_SIZE`` and friends in the environment),
 or a one-rank group of its own (``nccl`` on the card, ``gloo`` with
 ``--device cpu``), removed again when the run ends. Each rank takes its
 shard of every global batch and holds its ZeRO-1 share of the moments.
-``--mesh single`` / ``multi`` name the reference's production meshes,
-(data=16, model=16) and (pod=2, data=16, model=16); they need a world of
-256 or 512 ranks and then stop at the train step's refusal of tensor
-parallelism, which the port does not run.
+``--mesh single`` / ``multi`` train on the reference's production meshes,
+(data=16, model=16) and (pod=2, data=16, model=16), at a world of 256 or
+512 ranks: each rank holds its shard of the params under the rule table
+(tensor parallelism over ``model``, FSDP over the data axes for an FSDP
+config; ``dist.tensor_parallel``). A model that tensor parallelism does
+not cover (the Mamba and RWKV mixers, the enc-dec family, paligemma's
+vision prefix) stops there with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ def _run(args, arch, dev):
     shardings = step_fn.data_parallel.state_shardings
     state = init_train_state(params, tcfg, cfg.optimizer,
                              opt_shardings=shardings["opt"], mesh=mesh,
-                             stacks=step_fn.data_parallel.stacks)
+                             stacks=step_fn.data_parallel.stacks,
+                             param_shardings=shardings["params"])
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
                        seed=tcfg.seed)
 

@@ -21,10 +21,22 @@ An ``attn_local`` layer's KV cache is a ring of
 :func:`local_attn_cache_len` entries; every attention layer takes the
 prefix-LM span ``cfg.n_img_tokens``, and ``img_embeds`` (B, P, D) go in
 front of the token embeddings.
+
+On a mesh (``dist.tensor_parallel.shard_model``, which the train step's
+``mesh=`` runs) the modules take this rank's shares: attention heads,
+FFN and expert blocks and vocab rows over the ``model`` axis, and, for an
+FSDP config, ``embed``-sharded leaves over the data axes. Then
+``fsdp`` (a ``FSDPPlan``) gathers each layer's leaves at use, inside the
+layer's remat recompute too, and the embedding's and the output table's
+before theirs; ``vocab_shard`` = (model axis, first row) tells the loss
+which rows of the output table this rank holds. Tensor parallelism covers
+the attention-only ``lm`` family: :meth:`tensor_parallel_refusal` names
+the Mamba and RWKV mixers and paligemma's vision prefix.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
@@ -138,8 +150,15 @@ class DecoderLayer(nn.Module):
         return x + out, cache, aux
 
 
-def _layer_out(layer: DecoderLayer, x, positions):
-    x, _, aux = layer(x, positions)
+def _gathered(fsdp, unit: str):
+    """``fsdp``'s gather of ``unit`` (a no-op without FSDP)."""
+    return (contextlib.nullcontext() if fsdp is None
+            else fsdp.gathered(unit))
+
+
+def _layer_out(layer: DecoderLayer, x, positions, fsdp=None, unit=""):
+    with _gathered(fsdp, unit):
+        x, _, aux = layer(x, positions)
     return x, aux
 
 
@@ -164,6 +183,8 @@ class HybridDecoderLM(nn.Module):
                                               out_axis="vocab"))
         self.add_module("layers", nn.ModuleList(
             DecoderLayer(cfg, lspec) for lspec in cfg.layer_specs()))
+        # set by dist.tensor_parallel.shard_model on a mesh
+        self.vocab_shard, self.fsdp = None, None
 
     def specs(self):
         out = {n: self._modules[n].specs()
@@ -172,6 +193,18 @@ class HybridDecoderLM(nn.Module):
         out["layers"] = {str(i): layer.specs()
                          for i, layer in enumerate(self._modules["layers"])}
         return out
+
+    def tensor_parallel_refusal(self) -> Optional[str]:
+        """What of this model tensor parallelism does not cover, or None:
+        the recurrent mixers and paligemma's vision prefix."""
+        kinds = {layer.mixer_kind for layer in self._modules["layers"]}
+        if "mamba" in kinds:
+            return "the Mamba mixer (nn/ssm.py)"
+        if "rwkv" in kinds:
+            return "the RWKV mixer (nn/rwkv.py)"
+        if self.cfg.family == "vlm" or self.cfg.n_img_tokens:
+            return "paligemma's vision prefix (family 'vlm')"
+        return None
 
     def has_recurrent(self) -> bool:
         """True when any layer carries recurrent (mamba/rwkv) state."""
@@ -185,7 +218,8 @@ class HybridDecoderLM(nn.Module):
     def _trunk(self, tokens, positions, cache, moe_no_drop, img_embeds=None):
         """Embedding (after the image prefix, when given), every layer and
         the final norm: (hidden, aux)."""
-        x = self._modules["embed"].encode(tokens)
+        with _gathered(self.fsdp, "embed"):
+            x = self._modules["embed"].encode(tokens)
         if img_embeds is not None:
             x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
@@ -201,12 +235,13 @@ class HybridDecoderLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self._modules["layers"]):
             if remat:
-                x, a = checkpoint(_layer_out, layer, x, positions,
-                                  use_reentrant=False)
+                x, a = checkpoint(_layer_out, layer, x, positions, self.fsdp,
+                                  f"layers.{i}", use_reentrant=False)
             else:
-                x, _, a = layer(x, positions,
-                                None if cache is None else cache[i], mask,
-                                moe_no_drop)
+                with _gathered(self.fsdp, f"layers.{i}"):
+                    x, _, a = layer(x, positions,
+                                    None if cache is None else cache[i],
+                                    mask, moe_no_drop)
             aux = aux + a
         return self._modules["final_norm"](x), aux
 
@@ -238,8 +273,17 @@ class HybridDecoderLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits: the tied embedding, or the untied head in f32."""
         if self.cfg.tie_embeddings:
-            return self._modules["embed"].decode(x)
-        return x.float() @ self._modules["lm_head"]._buffers["w"].float()
+            with _gathered(self.fsdp, "embed"):
+                return self._modules["embed"].decode(x)
+        with _gathered(self.fsdp, "lm_head"):
+            w = self._modules["lm_head"]._buffers["w"]
+        if self.vocab_shard is None:
+            return x.float() @ w.float()
+        from repro_torch.dist.sharding import gather_replicated, region_input
+
+        axis = self.vocab_shard[0]
+        return gather_replicated(region_input(x, axis).float() @ w.float(),
+                                 axis, -1)
 
     def forward_hidden(self, tokens: torch.Tensor, *,
                        img_embeds: Optional[torch.Tensor] = None):
@@ -250,10 +294,13 @@ class HybridDecoderLM(nn.Module):
 
     def output_table(self) -> torch.Tensor:
         """(V, D) matrix the chunked loss uses: the tied embedding or the
-        untied head's transpose."""
+        untied head's transpose (this rank's ``vocab_shard`` rows on a
+        ``model`` axis; whole over the data axes, gathered for FSDP)."""
         if self.cfg.tie_embeddings:
-            return self._modules["embed"]._buffers["table"]
-        return self._modules["lm_head"]._buffers["w"].T
+            with _gathered(self.fsdp, "embed"):
+                return self._modules["embed"]._buffers["table"]
+        with _gathered(self.fsdp, "lm_head"):
+            return self._modules["lm_head"]._buffers["w"].T
 
     def decode_step(self, tokens, cache, pos, moe_no_drop: bool = False):
         """One-token decode: tokens (B, 1), pos (B,) -> (logits (B, V),

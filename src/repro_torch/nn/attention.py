@@ -19,6 +19,16 @@ flash_q_chunk``) use a chunked online-softmax attention written as plain
 PyTorch loops over every KV chunk (the reference's window span slicing
 only skips fully masked chunks, which the loops compute and mask). The KV
 cache is updated in place.
+
+Under tensor parallelism (``tp``, a ``dist.tensor_parallel.AttnLayout``
+set by ``shard_model``; training self-attention only) the layer computes
+the query heads its q blocks touch: x enters the region once, q/k/v come
+from this rank's column blocks (one fused launch whose splits are local),
+its K/V are its own blocks, the all-gathered blocks cut to the KV heads
+its query heads read, or (whole tables, entering the region so that their
+gradient partials are summed) the whole K/V cut the same way; qk-norm
+scales enter the region too. ``o`` holds the input blocks of exactly the
+query features this rank produced and sums the partial outputs.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import circulant as circ
+from repro_torch.dist.sharding import gather_along, region_input
 from repro_torch.kernels.block_circulant.plan import FUSED_KEY
 from repro_torch.nn.layers import RMSNorm, apply_rope, rotary
 from repro_torch.nn.linear import Linear
@@ -164,6 +175,7 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.add_module("q_norm", RMSNorm(hd))
             self.add_module("k_norm", RMSNorm(hd))
+        self.tp = None
 
     def specs(self):
         return {n: m.specs() for n, m in self._modules.items()
@@ -211,6 +223,13 @@ class Attention(nn.Module):
         fresh K/V and ``kv_positions`` replacing its entries (the
         reference's ``update_cache``, which its callers set exactly when
         they pass ``kv_x``); in decode, ``kv_x=None``, it is only read."""
+        if self.tp is not None:
+            if cache is not None or kv_x is not None or self.cross:
+                raise NotImplementedError(
+                    "tensor-parallel attention runs training self-attention "
+                    "only: serving under a 'model' mesh axis is not ported "
+                    "(ROADMAP.md Queue 1)")
+            return self._forward_tp(x, positions, kv_positions), None
         cfg = self.cfg
         B, S, _ = x.shape
         hd, HQ, HKV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -264,17 +283,80 @@ class Attention(nn.Module):
             kv_pos = positions if kv_positions is None else kv_positions
 
         qg = q.reshape(B, S, HKV, HQ // HKV, hd)
-        masks = dict(causal=self.causal and not self.cross,
-                     window=self.window, prefix_len=self.prefix_len,
-                     softcap=cfg.logit_softcap)
-        if S > cfg.flash_q_chunk:
-            out = flash_attention(qg, k_att, v_att, positions, kv_pos,
-                                  q_chunk=cfg.flash_q_chunk,
-                                  kv_chunk=cfg.flash_kv_chunk, **masks)
-        else:
-            out = _direct_attention(qg, k_att, v_att, positions, kv_pos,
-                                    **masks)
+        out = self._attend(qg, k_att, v_att, positions, kv_pos,
+                           self.causal and not self.cross)
         return m["o"](out.reshape(B, S, HQ * hd)), cache
+
+    def _attend(self, qg, k, v, positions, kv_pos, causal: bool):
+        """The chunked flash attention past ``flash_q_chunk`` queries, the
+        direct one below it."""
+        cfg = self.cfg
+        masks = dict(causal=causal, window=self.window,
+                     prefix_len=self.prefix_len, softcap=cfg.logit_softcap)
+        if qg.shape[1] > cfg.flash_q_chunk:
+            return flash_attention(qg, k, v, positions, kv_pos,
+                                   q_chunk=cfg.flash_q_chunk,
+                                   kv_chunk=cfg.flash_kv_chunk, **masks)
+        return _direct_attention(qg, k, v, positions, kv_pos, **masks)
+
+    def _forward_tp(self, x, positions, kv_positions=None):
+        """Self-attention on this rank's share (``self.tp``): the query
+        heads ``tp.heads`` against the KV heads ``tp.kv_heads``; the output
+        is ``o``'s sum over the ``model`` axis."""
+        cfg, lay, m = self.cfg, self.tp, self._modules
+        axis = lay.axis
+        B, S, _ = x.shape
+        hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+        (h0, h1), (g0, g1) = lay.heads, lay.kv_heads
+        x = region_input(x, axis)
+        w = {n: m[n]._buffers["w"] for n in ("q", "k", "v")}
+        if lay.kv == "replicated":
+            w["k"], w["v"] = region_input(w["k"], axis), region_input(
+                w["v"], axis)
+        projs = [m[n] for n in ("q", "k", "v")]
+        kb = projs[0].block_size
+        if all(p.is_circulant and p.block_size == kb for p in projs):
+            q, k, v = circ.block_circulant_apply_multi(
+                x, [w["q"], w["k"], w["v"]], impl=cfg.swm.impl, k=kb,
+                karatsuba=cfg.swm.karatsuba)
+        else:
+            q, k, v = (m[n](x, params={"w": w[n]}) for n in ("q", "k", "v"))
+        if lay.q_gather:
+            q = gather_along(q, axis, -1)[..., h0 * hd:h1 * hd]
+        if lay.kv == "gather":
+            k, v = (gather_along(t, axis, -1) for t in (k, v))
+        if lay.kv != "local":
+            k, v = (t[..., g0 * hd:g1 * hd] for t in (k, v))
+        nh, nk = h1 - h0, g1 - g0
+        q = q.reshape(B, S, nh, hd)
+        k = k.reshape(B, S, nk, hd)
+        v = v.reshape(B, S, nk, hd)
+        if cfg.qk_norm:
+            q = m["q_norm"](q, region_input(m["q_norm"]._buffers["scale"],
+                                            axis))
+            k = m["k_norm"](k, region_input(m["k_norm"]._buffers["scale"],
+                                            axis))
+        rope = rotary(positions, hd, self.rope_theta)
+        q = apply_rope(q, *rope)
+        if kv_positions is not None:
+            rope = rotary(kv_positions, hd, self.rope_theta)
+        k = apply_rope(k, *rope)
+        if h0 % group == 0 and h1 % group == 0:
+            qg = q.reshape(B, S, nk, group, hd)
+        else:
+            # the heads do not cover whole groups: each query head takes
+            # its KV head, one group of one
+            idx = torch.tensor([h // group - g0 for h in range(h0, h1)],
+                               device=k.device)
+            k, v = k[:, :, idx], v[:, :, idx]
+            qg = q.reshape(B, S, nh, 1, hd)
+        kv_pos = positions if kv_positions is None else kv_positions
+        out = self._attend(qg, k, v, positions, kv_pos,
+                           self.causal).reshape(B, S, nh * hd)
+        if lay.q_gather:
+            q0, q1 = lay.q_range
+            out = out[..., q0 - h0 * hd:q1 - h0 * hd]
+        return m["o"](out)
 
     @staticmethod
     def _write_cache(cache, k, v, positions):

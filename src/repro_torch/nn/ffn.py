@@ -1,4 +1,10 @@
-"""Feed-forward blocks: SwiGLU (LM family) and GeLU MLP, SWM-aware."""
+"""Feed-forward blocks: SwiGLU (LM family) and GeLU MLP, SWM-aware.
+
+Under tensor parallelism (``tp``, the ``model`` axis, set by
+``dist.tensor_parallel.shard_model`` when ``mlp`` is split) ``wi``/``wu``
+hold this rank's output blocks and ``wo`` its input blocks: x enters the
+region once (its gradient summed over the axis) and ``wo`` sums the
+partial outputs."""
 
 from __future__ import annotations
 
@@ -9,6 +15,7 @@ from torch import nn
 
 from repro_torch.configs.base import SWMConfig
 from repro_torch.core.circulant import block_circulant_apply_pair
+from repro_torch.dist.sharding import region_input
 from repro_torch.nn.linear import Linear
 
 __all__ = ["SwiGLU", "MLP"]
@@ -37,12 +44,14 @@ class SwiGLU(nn.Module):
         self.add_module("wu", Linear(d_model, d_ff, **up))
         self.add_module("wo", Linear(d_ff, d_model, in_axis="mlp",
                                      out_axis="embed", **kw))
+        self.tp = None
 
     def specs(self):
         return {n: self._modules[n].specs() for n in ("wi", "wu", "wo")}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._modules
+        x = region_input(x, self.tp)
         wi, wu = m["wi"], m["wu"]
         if (wi.is_circulant and wu.is_circulant
                 and wi.block_size == wu.block_size
@@ -68,11 +77,13 @@ class MLP(nn.Module):
                                      out_axis="mlp", **kw))
         self.add_module("wo", Linear(d_ff, d_model, in_axis="mlp",
                                      out_axis="embed", **kw))
+        self.tp = None
 
     def specs(self):
         return {n: self._modules[n].specs() for n in ("wi", "wo")}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = region_input(x, self.tp)
         h = torch.nn.functional.gelu(self._modules["wi"](x),
                                      approximate="tanh")
         return self._modules["wo"](h)

@@ -1,4 +1,10 @@
-"""Shared building blocks: RMSNorm, embeddings, rotary position embedding."""
+"""Shared building blocks: RMSNorm, embeddings, rotary position embedding.
+
+Under tensor parallelism an :class:`Embedding` whose ``vocab`` rows are
+split over the ``model`` axis (``tp`` = (axis, first row, end row), set by
+``dist.tensor_parallel.shard_model``) looks each token up in its own rows
+only, zeros elsewhere, and sums the ranks' lookups; its tied logits head
+gathers the ranks' logit slices."""
 
 from __future__ import annotations
 
@@ -23,11 +29,14 @@ class RMSNorm(nn.Module):
         return {"scale": ParamSpec((self.dim,), torch.float32,
                                    init="zeros", axes=(None,))}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale=None) -> torch.Tensor:
+        """``scale`` takes the place of the module's own for this call."""
         dtype = x.dtype
         x = x.float()
         var = x.square().mean(dim=-1, keepdim=True)
-        y = x * torch.rsqrt(var + self.eps) * (1.0 + self._buffers["scale"])
+        if scale is None:
+            scale = self._buffers["scale"]
+        y = x * torch.rsqrt(var + self.eps) * (1.0 + scale)
         return y.to(dtype)
 
 
@@ -35,6 +44,7 @@ class Embedding(nn.Module):
     def __init__(self, vocab: int, dim: int, dtype: str = "bfloat16"):
         super().__init__()
         self.vocab, self.dim, self.dtype = int(vocab), int(dim), dtype
+        self.tp = None
 
     def specs(self):
         return {"table": ParamSpec((self.vocab, self.dim), self.dtype,
@@ -42,13 +52,29 @@ class Embedding(nn.Module):
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the table, scaled by √dim in the table's dtype."""
-        x = self._buffers["table"][tokens]
+        table = self._buffers["table"]
+        if self.tp is None:
+            x = table[tokens]
+        else:
+            from repro_torch.dist.sharding import region_output
+
+            axis, start, stop = self.tp
+            rel = tokens.long() - start
+            mine = (rel >= 0) & (rel < stop - start)
+            x = table[rel.clamp(0, stop - start - 1)]
+            x = region_output(x * mine[..., None].to(x.dtype), axis)
         return x * torch.tensor(self.dim ** 0.5, dtype=x.dtype,
                                 device=x.device)
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         """Tied logits head: (..., d) @ (vocab, d)^T -> f32 logits."""
-        return x.float() @ self._buffers["table"].float().T
+        if self.tp is None:
+            return x.float() @ self._buffers["table"].float().T
+        from repro_torch.dist.sharding import gather_replicated, region_input
+
+        axis, table = self.tp[0], self._buffers["table"]
+        local = region_input(x, axis).float() @ table.float().T
+        return gather_replicated(local, axis, -1)
 
 
 def rotary(positions: torch.Tensor, head_dim: int, theta: float

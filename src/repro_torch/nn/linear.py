@@ -11,6 +11,14 @@ experts): every table gains a leading ``E`` axis and the forward maps x
 ``(E, ..., in)`` to ``(E, ..., out)``, expert e through table e. On the
 kernel impl that is one grouped launch; other impls and dense experts run
 the same per-expert math the reference's ``jax.vmap`` does.
+
+Under tensor parallelism (``dist.tensor_parallel.shard_model``) the layer
+holds this rank's slice of its table: the ``p`` output blocks of a
+column-parallel layer (its caller enters the sharded region) or the ``q``
+input blocks of a row-parallel one (``parallel == "row"``), whose partial
+outputs are summed over the ``model`` axis before the bias and the
+activation are applied once: the fused epilogue never runs on a partial
+sum.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ class Linear(nn.Module):
         if len(self.expert_dims) > 1:
             raise ValueError(f"expert_dims {expert_dims}: one expert axis "
                              f"at most")
+        # tensor parallelism: "row" sums the partial outputs over ``tp``
+        self.parallel, self.tp = None, None
 
     @property
     def block_size(self) -> int:
@@ -116,6 +126,16 @@ class Linear(nn.Module):
         reference's ``Linear(params, x)`` does (the paper models apply
         fixed-point copies of their tables this way)."""
         b = self._buffers if params is None else params
+        if self.parallel == "row":
+            from repro_torch.dist.sharding import region_output
+
+            y = region_output(self._apply(x, b, None, "none"), self.tp)
+            if bias is not None:
+                y = y + bias.to(y.dtype)
+            return apply_activation(y, activation)
+        return self._apply(x, b, bias, activation)
+
+    def _apply(self, x, b, bias, activation):
         if self.is_circulant:
             if self.expert_dims and self.swm.impl != "pallas":
                 return self._per_expert(x, b, bias, activation)
@@ -146,4 +166,4 @@ class Linear(nn.Module):
                 w_freq=None if wf is None else (wf[0][e], wf[1][e]),
                 w_scale=pick(sc, e), k=self.block_size,
                 karatsuba=self.swm.karatsuba)
-            for e in range(self.expert_dims[0])])
+            for e in range(x.shape[0])])

@@ -30,6 +30,17 @@ block in the backward, its MoE call gathers the counts again: every rank
 runs the same backward, so the collectives stay in the same order. Serving
 (``no_drop``) depends on no other row and never gathers. ``dropped`` holds
 the (token, slot) pairs the last forward dropped for capacity.
+
+Under tensor parallelism the experts are split over the ``model`` axis
+(``tp`` = (axis, first expert, end expert), set by
+``dist.tensor_parallel.shard_model``). The tokens, the f32 router, the
+routing and the aux loss stay replicated on every rank of the axis, so
+capacity and drops are the global routing's. Each rank dispatches only
+the (token, slot) pairs of its experts into an ``(E / model, C, d)``
+buffer, runs them as one grouped launch per projection, and combines
+them; the partial combines are summed over the axis. The tokens and the
+gates enter that region (their gradient partials summed), so the
+router's and the aux loss's gradients stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -42,8 +53,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SWMConfig
+from repro_torch.dist.sharding import region_input, region_output
 from repro_torch.nn.ffn import SwiGLU
 from repro_torch.nn.linear import Linear
+from repro_torch.nn.module import load_tree, module_tree
 
 __all__ = ["MoE", "GlobalRouting", "global_routing", "top_k_lower_index"]
 
@@ -55,17 +68,19 @@ _ROUTING = [None]
 
 class GlobalRouting:
     """A data-parallel group whose ranks hold equal, rank-major blocks of
-    one global batch; counts the collectives the MoE layers run."""
+    one global batch; counts the collectives the MoE layers run and the
+    bytes they send."""
 
     def __init__(self, group, world: int, rank: int):
         self.group, self.world, self.rank = group, int(world), int(rank)
-        self.collectives = 0
+        self.collectives = self.bytes = 0
 
     def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
         """Every rank's per-expert counts, ``(W, E)`` in rank order."""
         from repro_torch.dist.sharding import all_gather_list
 
         self.collectives += 1
+        self.bytes += counts.numel() * counts.element_size()
         return torch.stack(all_gather_list(counts, self.group))
 
 
@@ -79,6 +94,18 @@ def global_routing(routing: Optional[GlobalRouting]):
         yield routing
     finally:
         _ROUTING[0] = prev
+
+
+def _run_experts(experts, disp, tree):
+    """``experts(disp)`` on the tables ``tree``. The recompute in the
+    backward takes the tables the forward took: an FSDP layer's gathered
+    ones, which its module holds only inside the layer's forward."""
+    held = module_tree(experts)
+    load_tree(experts, tree)
+    try:
+        return experts(disp)
+    finally:
+        load_tree(experts, held)
 
 
 def top_k_lower_index(probs: torch.Tensor, k: int):
@@ -107,6 +134,7 @@ class MoE(nn.Module):
         self.add_module("experts", SwiGLU(d_model, d_ff, swm=swm,
                                           family="expert", dtype=dtype,
                                           expert_dims=(n_experts,)))
+        self.tp = None
 
     def specs(self):
         return {n: self._modules[n].specs() for n in ("router", "experts")}
@@ -174,19 +202,30 @@ class MoE(nn.Module):
         # alone (positions are ranks within the expert), and a dropped one
         # adds an exact zero to slot 0, so every slot sums one value and
         # zeros
-        disp = torch.zeros((E, min(C, N), d), dtype=x.dtype,
+        axis, e0, e1 = self.tp if self.tp is not None else (None, 0, E)
+        if self.tp is not None:
+            # this rank's experts only: the others' pairs add exact zeros
+            mine = (expert_idx >= e0) & (expert_idx < e1)
+            keep = keep & mine
+            local_idx = torch.where(mine, expert_idx - e0,
+                                    torch.zeros_like(expert_idx))
+            xt, gate = region_input(xt, axis), region_input(gate, axis)
+        else:
+            local_idx = expert_idx
+        disp = torch.zeros((e1 - e0, min(C, N), d), dtype=x.dtype,
                            device=x.device)
         contrib = xt[:, None, :] * keep[..., None].to(x.dtype)      # (N,T,d)
-        disp.index_put_((expert_idx, pos), contrib, accumulate=True)
+        disp.index_put_((local_idx, pos), contrib, accumulate=True)
 
         experts = self._modules["experts"]
-        y_exp = (checkpoint(experts, disp, use_reentrant=False)
+        y_exp = (checkpoint(_run_experts, experts, disp, module_tree(experts),
+                            use_reentrant=False)
                  if torch.is_grad_enabled() else experts(disp))    # (E, C, d)
 
         # combine: each token's expert outputs, gate-weighted
-        y_tok = y_exp[expert_idx, pos]                             # (N, T, d)
+        y_tok = y_exp[local_idx, pos]                              # (N, T, d)
         w = (gate * keep.to(gate.dtype))[..., None].to(x.dtype)
-        y = (y_tok * w).sum(dim=1).reshape(B, S, d)
+        y = region_output((y_tok * w).sum(dim=1), axis).reshape(B, S, d)
 
         # load-balance aux loss (Switch): E · Σ_e f_e · P_e
         # f global under data parallelism, P this rank's rows

@@ -63,16 +63,28 @@ def adamw_init(params, tcfg: TrainConfig):
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree, counted=None, reduce=None) -> torch.Tensor:
+    """The L2 norm over every leaf of ``tree``. On a mesh whose leaves are
+    this rank's shards, ``counted`` (a bool per leaf) names the leaves this
+    rank adds, so that each element of the whole tree is counted once
+    (``dist.tensor_parallel.norm_owner``), and ``reduce`` sums the ranks'
+    squares."""
+    leaves = tree_leaves(tree)
+    if counted is None:
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    sq = torch.zeros((), dtype=_F32, device=leaves[0].device)
+    for x, c in zip(leaves, counted):
+        if c:
+            sq = sq + x.float().square().sum()
+    return torch.sqrt(reduce(sq) if reduce is not None else sq)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, counted=None, reduce=None):
     """Scale ``grads`` in place to a global norm of at most ``max_norm``;
-    returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    returns (grads, the norm before clipping). ``counted`` / ``reduce``
+    take a sharded tree's norm (:func:`global_norm`)."""
+    norm = global_norm(grads, counted, reduce)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.copy_(g.float() * scale)

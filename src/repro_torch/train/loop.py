@@ -23,14 +23,18 @@ Fault-tolerant restarts wrap this step from outside:
 ``ft.driver.TrainDriver`` checkpoints the state and, after a failed step,
 copies the latest checkpoint back into the same tensors.
 
-With ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_local_mesh``)
-the step is data-parallel (:mod:`repro_torch.dist.data_parallel`): each
-rank takes its batch shard, the grads are averaged over the data axes
-with one bucketed all-reduce, and the optimizer moments are held as this
-rank's ZeRO-1 shard. The mesh also becomes the ambient mesh that
-``impl="freq_shmap"`` reads. Refused: a mesh with a ``model`` axis > 1
-(tensor parallelism is not ported); FSDP configs keep their params whole
-on every rank (the numbers are the same).
+With ``mesh=`` (a ``DeviceMesh`` with data axes and a ``model`` axis:
+``launch.mesh.make_local_mesh``, or any ``init_device_mesh`` with those
+names) the step is parallel (:mod:`repro_torch.dist.data_parallel`):
+each rank takes its batch shard, holds its params as its shard under the
+rule table (the ``model`` axis's tensor-parallel rules; ``embed`` over
+the data axes for an FSDP config), averages the grads over the data axes
+with one bucketed all-reduce, and holds the optimizer moments as its
+ZeRO-1 shard. The mesh also becomes the ambient mesh that
+``impl="freq_shmap"`` reads. A model that tensor parallelism does not
+cover (the Mamba and RWKV mixers, the enc-dec family, paligemma's vision
+prefix) is refused on a ``model`` axis > 1 and keeps whole params on a
+``(world, 1)`` mesh.
 
 ``audit_args`` gates a step on its structural contract
 (:mod:`repro_torch.analysis`): the step runs once, captured, on a clone of
@@ -170,8 +174,9 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
         hidden, aux = model.forward_hidden(inp, **kwargs)
         if img is not None:
             hidden = hidden[:, img.shape[1]:]            # loss on text only
-        ce, metrics = chunked_cross_entropy(hidden, model.output_table(),
-                                            labels, z_loss=tcfg.z_loss)
+        ce, metrics = chunked_cross_entropy(
+            hidden, model.output_table(), labels, z_loss=tcfg.z_loss,
+            vocab_shard=getattr(model, "vocab_shard", None))
         loss = ce + tcfg.moe_aux_loss * aux
         return loss, {"ce": ce, "aux": aux, **metrics}
 
@@ -179,14 +184,26 @@ def make_loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig):
 
 
 def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw",
-                     opt_shardings=None, mesh=None, stacks=()):
+                     opt_shardings=None, mesh=None, stacks=(),
+                     param_shardings=None):
     """``{"params", "opt", "step": 0}``. Every param leaf becomes a leaf
     tensor that requires grad, in place (the tree keeps its tensors).
-    With ``opt_shardings`` (the ``"opt"`` subtree of the data-parallel
-    step's ``state_shardings``) and ``mesh``, each moment is made as this
-    rank's shard only. Adafactor's moments take ``stacks``
+    With ``param_shardings`` (the ``"params"`` subtree of the parallel
+    step's ``state_shardings``) and ``mesh``, ``params`` is the whole tree
+    and each leaf is cut to this rank's shard
+    (``dist.sharding.local_shard``: a copy where it is split); with
+    ``opt_shardings`` (the ``"opt"`` subtree) and ``mesh``, each moment is
+    made as this rank's shard only. Adafactor's moments take ``stacks``
     (``convert.layer_stacks(cfg)``, the stacks the step updates as one
     leaf each; :mod:`repro_torch.optim.optimizers`)."""
+    # the moments' shapes at no allocation, from the whole params
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    if param_shardings is not None:
+        from repro_torch.dist.sharding import local_shard
+
+        params = tree_map(lambda p, spec: local_shard(p.detach(), spec, mesh),
+                          params, param_shardings)
     for p in tree_leaves(params):
         if not p.is_leaf:
             raise ValueError("param leaves must be leaf tensors (no grad "
@@ -198,9 +215,7 @@ def init_train_state(params, tcfg: TrainConfig, optimizer: str = "adamw",
         init = adamw_init
     if opt_shardings is None:
         return {"params": params, "opt": init(params, tcfg), "step": 0}
-    # the moments' shapes at no allocation, then zeros of the local shape
-    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
-                                          device="meta"), params)
+    # zeros of the local shape
     dev = tree_leaves(params)[0].device
     opt = {}
     for key, tree in init(meta, tcfg).items():
@@ -219,14 +234,17 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     clip, then AdamW or Adafactor by ``cfg.optimizer``; the state is
     updated in place and returned.
 
-    With ``mesh`` the step is data-parallel over its data axes (module
-    docstring); the batch it takes is the global one, the same on every
-    rank, and the state's moments must be this rank's shards, as
-    ``init_train_state(opt_shardings=train_step.data_parallel
-    .state_shardings["opt"], mesh=mesh)`` makes them (whole moments raise
-    ``ValueError``). ``train_step.data_parallel`` is the
+    With ``mesh`` the step is parallel over it (module docstring; the
+    model's modules take this rank's shares, so the model then runs as
+    this rank's part); the batch it takes is the global one, the same on
+    every rank, and the state's params and moments must be this rank's
+    shards, as ``init_train_state(param_shardings=..., opt_shardings=
+    ..., mesh=mesh)`` makes them from ``train_step.data_parallel
+    .state_shardings`` (whole leaves raise ``ValueError``).
+    ``train_step.data_parallel`` is the
     :class:`~repro_torch.dist.data_parallel.DataParallel` (its
-    ``collectives`` counter included), None without a mesh.
+    ``collectives`` and ``comm_bytes`` counters included), None without a
+    mesh.
 
     ``audit_args=(state, batch)`` audits the step before it returns: one
     step, captured, on a clone of the state (``train_step.audit_trace``
@@ -243,7 +261,7 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         from repro_torch.dist.data_parallel import DataParallel
         from repro_torch.dist.sharding import set_ambient_mesh
 
-        dp = DataParallel(mesh, model.specs(), cfg, tcfg)
+        dp = DataParallel(mesh, model, cfg, tcfg)
         set_ambient_mesh(mesh)
 
     def compute_grads(params, batch):
@@ -284,7 +302,7 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     def train_step(state, batch):
         routing = contextlib.nullcontext()
         if dp is not None:
-            dp.check_shards(state["opt"])
+            dp.check_shards(state)
             local = dp.local_batch(batch)
             routing = dp.routing(batch, local)
             batch = local
@@ -294,7 +312,8 @@ def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             grads, loss, metrics = dp.average(grads, loss, metrics)
         # the norm is taken leaf by leaf, after the average, in the same
         # order with or without a mesh
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(
+            grads, tcfg.grad_clip, **(dp.norm_args() if dp else {}))
         if dp is not None:
             dp.update(state["params"], grads, state["opt"], state["step"])
         else:
