@@ -77,7 +77,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (8, 12); arctic's (36, 56), (56, 28), (19, 56), (56, 19) and its 64
    local experts' (38, 56) and (56, 38) grouped; their dx transposes, and
    q and k/v alone) against its plain version, f32 and bf16, ``bc_dw`` at
-   every weight shape, and their device times;
+   every weight shape, and their device times; (d) after its train step
+   each rank serves through ``make_prefill_step(mesh=)`` /
+   ``make_decode_step(mesh=)`` with frozen tables, f32 then int8 (4
+   prompts of 64 tokens, then 16 greedy decode steps): (a) qwen3-0.6b at
+   full depth (28 layers) and (b) arctic-480b cut to 3 layers (its 64
+   local experts; 3, so that the cache rule splits the slot axis over the
+   data ranks and the MoE routes over the global batch), held to this
+   process serving the same prompts (greedy tokens equal, the last step's
+   logits within 1e-5 f32 and 2e-5 int8); launches per prefill and per
+   decode step pinned (140/140, 24/24), collectives and bytes per step by
+   kind, per-rank param and cache bytes beside one process's, prefill and
+   decode wall and busy ms; the serve shard shapes' kernels against plain,
+   f32 and int8, and their device times; (e) ``python -m
+   repro_torch.launch.dryrun`` on the three committed cells (the CPU,
+   beside the rest): ``params``, ``analytic`` and the donated cache bytes
+   equal to ``experiments/dryrun/``'s;
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -286,6 +301,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -5263,6 +5279,34 @@ TP_DW_SHAPES = {
           ("arctic.experts.wo", 64, 56, 38, 2, 40)],
 }
 
+# (d) serving after the train step: (a) qwen3-0.6b at full depth, (b)
+# arctic-480b cut to 3 layers (2 would stack evenly over data = 2, and the
+# cache rule would then put the data axis on the layer stack and leave
+# every data rank all the rows), full width, f32, frozen tables f32 then
+# int8; prompts, prompt tokens, greedy decode steps, cache length
+TP_SERVE_DEPTH = {"a": None, "b": 3}
+TP_SERVE = (4, 64, 16)
+TP_SERVE_CACHE = 128
+TP_SERVE_INT8_TOL = FP32_TOL    # tests/test_torch_bcplan.py's int8 plans
+# bc_matmul launches per rank per prefill and per decode step, pinned: one
+# process's (qwen3's 5 per layer x 28, arctic's 8 per layer x 3)
+TP_SERVE_LAUNCHES = {"a": (140, 140), "b": (24, 24)}
+# (name, groups, p, q, launches per rank per forward) of every serve shard
+# shape at model = 2, k = 128; rows from tp_serve_rows
+TP_SERVE_SHAPES = {
+    "a": [("qwen3.serve.qkv", 1, 16, 8, 28), ("qwen3.serve.o", 1, 8, 8, 28),
+          ("qwen3.serve.wi_wu", 1, 12, 8, 56),
+          ("qwen3.serve.wo", 1, 8, 12, 28)],
+    "b": [("arctic.serve.qkv", 1, 36, 56, 3),
+          ("arctic.serve.o", 1, 56, 28, 3),
+          ("arctic.serve.wi_wu", 1, 19, 56, 6),
+          ("arctic.serve.wo", 1, 56, 19, 3),
+          ("arctic.serve.experts.wi_wu", 64, 38, 56, 6),
+          ("arctic.serve.experts.wo", 64, 56, 38, 3)],
+}
+# the committed dry-run records the dry-run step reproduces on the CPU
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+
 
 def tp_config(run):
     """(a)'s or (b)'s config: the arch at full width in f32, 2 layers."""
@@ -5323,6 +5367,136 @@ def tp_step(torch, dev, run, mesh):
             torch.cuda.max_memory_allocated() - base)
 
 
+def tp_serve_config(run):
+    """(a)'s or (b)'s serve config: the arch at full width in f32,
+    ``impl="pallas"``, cut to ``TP_SERVE_DEPTH`` layers."""
+    from repro_torch.configs.base import SWMConfig
+    from repro_torch.configs.registry import get_config
+
+    arch, _ = TP_RUNS[run]
+    cfg = dataclasses.replace(
+        get_config(arch), swm=SWMConfig(block_size=128, impl="pallas"),
+        param_dtype="float32", compute_dtype="float32")
+    depth = TP_SERVE_DEPTH[run]
+    return cfg if depth is None else cut_depth(cfg, depth)
+
+
+def tp_serve_rows(run, shape):
+    """{shape name: rows per launch} of ``run``'s serve on ``shape`` (data,
+    model): a rank's rows of the prompts (prefill) and of the batch
+    (decode); an expert launch's rows are the capacity of the global
+    batch's tokens."""
+    from repro_torch.nn.moe import MoE
+
+    B, P, _ = TP_SERVE
+    per = B // shape[0]
+    cfg = tp_serve_config(run)
+    out = {}
+    for name, G, *_ in TP_SERVE_SHAPES[run]:
+        if G > 1:
+            moe = MoE(cfg.d_model, cfg.d_ff_expert or cfg.d_ff,
+                      cfg.n_experts, cfg.n_experts_per_token,
+                      cfg.capacity_factor)
+            out[name] = {min(moe.capacity(n, False), n // shape[0])
+                         for n in (B * P, B)}
+        else:
+            out[name] = {per * P, per}
+    return out
+
+
+def tp_serve(torch, kernel, dev, run, quantize, mesh=None):
+    """``run``'s serve config with frozen tables (``quantize``) on
+    ``mesh`` (this rank's shards) or in one process (None): TP_SERVE's
+    prompts (seeded) prefilled, then greedy decode steps, the next step's
+    global tokens all-gathered over the data ranks. Returns the greedy
+    tokens of every step, the last step's logits (this rank's rows),
+    bc_matmul launches and collectives by kind per prefill and per decode
+    step, the rows, param and cache bytes, wall ms, and (f32) a profiled
+    prefill's and decode step's busy ms."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.sharding import all_gather_list
+    from repro_torch.kernels.block_circulant.plan import freeze_params
+    from repro_torch.launch.specs import build_model
+    from repro_torch.nn.module import init_params, load_tree, module_tree
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = tp_serve_config(run)
+    B, P, steps = TP_SERVE
+    model = build_model(cfg, device=dev)
+    specs = model.specs()
+    load_tree(model, freeze_params(specs, init_params(specs, seed=0,
+                                                      device=dev), quantize))
+    prefill = make_prefill_step(model, cfg, mesh=mesh)
+    decode = make_decode_step(model, cfg, mesh=mesh)
+    par = prefill.parallel
+    group = None if mesh is None else mesh.get_group("data")
+
+    def fresh_cache():
+        return (model.init_cache(B, TP_SERVE_CACHE) if par is None
+                else par.init_cache(B, TP_SERVE_CACHE))
+
+    def counted(fn, *args):
+        n0 = kernel.LAUNCHES["bc_matmul"]
+        c0 = dict(par.log.counts) if par else {}
+        b0 = dict(par.log.kind_bytes) if par else {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        coll = {k: (par.log.counts[k] - c0[k], par.log.kind_bytes[k] - b0[k])
+                for k in c0 if par.log.counts[k] > c0[k]} if par else {}
+        return out, kernel.LAUNCHES["bc_matmul"] - n0, coll, ms
+
+    def global_tokens(logits):
+        tok = logits.argmax(-1).to(torch.int32)
+        if tok.shape[0] < B:
+            tok = torch.cat(all_gather_list(tok, group))
+        return tok
+
+    prompts = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab, (B, P)).astype(np.int32)).to(dev)
+    cache = fresh_cache()
+    rows = par.step_rows(B, cache) if par else (0, B)
+    (logits, cache), pre_n, pre_coll, pre_ms = counted(prefill, prompts,
+                                                       cache)
+    toks = [global_tokens(logits)]
+    dec_n, dec_coll, dec_ms = set(), [], []
+    for i in range(steps):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+        (logits, cache), n, coll, ms = counted(decode, toks[-1][:, None],
+                                               cache, pos)
+        dec_n.add(n)
+        dec_coll.append(coll)
+        dec_ms.append(ms)
+        toks.append(global_tokens(logits))
+    out = dict(tokens=[t.cpu().numpy() for t in toks],
+               logits=logits.float().cpu().numpy(), rows=rows,
+               prefill_launches=pre_n, decode_launches=sorted(dec_n),
+               prefill_coll=pre_coll, decode_coll=dec_coll[-1],
+               param_bytes=tp_bytes(module_tree(model)),
+               cache_bytes=sum(t.nbytes for layer in cache
+                               for t in layer.values()),
+               prefill_ms=pre_ms, decode_ms=statistics.median(dec_ms))
+    if quantize == "off":
+        busy = {}
+        for name, fn, args in (
+                ("prefill", prefill, (prompts, fresh_cache())),
+                ("decode", decode, (toks[-1][:, None], cache, pos + 1))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(*args)
+                torch.cuda.synchronize()
+            busy[name] = device_busy_ms(torch, prof)
+        out.update(prefill_busy_ms=busy["prefill"],
+                   decode_busy_ms=busy["decode"])
+    del model, cache, prefill, decode
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank_main(run, rank, port, ckpt, q):
     """A rank of (a) or (b): a gloo group on cuda:0 (NCCL refuses two
     ranks on one GPU), one step on its shards, then the state saved whole
@@ -5370,6 +5544,16 @@ def tp_rank_main(run, rank, port, ckpt, q):
         save_checkpoint(ckpt, 1, state, shardings=dp.state_shardings,
                         mesh=mesh)
         out["save_s"] = time.perf_counter() - t
+        del state, step, model, metrics
+        torch.cuda.empty_cache()
+        # (d) serving on the same mesh, its launches counted apart
+        saved = dict(kernel.LAUNCHES)
+        out["serve"] = {q_: tp_serve(torch, kernel, dev, run, q_, mesh)
+                        for q_ in ("off", "int8")}
+        kernel.LAUNCHES.update(saved)
+        out["serve_launches"] = sum(
+            o["prefill_launches"] + TP_SERVE[2] * o["decode_launches"][0]
+            for o in out["serve"].values())
     except Exception as e:             # reported by the parent, which fails
         import traceback
 
@@ -5443,6 +5627,83 @@ def tp_compare(torch, ref, ckpt, dev):
     return math.sqrt(diff / norm), leaf, moments, int(got["step"])
 
 
+def dryrun_start(out_dir):
+    """(e) ``python -m repro_torch.launch.dryrun`` on each committed cell
+    into ``out_dir``, one process per cell, started together in the
+    background (the CPU and ``meta`` tensors: no card). The processes
+    are killed and ``out_dir`` removed when this script exits."""
+    import atexit
+    import os
+    import shutil
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", shape, "--mesh", "single", "--out",
+         out_dir, "--force"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for shape in DRYRUN_CELLS}
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return out_dir, procs
+
+
+def dryrun_join(torch, started, timeout=300):
+    """Each cell's record against the reference's: ``params`` and the
+    donated cache bytes equal, ``analytic`` to rel 1e-12; the port's
+    bytes, flops and collectives printed beside the reference's."""
+    import os
+
+    out_dir, procs = started
+    rows = {}
+    for shape, proc in procs.items():
+        try:
+            log = proc.communicate(timeout=timeout)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dryrun {shape}: ran over {timeout}s")
+        if proc.returncode != 0 or "cells: 1 OK" not in log:
+            fail(f"dryrun {shape}: exited {proc.returncode}:\n"
+                 + "\n".join(log.strip().splitlines()[-20:]))
+        tag = f"qwen3-0.6b__{shape}__single.json"
+        with open(os.path.join(out_dir, tag)) as f:
+            mine = json.load(f)
+        with open(ROOT / "experiments" / "dryrun" / tag) as f:
+            ref = json.load(f)
+        bad = [k for k in ("params", "tokens", "devices", "kind", "impl",
+                           "argument_size_in_bytes") if mine[k] != ref[k]]
+        bad += [f"analytic.{k}" for k, v in ref["analytic"].items()
+                if abs(mine["analytic"][k] - v) > 1e-12 * abs(v)]
+        if shape != "train_4k" and mine["alias_size_in_bytes"] != ref[
+                "alias_size_in_bytes"]:
+            bad.append("alias_size_in_bytes")
+        if bad:
+            fail(f"dryrun {shape}: {bad} differ from the reference's record")
+        keys = ("argument_size_in_bytes", "output_size_in_bytes",
+                "alias_size_in_bytes", "temp_size_in_bytes", "flops")
+        print(f"dryrun (e) qwen3-0.6b {shape} single on the CPU "
+              f"({mine['lower_s']} s on meta; torch {torch.__version__}): "
+              f"params stored {mine['params']['stored']} = the reference's; "
+              f"analytic a_flops_per_chip {mine['analytic']['a_flops_per_chip']!r}"
+              f" = the reference's; "
+              + ", ".join(f"{k} {mine[k]!r} (reference {ref[k]!r})"
+                          for k in keys)
+              + f"; collectives {mine['collective_counts']} (reference "
+              f"{ref['collective_counts']})")
+        rows[shape] = {k: mine[k] for k in keys + ("collective_counts",
+                                                   "lower_s")}
+    return rows
+
+
 def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
     """Tensor parallelism and FSDP on the card, parts (a)-(c) (module
     docstring). The ranks were started before the analysis phase and ran
@@ -5463,14 +5724,23 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                          grad_norm=float(metrics["grad_norm"]), ms=ms,
                          peak=peak, param_bytes=tp_bytes(state["params"]),
                          moment_bytes=tp_bytes(state["opt"]))
+    # (d) one process serving what the ranks serve
+    serve_refs = {run: {q_: tp_serve(torch, kernel, dev, run, q_)
+                        for q_ in ("off", "int8")} for run in TP_RUNS}
     kernel.LAUNCHES.update(saved)
     t_ref = time.perf_counter() - t_phase
     # (c) the shard shapes against their plain versions while the ranks
-    # finish (their timing waits for the ranks' exit)
+    # finish (their timing waits for the ranks' exit); (d)'s serve shard
+    # shapes at the rows the ranks launch them
     shapes = [c for run in TP_RUNS for c in TP_SHAPES[run]] + TP_SPLIT_SHAPES
+    serve_rows = {name: rows for run, (_, shape) in TP_RUNS.items()
+                  for name, rows in tp_serve_rows(run, shape).items()}
+    serve_shapes = [c for run in TP_RUNS for c in TP_SERVE_SHAPES[run]]
     mm_abs = phase_hybrid_kernels(
-        torch, kernel, quant, dev, {c[0]: {c[5]} for c in shapes},
-        shapes=[c[:5] for c in shapes], label="tp", seed=20)
+        torch, kernel, quant, dev,
+        {**{c[0]: {c[5]} for c in shapes}, **serve_rows},
+        shapes=[c[:5] for c in shapes] + [c[:5] for c in serve_shapes],
+        label="tp", seed=20)
     gen = torch.Generator(device=dev).manual_seed(21)
     dw_abs = 0.0
     dw_shapes = [c for run in TP_RUNS for c in TP_DW_SHAPES[run]]
@@ -5557,6 +5827,9 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                            ms=[o["ms"] for o in ranks], ref_ms=ref["ms"],
                            save_s=max(o["save_s"] for o in ranks),
                            restore_s=restore_s, kv=o0["kv"])
+    for run, (arch, shape) in TP_RUNS.items():
+        report[run]["serve"] = tp_serve_compare(run, arch, shape, outs[run],
+                                                serve_refs[run])
     t_cmp = time.perf_counter() - t_phase
     # each distinct (groups, p, q, rows) timed once: a dx launch runs the
     # transposed grid of another layer's forward
@@ -5569,6 +5842,11 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
     times = phase_hybrid_times(
         torch, kernel, dev, [(n, G, p, q, per, B) for (G, p, q, B), (n, per)
                              in distinct.items()], label="tp", seed=22)
+    times += phase_hybrid_times(
+        torch, kernel, dev, [(n, G, p, q, per, B)
+                             for n, G, p, q, per in serve_shapes
+                             for B in sorted(serve_rows[n])],
+        label="tp serve", seed=23)
     dw_times = phase_dw_group_times(
         torch, kernel, dev, [(n, G, P, Q, B, per)
                              for n, G, P, Q, per, B in dw_shapes], label="tp")
@@ -5579,9 +5857,103 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
           f"held to the steps until {t_cmp:.1f}s, then the times)")
     launches = {k: sum(o["launches"][k] for run in TP_RUNS
                        for o in outs[run]) for k in ("bc_matmul", "bc_dw")}
+    launches["bc_matmul"] += sum(o["serve_launches"] for run in TP_RUNS
+                                 for o in outs[run])
     report.update(seconds=secs, mm_abs=mm_abs, dw_abs=dw_abs)
-    return (report, launches, {c[5] for c in shapes if c[1] == 1}, times,
-            dw_times)
+    rows = {c[5] for c in shapes if c[1] == 1} | {
+        r for c in serve_shapes if c[1] == 1 for r in serve_rows[c[0]]}
+    return report, launches, rows, times, dw_times
+
+
+def tp_serve_compare(run, arch, shape, ranks, refs):
+    """(d): every rank's serve against one process's, f32 and int8:
+    greedy tokens equal at every step, the last step's logits of its rows
+    within TP_TOL (f32) or TP_SERVE_INT8_TOL (int8), launches pinned;
+    printed with collectives, bytes and times. Returns the report row."""
+    import numpy as np
+
+    out = {}
+    want_pre, want_dec = TP_SERVE_LAUNCHES[run]
+    for q_, tol in (("off", TP_TOL), ("int8", TP_SERVE_INT8_TOL)):
+        ref = refs[q_]
+        errs = []
+        for o in ranks:
+            got = o["serve"][q_]
+            if len(got["tokens"]) != len(ref["tokens"]) or not all(
+                    np.array_equal(a, b)
+                    for a, b in zip(got["tokens"], ref["tokens"])):
+                fail(f"tp (d) ({run}) {arch} {q_} rank {o['rank']}: greedy "
+                     f"tokens differ from one process's")
+            a, b = got["rows"]
+            errs.append(rel_err(torch_from(got["logits"]),
+                                torch_from(ref["logits"][a:b])))
+            if not errs[-1] <= tol:
+                fail(f"tp (d) ({run}) {arch} {q_} rank {o['rank']}: last "
+                     f"logits rel {errs[-1]!r} > {tol}")
+            if (got["prefill_launches"], got["decode_launches"]) != (
+                    want_pre, [want_dec]):
+                fail(f"tp (d) ({run}) rank {o['rank']} {q_}: launches per "
+                     f"prefill / decode step {got['prefill_launches']} / "
+                     f"{got['decode_launches']} != {want_pre} / {want_dec}")
+        o0 = ranks[0]["serve"][q_]
+        busy = (f"; busy ms prefill "
+                f"{[o['serve'][q_]['prefill_busy_ms'] for o in ranks]} (one "
+                f"process {ref['prefill_busy_ms']!r}), decode step "
+                f"{[o['serve'][q_]['decode_busy_ms'] for o in ranks]} "
+                f"({ref['decode_busy_ms']!r})" if q_ == "off" else "")
+        if any(o["serve"][q_][k] != o0[k] for o in ranks
+               for k in ("prefill_coll", "decode_coll")):
+            fail(f"tp (d) ({run}) {q_}: the ranks issued different "
+                 f"collectives")
+        B, P, steps = TP_SERVE
+        print(f"tp (d) ({run}) {arch} serving at "
+              f"{len(tp_serve_config(run).layer_specs())} layers, full width, "
+              f"f32 compute, frozen {'f32' if q_ == 'off' else 'int8'} "
+              f"tables, on (data={shape[0]}, model={shape[1]}): {B} prompts "
+              f"x {P} tokens then {steps} greedy steps; tokens equal to one "
+              f"process's at every step on every rank; last logits rel "
+              f"{errs} (limit {tol}); rows per rank {o0['rows']}; launches "
+              f"per prefill {o0['prefill_launches']} and per decode step "
+              f"{o0['decode_launches'][0]} (pinned); collectives (count, "
+              f"bytes) per prefill {o0['prefill_coll']} and per decode step "
+              f"{o0['decode_coll']}; per rank params "
+              f"{[o['serve'][q_]['param_bytes'] for o in ranks]} B and cache "
+              f"{o0['cache_bytes']} B vs one process's {ref['param_bytes']} "
+              f"and {ref['cache_bytes']} B; wall ms prefill "
+              f"{[round(o['serve'][q_]['prefill_ms'], 2) for o in ranks]} "
+              f"(one process {ref['prefill_ms']:.2f}), decode step median "
+              f"{[round(o['serve'][q_]['decode_ms'], 2) for o in ranks]} "
+              f"({ref['decode_ms']:.2f}){busy} ({CARD[0]})")
+        out[q_] = dict(rel_logits=max(errs), rows=o0["rows"],
+                       prefill_launches=o0["prefill_launches"],
+                       decode_launches=o0["decode_launches"][0],
+                       prefill_coll=o0["prefill_coll"],
+                       decode_coll=o0["decode_coll"],
+                       param_bytes=[o["serve"][q_]["param_bytes"]
+                                    for o in ranks],
+                       cache_bytes=o0["cache_bytes"],
+                       ref_param_bytes=ref["param_bytes"],
+                       ref_cache_bytes=ref["cache_bytes"],
+                       prefill_ms=[o["serve"][q_]["prefill_ms"]
+                                   for o in ranks],
+                       decode_ms=[o["serve"][q_]["decode_ms"] for o in ranks],
+                       ref_prefill_ms=ref["prefill_ms"],
+                       ref_decode_ms=ref["decode_ms"])
+        if q_ == "off":
+            out[q_].update(
+                prefill_busy_ms=[o["serve"][q_]["prefill_busy_ms"]
+                                 for o in ranks],
+                decode_busy_ms=[o["serve"][q_]["decode_busy_ms"]
+                                for o in ranks],
+                ref_prefill_busy_ms=ref["prefill_busy_ms"],
+                ref_decode_busy_ms=ref["decode_busy_ms"])
+    return out
+
+
+def torch_from(a):
+    import torch
+
+    return torch.from_numpy(a)
 
 
 def main() -> int:
@@ -5602,6 +5974,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     CARD[0] = smi.stdout.strip().splitlines()[0]
     print(CARD[0])
+    # the dry-run's three cells on the CPU, beside the kernels' build and
+    # the first serve path; joined in the tp phase
+    dry_procs = dryrun_start(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
 
     marks = [t_start]
 
@@ -5642,8 +6017,11 @@ def main() -> int:
         if {"bc_matmul": mm, "bc_dw": dw} != TP_LAUNCHES[run]:
             fail(f"TP_SHAPES' launches of ({run}) do not sum to "
                  f"{TP_LAUNCHES[run]}")
+        if sum(c[4] for c in TP_SERVE_SHAPES[run]) != \
+                TP_SERVE_LAUNCHES[run][0]:
+            fail(f"TP_SERVE_SHAPES' launches of ({run}) do not sum to "
+                 f"{TP_SERVE_LAUNCHES[run][0]}")
     import shutil
-    import tempfile
 
     tp_tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     print(f"tp: checkpoints under {tp_tmp}, "
@@ -5654,6 +6032,7 @@ def main() -> int:
                                                          engine)
         tp_row, tp_launches, tp_rows, tp_times, tp_dw_times = phase_tp(
             torch, kernel, quant, dev, tp_procs, tp_q, tp_tmp)
+        tp_row["dryrun"] = dryrun_join(torch, dry_procs)
     finally:
         for p in tp_procs:
             if p.is_alive():

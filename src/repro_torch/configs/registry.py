@@ -9,7 +9,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["ARCHS", "get_config", "get_smoke"]
+__all__ = ["ARCHS", "LONG_CONTEXT_ARCHS", "get_config", "get_smoke"]
 
 ARCHS: Dict[str, str] = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
@@ -23,6 +23,9 @@ ARCHS: Dict[str, str] = {
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
+
+# archs with a sub-quadratic / O(1)-state path that run the long_500k cell
+LONG_CONTEXT_ARCHS = {"rwkv6-7b", "jamba-v0.1-52b", "gemma3-27b"}
 
 
 def _mod(arch: str):

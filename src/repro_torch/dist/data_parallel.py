@@ -81,7 +81,8 @@ def _counted(dp, ctx):
             yield route
         finally:
             if route is not None:
-                dp.log.add(route.bytes, route.collectives)
+                dp.log.add(route.bytes, route.collectives,
+                           kind="all-gather")
 
 
 def _slicer(sl) -> tuple:
@@ -157,7 +158,7 @@ class DataParallel:
         return self.log.bytes
 
     def _all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
-        self.log.add(t.numel() * t.element_size())
+        self.log.add(t.numel() * t.element_size(), kind="all-gather")
         return all_gather_list(t, self.group)
 
     # -- the step ---------------------------------------------------------
@@ -206,7 +207,7 @@ class DataParallel:
         leaves = tree_leaves(grads)
         mine = [g for g, f in zip(leaves, self.fsdp_leaf) if not f]
         parts = mine + [loss] + tree_leaves(metrics)
-        self.log.add(4 * sum(t.numel() for t in parts))
+        self.log.add(4 * sum(t.numel() for t in parts), kind="all-reduce")
         it = iter(all_reduce_flat(parts, self.group, divisor=self.world))
         out = [(g.float() / self.world).to(g.dtype) if f else next(it)
                for g, f in zip(leaves, self.fsdp_leaf)]
@@ -222,7 +223,7 @@ class DataParallel:
             return {}
 
         def world_sum(t):
-            self.log.add(4)
+            self.log.add(4, kind="all-reduce")
             return all_reduce_flat([t], None)[0]
 
         return {"counted": self.norm_owner, "reduce": world_sum}
@@ -381,7 +382,7 @@ class DataParallel:
             for leaf, at, own in add:
                 if own:
                     buf[at] += beta2 * leaf.reshape(buf[at].shape)
-        self.log.add(4 * sum(b.numel() for b in bufs))
+        self.log.add(4 * sum(b.numel() for b in bufs), kind="all-reduce")
         whole = iter(all_reduce_flat(bufs, None))
         news, upds = [], []
         square = units[0].g.new_zeros(())
@@ -401,7 +402,7 @@ class DataParallel:
             upds.append(u.g * torch.rsqrt(denom + _EPS))
             if u.own:
                 square = square + upds[-1].square().sum()
-        self.log.add(4)
+        self.log.add(4, kind="all-reduce")
         square = all_reduce_flat([square], None)[0]
         n = sum(math.prod(u.shape) for u in units)
         scale = torch.clamp(torch.sqrt(square / n + _EPS), min=1.0)

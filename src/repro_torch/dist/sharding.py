@@ -67,6 +67,7 @@ __all__ = [
     "local_shard",
     "all_reduce_flat",
     "all_gather_list",
+    "COLLECTIVE_KINDS",
     "CommLog",
     "Axis",
     "mesh_axis",
@@ -339,17 +340,31 @@ def full_shape(shape, spec, mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+#: the kinds of collective a :class:`CommLog` counts, the reference's
+#: dry-run's names (the port issues no all-to-all or collective-permute)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
 class CommLog:
     """The collectives issued through one or more :class:`Axis` and the
-    bytes each carried (the payload of one rank)."""
+    bytes each carried (the payload of one rank): ``collectives`` and
+    ``bytes`` in all, ``counts`` and ``kind_bytes`` by kind (one of
+    :data:`COLLECTIVE_KINDS`: what the rank's backend ran, so a ``gloo``
+    reduce-scatter, an all-reduce of the whole buffer, counts as an
+    all-reduce)."""
 
     def __init__(self):
         self.collectives = 0
         self.bytes = 0
+        self.counts = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.kind_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
-    def add(self, nbytes: int, n: int = 1) -> None:
+    def add(self, nbytes: int, n: int = 1, *, kind: str) -> None:
         self.collectives += n
         self.bytes += int(nbytes)
+        self.counts[kind] += n
+        self.kind_bytes[kind] += int(nbytes)
 
 
 class Axis:
@@ -415,7 +430,7 @@ def _staged_all_reduce(t: torch.Tensor, axis: Axis, op=None) -> torch.Tensor:
     import torch.distributed as dist
 
     buf = t.detach().float().contiguous()
-    axis.log.add(buf.numel() * buf.element_size())
+    axis.log.add(buf.numel() * buf.element_size(), kind="all-reduce")
     # a new buffer: the host copy, or a clone (``float()`` of an f32
     # tensor is the tensor itself)
     staged = _host_staged(buf, axis.group)
@@ -426,7 +441,7 @@ def _staged_all_reduce(t: torch.Tensor, axis: Axis, op=None) -> torch.Tensor:
 
 def _staged_all_gather(t: torch.Tensor, axis: Axis) -> list:
     """Every rank's ``t`` along a ``gloo`` axis, in axis order."""
-    axis.log.add(t.numel() * t.element_size())
+    axis.log.add(t.numel() * t.element_size(), kind="all-gather")
     return all_gather_list(t, axis.group)
 
 
@@ -438,7 +453,7 @@ def _all_reduce(t: torch.Tensor, axis: Axis, op=None) -> torch.Tensor:
     if not axis.native:
         return _staged_all_reduce(t, axis, op)
     buf = t.detach().contiguous().clone()
-    axis.log.add(buf.numel() * buf.element_size())
+    axis.log.add(buf.numel() * buf.element_size(), kind="all-reduce")
     dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=axis.group)
     return buf
 
@@ -451,7 +466,7 @@ def _all_gather(t: torch.Tensor, axis: Axis) -> list:
     if not axis.native:
         return _staged_all_gather(t, axis)
     buf = t.detach().reshape(-1)
-    axis.log.add(buf.numel() * buf.element_size())
+    axis.log.add(buf.numel() * buf.element_size(), kind="all-gather")
     out = buf.new_empty(axis.size * buf.numel())
     dist.all_gather_into_tensor(out, buf, group=axis.group)
     return [c.view(t.shape) for c in out.chunk(axis.size)]
@@ -467,7 +482,7 @@ def _reduce_scatter(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
         return _own_chunk(_staged_all_reduce(t, axis).to(t.dtype), axis,
                           dim).contiguous()
     buf = t.detach().movedim(dim, 0).contiguous()
-    axis.log.add(buf.numel() * buf.element_size())
+    axis.log.add(buf.numel() * buf.element_size(), kind="reduce-scatter")
     out = buf.new_empty((buf.shape[0] // axis.size,) + tuple(buf.shape[1:]))
     dist.reduce_scatter_tensor(out, buf, group=axis.group)
     return out.movedim(0, dim).contiguous()

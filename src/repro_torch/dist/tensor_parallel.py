@@ -48,10 +48,11 @@ from typing import Dict, Optional, Tuple
 
 from repro_torch.dist.sharding import (Axis, CommLog, _entry_axes,
                                        axis_names, axis_size, data_axes,
-                                       local_slices, mesh_axis)
+                                       local_shard, local_slices, mesh_axis)
 
 __all__ = ["refusal", "refuse_unsupported", "AttnLayout", "FSDPPlan",
-           "attention_layout", "shard_model", "is_sharded", "norm_owner"]
+           "attention_layout", "shard_model", "shard_params",
+           "ServeParallel", "is_sharded", "norm_owner"]
 
 
 def _model_size(mesh) -> int:
@@ -127,7 +128,9 @@ class AttnLayout:
     features (and ``o``'s input features); ``heads``: the query heads it
     computes (those the range touches); ``kv_heads``: the KV heads they
     read; ``kv``: how its K/V come ('local', 'gather' or 'replicated');
-    ``q_gather``: the query range splits a head, so q is all-gathered."""
+    ``q_gather``: the query range splits a head, so q is all-gathered;
+    ``kv_range``: the K/V features its tables produce (all of them when
+    ``replicated``)."""
 
     axis: Axis
     q_range: Tuple[int, int]
@@ -135,6 +138,7 @@ class AttnLayout:
     kv_heads: Tuple[int, int]
     kv: str
     q_gather: bool
+    kv_range: Tuple[int, int]
 
 
 def attention_layout(attn, specs, pspecs, mesh, axis) -> Optional[AttnLayout]:
@@ -169,7 +173,7 @@ def attention_layout(attn, specs, pspecs, mesh, axis) -> Optional[AttnLayout]:
     kv = ("replicated" if not ks
           else "local" if (k0, k1) == (g0 * hd, g1 * hd) else "gather")
     return AttnLayout(axis, (q0, q1), (h0, h1), (g0, g1), kv,
-                      (q0, q1) != (h0 * hd, h1 * hd))
+                      (q0, q1) != (h0 * hd, h1 * hd), (k0, k1))
 
 
 class FSDPPlan:
@@ -202,8 +206,12 @@ class FSDPPlan:
 
 
 def _fsdp_entries(unit, upath, pspecs, mesh, dp) -> list:
+    from repro_torch.nn.module import ParamDict
+
     out = []
     for name, mod in unit.named_modules():
+        if isinstance(mod, ParamDict):     # a frozen tree's fused copy
+            continue
         sub = _sub(pspecs, ".".join(p for p in (upath, name) if p))
         leaves = sub.items() if isinstance(sub, dict) else ()
         for key, spec in leaves:
@@ -281,3 +289,219 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     if units:
         entry = dp if len(dp) > 1 else dp[0]
         model.fsdp = FSDPPlan(mesh_axis(mesh, entry, log), units)
+
+
+def _leaf_spec(key: str, pspecs: dict):
+    """The spec of leaf ``key`` of a module's param dict: a frozen table
+    (``wr``/``wi``, last dim K) takes its ``w``'s, the int8 ``w_scale``
+    (one per (p, q) block) the same without the last dim."""
+    if key in ("wr", "wi"):
+        return pspecs["w"]
+    if key == "w_scale":
+        return tuple(pspecs["w"])[:-1]
+    return pspecs[key]
+
+
+def _full_shape(key: str, leaf, specs: dict) -> tuple:
+    """The whole shape of leaf ``key`` under the model's ``specs``."""
+    shape = tuple((specs["w"] if key in ("wr", "wi", "w_scale")
+                   else specs[key]).shape)
+    if key in ("wr", "wi"):
+        return shape[:-1] + (leaf.shape[-1],)
+    if key == "w_scale":
+        return shape[:-1]
+    return shape
+
+
+def shard_params(tree, specs, pspecs, mesh, coordinate=None):
+    """This rank's shard of the param tree ``tree`` (time-domain, or
+    frozen by ``plan.freeze_params``, f32 or int8) under ``pspecs`` (the
+    spec tree of ``dist.sharding.param_shardings`` over the model's
+    ``specs``): a frozen table's ``wr``/``wi`` and ``w_scale`` are cut by
+    the block rule of the time-domain ``w`` they came from. The rfft of a
+    table runs along k inside each (p, q) block and an int8 scale is per
+    block, so freezing and cutting commute bit for bit. A leaf already of
+    this rank's shard shape is kept; the fused copies (``FUSED_KEY``) are
+    rebuilt from the cut members (``plan.attach_fused``). ``coordinate``
+    (one index per mesh axis) cuts another rank's shard, as
+    ``dist.sharding.local_slices`` does."""
+    from repro_torch.kernels.block_circulant.plan import FUSED_KEY, \
+        attach_fused
+
+    def walk(t, sp, ps, path):
+        out = {}
+        for key, val in t.items():
+            if key == FUSED_KEY:
+                continue
+            if isinstance(val, dict):
+                out[key] = walk(val, sp[key], ps[key], path + (key,))
+                continue
+            spec = _leaf_spec(key, ps)
+            full = _full_shape(key, val, sp)
+            mine = tuple(b - a for a, b in local_slices(full, spec, mesh,
+                                                        coordinate))
+            if tuple(val.shape) == full:
+                out[key] = local_shard(val, spec, mesh, coordinate)
+            elif tuple(val.shape) == mine:
+                out[key] = val
+            else:
+                raise ValueError(
+                    f"param {'.'.join(path + (key,))} of shape "
+                    f"{tuple(val.shape)} is neither whole {full} nor this "
+                    f"rank's shard {mine}")
+        return out
+
+    return attach_fused(walk(tree, specs, pspecs, ()))
+
+
+class ServeParallel:
+    """The parallel half of the serve steps (``serve.engine``'s
+    ``make_prefill_step(mesh=)`` / ``make_decode_step(mesh=)``) on
+    ``mesh`` for ``model``: the reference's prefill and decode under
+    ``param_shardings(..., fsdp=False)`` and ``launch.specs
+    .cache_shardings``.
+
+    At construction the model's modules take this rank's layout
+    (:func:`shard_model`; a model :func:`refusal` names keeps whole params
+    and is refused on a ``model`` axis > 1) and the tensors installed in
+    the model, whole or this rank's already, become this rank's shards
+    (:func:`shard_params`). A step takes the global tokens (and ``pos``,
+    frontend input) on every rank and this rank's cache shard
+    (:meth:`init_cache` makes one); it runs this rank's rows, which are
+    the rows of its data shard when the cache's slot axis is split over
+    the data axes and every row otherwise (a cache whose rule put the data
+    axes elsewhere, as on the reference's layer stack). A MoE layer then
+    routes over the global batch, as in training. ``log`` counts every
+    collective by kind."""
+
+    def __init__(self, mesh, model, cfg):
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharding import (data_axes, dp_size,
+                                               param_shardings)
+        from repro_torch.nn.module import load_tree, map_specs, module_tree
+
+        refuse_unsupported(model, mesh)
+        if not hasattr(mesh, "get_coordinate"):
+            raise TypeError("a sharded serve step needs a DeviceMesh; an "
+                            "abstract mesh description holds no devices")
+        self.mesh, self.model, self.cfg = mesh, model, cfg
+        self.log = CommLog()
+        self.specs = model.specs()
+        if refusal(model) is None:
+            self.param_specs = param_shardings(mesh, self.specs, fsdp=False)
+            shard_model(model, mesh, self.param_specs, self.log)
+        else:
+            self.param_specs = map_specs(
+                lambda path, s: (None,) * len(s.shape), self.specs)
+        load_tree(model, shard_params(module_tree(model), self.specs,
+                                      self.param_specs, mesh))
+        dp = data_axes(mesh)
+        self.world = dp_size(mesh)
+        self.group, self.rank = None, 0
+        if self.world > 1:
+            self.group = mesh_axis(mesh, dp if len(dp) > 1 else dp[0],
+                                   self.log).group
+            self.rank = dist.get_rank(self.group)
+
+    @classmethod
+    def of(cls, model, cfg, mesh) -> "ServeParallel":
+        """The model's ServeParallel on ``mesh``, made once: the prefill
+        and decode steps of one model share it (and its ``log``)."""
+        par = model.__dict__.get("_serve_parallel")
+        if par is None or par.mesh is not mesh:
+            par = cls(mesh, model, cfg)
+            model.__dict__["_serve_parallel"] = par
+        return par
+
+    def cache_shardings(self, batch: int, cache_len: int):
+        """The spec tree of the global cache ``(batch, cache_len)``
+        (``launch.specs.cache_shardings``), checked: ``model`` only on a
+        KV-head dim, the data axes on every leaf's slot axis or on none."""
+        from repro_torch.launch.specs import cache_sds, cache_shardings
+
+        sds = cache_sds(self.cfg, batch, cache_len)
+        specs = cache_shardings(self.cfg, sds, self.mesh)
+        leaves, spec_leaves = _cache_leaves(sds), _cache_leaves(specs)
+        rows = set()
+        for (path, (shape, _)), (_, spec) in zip(leaves, spec_leaves):
+            for d, e in enumerate(spec):
+                if ("model" in _entry_axes(e) and _model_size(self.mesh) > 1
+                        and not (path[-1] in ("k", "v") and d == 2)):
+                    raise NotImplementedError(
+                        f"{self.cfg.name}: the cache rule puts 'model' on dim "
+                        f"{d} of {path} {shape}; a sharded serve step splits "
+                        f"a cache over 'model' on its KV heads only")
+            rows.add(spec[0] is not None)
+        if len(rows) > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the cache rule splits the slot axis of "
+                f"some leaves over the data axes and not others")
+        return specs
+
+    def init_cache(self, batch: int, cache_len: int):
+        """This rank's shard of ``model.init_cache(batch, cache_len)``
+        under :meth:`cache_shardings`, on the model's device."""
+        from repro_torch.launch.specs import _map_cache
+
+        specs = self.cache_shardings(batch, cache_len)
+        rows = self.rows(batch, split=_cache_leaves(specs)[0][1][0]
+                         is not None)
+        cache = self.model.init_cache(rows[1] - rows[0], cache_len)
+        leaves = iter(_cache_leaves(specs))
+
+        def cut(path, t):
+            spec = (None,) + tuple(next(leaves)[1])[1:]
+            return local_shard(t, spec, self.mesh)
+
+        return _map_cache(cut, cache)
+
+    def rows(self, batch: int, split: bool):
+        """(first, end) of this rank's rows of a global batch of
+        ``batch``: its data shard when ``split`` and the data axes divide
+        ``batch``, else every row."""
+        from repro_torch.dist.sharding import batch_pspec
+
+        spec = batch_pspec(self.mesh, 1, batch=batch) if split else (None,)
+        return local_slices((batch,), spec, self.mesh)[0]
+
+    def step_rows(self, batch: int, cache):
+        """This rank's rows for a step on the global ``batch`` whose cache
+        shard is ``cache``: split when the cache's slot axis is."""
+        n = _cache_leaves(cache)[0][1].shape[0]
+        split = self.rows(batch, True)
+        if n == split[1] - split[0] and n != batch:
+            return split
+        if n != batch:
+            raise ValueError(f"cache shard of {n} rows: neither the batch of "
+                             f"{batch} nor this rank's {split[1] - split[0]}")
+        return (0, batch)
+
+    @contextlib.contextmanager
+    def routing(self, rows, batch: int):
+        """A MoE layer's routing over the global batch when ``rows`` are a
+        part of it (``nn.moe.global_routing``); its all-gathers of the
+        per-expert counts join ``log``."""
+        from repro_torch.nn.moe import GlobalRouting, global_routing
+
+        route = None
+        if self.group is not None and rows[1] - rows[0] < batch:
+            route = GlobalRouting(self.group, self.world, self.rank)
+        with global_routing(route):
+            try:
+                yield
+            finally:
+                if route is not None and route.collectives:
+                    self.log.add(route.bytes, route.collectives,
+                                 kind="all-gather")
+
+
+def _cache_leaves(tree, path=()) -> list:
+    """(path, leaf) of a cache tree (lists of dicts, or an enc-dec's dict
+    of them), in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _cache_leaves(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _cache_leaves(v, path + (i,))]
+    return [(path, tree)]

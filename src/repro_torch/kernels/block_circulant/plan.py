@@ -36,6 +36,7 @@ from repro_torch.core.quant import (dequantize_symmetric, quantize_symmetric,
 from repro_torch.kernels.block_circulant import ops as bc_ops
 
 __all__ = ["BCPlan", "build_plan", "build_multi_plan", "freeze_params",
+           "attach_fused",
            "count_frozen_tables", "frozen_table_bytes", "dequantize_frozen",
            "FUSED_KEY", "QUANTIZE_MODES"]
 
@@ -225,6 +226,18 @@ def _attach_fused(out: Dict[str, Any]) -> bool:
         fused["w_scale"] = sc
     out[FUSED_KEY] = fused
     return True
+
+
+def attach_fused(tree):
+    """``tree`` with a ``FUSED_KEY`` copy attached, in place, to every
+    known fused group of frozen tables that lacks one (a frozen tree cut
+    into a rank's shards, ``dist.tensor_parallel.shard_params``, whose
+    members' p blocks are this rank's); returns ``tree``."""
+    if isinstance(tree, dict):
+        for val in tree.values():
+            attach_fused(val)
+        _attach_fused(tree)
+    return tree
 
 
 def _quantize_pair(wr, wi):

@@ -28,11 +28,12 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 from typing import Dict, List
 
-__all__ = ["PEAK", "HBM", "LINK", "HINTS", "load", "analyse", "fmt_md",
-           "main"]
+__all__ = ["PEAK", "HBM", "LINK", "HINTS", "bc_flops", "load", "analyse",
+           "fmt_md", "main"]
 
 PEAK = 67e12       # f32 FLOP/s; NVIDIA H100 80GB HBM3, 700 W
 HBM = 3.35e12      # B/s HBM3; NVIDIA H100 80GB HBM3, 700 W
@@ -49,6 +50,21 @@ HINTS = {
                    "with the backward, int8 gradient compression, keep the "
                    "ranks of a collective on one NVLink domain"),
 }
+
+
+def bc_flops(rows: int, p: int, q: int, k: int, groups: int = 1,
+             inverse: int = None) -> float:
+    """FLOPs of one block-circulant kernel call over ``rows`` rows (and
+    ``groups`` groups) of a ``(p, q)`` table at block size ``k``: an FFT's
+    2.5·k·log2(k) per real transform, ``rows`` of them per input and per
+    output block (``bc_matmul``: q forward and p inverse per row; the
+    weight adjoint ``bc_dw``: q and p forward per row), plus the 8·p·q·K
+    per-bin complex products per row (K = k/2 + 1). ``inverse`` adds that
+    many transforms once per call (``bc_dw``'s P·Q inverse transforms of
+    its time-domain output)."""
+    fft = 2.5 * k * math.log2(k)
+    per_row = fft * (p + q) + 8 * p * q * (k // 2 + 1)
+    return groups * (rows * per_row + fft * (inverse or 0))
 
 
 def load(dir_: str) -> List[dict]:

@@ -38,12 +38,17 @@ __all__ = ["batch_specs", "build_model", "count_params", "state_specs",
 
 def build_model(cfg: ModelConfig, device="cuda"):
     """The model for ``cfg`` on ``device`` (default ``"cuda"``; raises
-    without CUDA unless ``device="cpu"``): :class:`EncDecLM` for the
-    enc-dec family, :class:`HybridDecoderLM` otherwise. Tensors are
-    installed afterwards with ``nn.module.load_tree``."""
-    if cfg.family == "encdec":
-        return EncDecLM(cfg, device=device)
-    return HybridDecoderLM(cfg, device=device)
+    without CUDA unless ``device="cpu"``, or ``"meta"``: shapes only, as
+    the stand-ins below and the dry-run read them): :class:`EncDecLM` for
+    the enc-dec family, :class:`HybridDecoderLM` otherwise. Tensors are
+    installed afterwards with ``nn.module.load_tree``; the model itself
+    holds none, and ``device`` is where it makes its caches."""
+    cls = EncDecLM if cfg.family == "encdec" else HybridDecoderLM
+    if torch.device(device).type != "meta":
+        return cls(cfg, device=device)
+    model = cls(cfg, device="cpu")
+    model.device = torch.device("meta")
+    return model
 
 
 def count_params(cfg: ModelConfig) -> Dict[str, float]:
@@ -58,8 +63,7 @@ def count_params(cfg: ModelConfig) -> Dict[str, float]:
       per logit position.
     """
     def counts(c: ModelConfig):
-        # the device only places caches, which are never made here
-        model = build_model(c, device="cpu")
+        model = build_model(c, device="meta")
         total = active = embed = 0
         frac = (c.n_experts_per_token / c.n_experts) if c.n_experts else 1.0
         for path, spec in _walk(model.specs()):
@@ -94,7 +98,7 @@ def _sds(specs):
 def state_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     """(state stand-ins, state shardings) for the train step: params,
     the optimizer's moments (``cfg.optimizer``) and ``step``."""
-    pspecs = build_model(cfg, device="cpu").specs()
+    pspecs = build_model(cfg, device="meta").specs()
     opt = (adafactor_state_specs(pspecs, tcfg, layer_stacks(cfg))
            if cfg.optimizer == "adafactor"
            else adamw_state_specs(pspecs, tcfg))
@@ -143,9 +147,7 @@ def cache_sds(cfg: ModelConfig, batch: int, cache_len: int):
     leaves, read on the ``meta`` device (nothing is allocated): a list with
     one dict per decoder layer, or an enc-dec model's ``{"self": [...],
     "cross": [...]}``, slot axis 0 in every leaf."""
-    model = build_model(cfg, device="cpu")
-    model.device = torch.device("meta")
-    cache = model.init_cache(batch, cache_len)
+    cache = build_model(cfg, device="meta").init_cache(batch, cache_len)
     return _map_cache(lambda path, t: (tuple(t.shape), t.dtype), cache)
 
 
@@ -217,7 +219,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
         out.update(state_sds=sds, state_shardings=sh,
                    batch_sds=bsds, batch_shardings=bsh)
         return out
-    pspecs = build_model(cfg, device="cpu").specs()
+    pspecs = build_model(cfg, device="meta").specs()
     out["params_sds"] = _sds(pspecs)
     out["params_shardings"] = param_shardings(mesh, pspecs, fsdp=False)
     B, S = shape.global_batch, shape.seq_len

@@ -21,14 +21,19 @@ only skips fully masked chunks, which the loops compute and mask). The KV
 cache is updated in place.
 
 Under tensor parallelism (``tp``, a ``dist.tensor_parallel.AttnLayout``
-set by ``shard_model``; training self-attention only) the layer computes
-the query heads its q blocks touch: x enters the region once, q/k/v come
-from this rank's column blocks (one fused launch whose splits are local),
-its K/V are its own blocks, the all-gathered blocks cut to the KV heads
-its query heads read, or (whole tables, entering the region so that their
-gradient partials are summed) the whole K/V cut the same way; qk-norm
-scales enter the region too. ``o`` holds the input blocks of exactly the
-query features this rank produced and sums the partial outputs.
+set by ``shard_model``; self-attention, in training and serving) the
+layer computes the query heads its q blocks touch: x enters the region
+once, q/k/v come from this rank's column blocks (one fused launch whose
+splits are local, time-domain or frozen tables), its K/V are its own
+blocks, the all-gathered blocks cut to the KV heads its query heads read,
+or (whole tables, entering the region so that their gradient partials are
+summed) the whole K/V cut the same way; qk-norm scales enter the region
+too. ``o`` holds the input blocks of exactly the query features this rank
+produced and sums the partial outputs. A serving rank's cache shard holds
+the KV heads ``launch.specs.cache_shardings`` gives it (its share when
+the ``model`` axis divides the KV heads, else all of them), whatever its
+tables' layout: it writes exactly those, all-gathering K/V first when it
+holds them all and its tables a part. Cross attention stays unsharded.
 """
 
 from __future__ import annotations
@@ -193,11 +198,12 @@ class Attention(nn.Module):
         fused = self._modules.get(FUSED_KEY)
         if fused is not None:
             fb = fused._buffers
+            # the members' p blocks: this rank's under tensor parallelism
             return circ.block_circulant_apply_multi(
                 x, None, impl=impl, w_freq_cat=(fb["wr"], fb["wi"]),
                 w_scale_cat=fb.get("w_scale"),
-                splits=tuple(p.out_dim // kb for p in projs), k=kb,
-                karatsuba=self.cfg.swm.karatsuba)
+                splits=tuple(p._buffers["wr"].shape[-3] for p in projs),
+                k=kb, karatsuba=self.cfg.swm.karatsuba)
         frozen = all(p.frozen_freq() is not None for p in projs)
         return circ.block_circulant_apply_multi(
             x, None if frozen else [p._buffers["w"] for p in projs],
@@ -224,12 +230,12 @@ class Attention(nn.Module):
         reference's ``update_cache``, which its callers set exactly when
         they pass ``kv_x``); in decode, ``kv_x=None``, it is only read."""
         if self.tp is not None:
-            if cache is not None or kv_x is not None or self.cross:
+            if kv_x is not None or self.cross:
                 raise NotImplementedError(
-                    "tensor-parallel attention runs training self-attention "
-                    "only: serving under a 'model' mesh axis is not ported "
-                    "(ROADMAP.md Queue 1)")
-            return self._forward_tp(x, positions, kv_positions), None
+                    "tensor-parallel attention runs self-attention only: "
+                    "cross attention (the enc-dec family) under a 'model' "
+                    "mesh axis is not ported (ROADMAP.md Queue 1)")
+            return self._forward_tp(x, positions, kv_positions, cache)
         cfg = self.cfg
         B, S, _ = x.shape
         hd, HQ, HKV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -299,38 +305,77 @@ class Attention(nn.Module):
                                    kv_chunk=cfg.flash_kv_chunk, **masks)
         return _direct_attention(qg, k, v, positions, kv_pos, **masks)
 
-    def _forward_tp(self, x, positions, kv_positions=None):
+    def _qkv_tp(self, x):
+        """q, k, v from this rank's tables: frozen ones through the fused
+        launch (or one launch each), time-domain ones through one launch
+        of the three tables, whole K/V tables entering the region so that
+        their gradient partials are summed."""
+        cfg, lay, m = self.cfg, self.tp, self._modules
+        projs = [m[n] for n in ("q", "k", "v")]
+        frozen = [p.frozen_freq() is not None for p in projs]
+        if any(frozen):
+            qkv = self._fused_qkv(x) if all(frozen) else None
+            return qkv if qkv is not None else [p(x) for p in projs]
+        w = {n: m[n]._buffers["w"] for n in ("q", "k", "v")}
+        if lay.kv == "replicated":
+            w["k"], w["v"] = (region_input(w[n], lay.axis) for n in ("k", "v"))
+        kb = projs[0].block_size
+        if all(p.is_circulant and p.block_size == kb for p in projs):
+            return circ.block_circulant_apply_multi(
+                x, [w["q"], w["k"], w["v"]], impl=cfg.swm.impl, k=kb,
+                karatsuba=cfg.swm.karatsuba)
+        return [m[n](x, params={"w": w[n]}) for n in ("q", "k", "v")]
+
+    def _cache_heads(self, cache) -> Tuple[int, int]:
+        """The KV heads this rank's cache shard holds: all of them, or its
+        share along the ``model`` axis (``launch.specs.cache_shardings``
+        splits them when the axis divides them)."""
+        axis, n = self.tp.axis, self.cfg.n_kv_heads
+        held = cache["k"].shape[2]
+        if held == n:
+            return 0, n
+        if held * axis.size == n:
+            return axis.index * held, (axis.index + 1) * held
+        raise ValueError(f"cache shard of {held} KV heads: neither the "
+                         f"{n} heads nor a 1/{axis.size} share of them")
+
+    def _forward_tp(self, x, positions, kv_positions=None, cache=None):
         """Self-attention on this rank's share (``self.tp``): the query
         heads ``tp.heads`` against the KV heads ``tp.kv_heads``; the output
-        is ``o``'s sum over the ``model`` axis."""
+        is ``o``'s sum over the ``model`` axis. With a cache, the rank
+        writes the KV heads its cache shard holds (``_cache_heads``),
+        whatever its tables' layout: when those are all the heads and its
+        tables hold a part, K/V are all-gathered first. Decode reads its
+        KV heads back from the shard."""
         cfg, lay, m = self.cfg, self.tp, self._modules
         axis = lay.axis
         B, S, _ = x.shape
         hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
         (h0, h1), (g0, g1) = lay.heads, lay.kv_heads
+        c0, c1 = (g0, g1) if cache is None else self._cache_heads(cache)
+        if not c0 <= g0 < g1 <= c1:
+            raise NotImplementedError(
+                f"{cfg.name}: this rank's queries read KV heads {(g0, g1)} "
+                f"and its cache shard holds {(c0, c1)}")
         x = region_input(x, axis)
-        w = {n: m[n]._buffers["w"] for n in ("q", "k", "v")}
-        if lay.kv == "replicated":
-            w["k"], w["v"] = region_input(w["k"], axis), region_input(
-                w["v"], axis)
-        projs = [m[n] for n in ("q", "k", "v")]
-        kb = projs[0].block_size
-        if all(p.is_circulant and p.block_size == kb for p in projs):
-            q, k, v = circ.block_circulant_apply_multi(
-                x, [w["q"], w["k"], w["v"]], impl=cfg.swm.impl, k=kb,
-                karatsuba=cfg.swm.karatsuba)
-        else:
-            q, k, v = (m[n](x, params={"w": w[n]}) for n in ("q", "k", "v"))
+        q, k, v = self._qkv_tp(x)
         if lay.q_gather:
             q = gather_along(q, axis, -1)[..., h0 * hd:h1 * hd]
-        if lay.kv == "gather":
+        a0, a1 = lay.kv_range
+        if lay.kv == "gather" or (lay.kv == "local" and c1 - c0 > g1 - g0):
+            # every rank gathers alike: the layout and the cache rule are
+            # the same on every rank of the axis
             k, v = (gather_along(t, axis, -1) for t in (k, v))
-        if lay.kv != "local":
-            k, v = (t[..., g0 * hd:g1 * hd] for t in (k, v))
-        nh, nk = h1 - h0, g1 - g0
+            a0, a1 = 0, cfg.n_kv_heads * hd
+        if not a0 <= c0 * hd <= c1 * hd <= a1:
+            raise NotImplementedError(
+                f"{cfg.name}: this rank's K/V features {(a0, a1)} do not "
+                f"cover its cache's KV heads {(c0, c1)}")
+        k, v = (t[..., c0 * hd - a0:c1 * hd - a0] for t in (k, v))
+        nh, nc = h1 - h0, c1 - c0
         q = q.reshape(B, S, nh, hd)
-        k = k.reshape(B, S, nk, hd)
-        v = v.reshape(B, S, nk, hd)
+        k = k.reshape(B, S, nc, hd)
+        v = v.reshape(B, S, nc, hd)
         if cfg.qk_norm:
             q = m["q_norm"](q, region_input(m["q_norm"]._buffers["scale"],
                                             axis))
@@ -341,6 +386,15 @@ class Attention(nn.Module):
         if kv_positions is not None:
             rope = rotary(kv_positions, hd, self.rope_theta)
         k = apply_rope(k, *rope)
+        kv_pos = positions if kv_positions is None else kv_positions
+        if cache is not None:
+            cache = self._write_cache(cache, k, v, positions)
+            if S == 1 or S < cache["k"].shape[1]:
+                # decode / short append: attend over the cache
+                k, v = (cache[n].to(x.dtype) for n in ("k", "v"))
+                kv_pos = cache["pos"]
+        k, v = (t[:, :, g0 - c0:g1 - c0] for t in (k, v))
+        nk = g1 - g0
         if h0 % group == 0 and h1 % group == 0:
             qg = q.reshape(B, S, nk, group, hd)
         else:
@@ -350,13 +404,12 @@ class Attention(nn.Module):
                                device=k.device)
             k, v = k[:, :, idx], v[:, :, idx]
             qg = q.reshape(B, S, nh, 1, hd)
-        kv_pos = positions if kv_positions is None else kv_positions
         out = self._attend(qg, k, v, positions, kv_pos,
                            self.causal).reshape(B, S, nh * hd)
         if lay.q_gather:
             q0, q1 = lay.q_range
             out = out[..., q0 - h0 * hd:q1 - h0 * hd]
-        return m["o"](out)
+        return m["o"](out), cache
 
     @staticmethod
     def _write_cache(cache, k, v, positions):

@@ -165,18 +165,43 @@ __all__ = ["make_prefill_step", "make_decode_step", "SamplingParams",
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(model, cfg: ModelConfig):
-    """The prefill step over the tensors installed in ``model`` (the port
-    keeps params in the model, so the step takes none)."""
-    @torch.no_grad()
-    def prefill_step(tokens, cache, extra=None, positions=None):
-        """tokens (B, S) -> (last logits (B, V), filled cache).
+def _serve_parallel(model, cfg: ModelConfig, mesh):
+    if mesh is None:
+        return None
+    from repro_torch.dist.tensor_parallel import ServeParallel
 
-        ``positions`` (B, S) overrides the default ``0..S-1`` numbering;
-        left-padded rows carry NEGATIVE pad positions, which attention
-        masks and the cache stores masked. ``extra`` is the vlm's image
-        prefix or the enc-dec's encoder frames (whose prefill numbers its
-        tokens ``0..S-1``)."""
+    return ServeParallel.of(model, cfg, mesh)
+
+
+def _on_rows(par, step, tokens, cache, *rest):
+    """``step(tokens, cache, *rest)`` on this rank's rows of the global
+    batch (``par``: a ``ServeParallel``, or None for the whole batch);
+    ``rest`` holds per-row tensors or None."""
+    if par is None:
+        return step(tokens, cache, *rest)
+    B = tokens.shape[0]
+    a, b = par.step_rows(B, cache)
+    with par.routing((a, b), B):
+        return step(tokens[a:b], cache,
+                    *(None if t is None else t[a:b] for t in rest))
+
+
+def make_prefill_step(model, cfg: ModelConfig, mesh=None):
+    """The prefill step over the tensors installed in ``model`` (the port
+    keeps params in the model, so the step takes none).
+
+    With ``mesh`` (a ``DeviceMesh`` with data axes and a ``model`` axis)
+    the step is sharded as the reference's prefill under production
+    shardings (``dist.tensor_parallel.ServeParallel``, which cuts the
+    model's tensors to this rank's shards when they are whole): it takes
+    the global tokens (and ``extra``, ``positions``) on every rank and
+    this rank's cache shard (``prefill_step.parallel.init_cache``), and
+    returns this rank's rows' last logits, whole over the vocabulary, and
+    its cache shard. ``prefill_step.parallel`` is that ServeParallel (its
+    ``log`` counts the collectives), None without a mesh."""
+    par = _serve_parallel(model, cfg, mesh)
+
+    def run(tokens, cache, extra, positions):
         if cfg.family == "encdec":
             logits, new_cache = model.forward(extra, tokens, cache=cache,
                                               logits_mode="last")
@@ -189,16 +214,33 @@ def make_prefill_step(model, cfg: ModelConfig):
                                           positions=positions, **kwargs)
         return logits[:, -1], new_cache
 
+    @torch.no_grad()
+    def prefill_step(tokens, cache, extra=None, positions=None):
+        """tokens (B, S) -> (last logits (B, V), filled cache).
+
+        ``positions`` (B, S) overrides the default ``0..S-1`` numbering;
+        left-padded rows carry NEGATIVE pad positions, which attention
+        masks and the cache stores masked. ``extra`` is the vlm's image
+        prefix or the enc-dec's encoder frames (whose prefill numbers its
+        tokens ``0..S-1``)."""
+        return _on_rows(par, run, tokens, cache, extra, positions)
+
+    prefill_step.parallel = par
     return prefill_step
 
 
-def make_decode_step(model, cfg: ModelConfig):
-    """The one-token decode step over the tensors installed in ``model``."""
+def make_decode_step(model, cfg: ModelConfig, mesh=None):
+    """The one-token decode step over the tensors installed in ``model``;
+    with ``mesh``, sharded as :func:`make_prefill_step` is (the global
+    ``tokens`` and ``pos``, this rank's cache shard and rows)."""
+    par = _serve_parallel(model, cfg, mesh)
+
     @torch.no_grad()
     def decode_step(tokens, cache, pos):
         """tokens (B, 1), pos (B,) -> (logits (B, V), cache)."""
-        return model.decode_step(tokens, cache, pos)
+        return _on_rows(par, model.decode_step, tokens, cache, pos)
 
+    decode_step.parallel = par
     return decode_step
 
 
