@@ -32,7 +32,8 @@ The collectives at the end of the module carry autograd: the four region
 boundaries of tensor parallelism (:func:`region_input`,
 :func:`region_output`, :func:`gather_along`, :func:`gather_replicated`)
 and FSDP's one-collective gather of many shards (:func:`gather_many`).
-Each runs over one mesh axis of this rank (an :class:`Axis`) and counts
+:func:`all_reduce_max` and :func:`all_reduce_sum` carry none (serving's
+combine of attention partials over a frame-split cross cache). Each runs over one mesh axis of this rank (an :class:`Axis`) and counts
 itself and the bytes of its input buffer in the axis's :class:`CommLog`.
 On NCCL (any backend but ``gloo``) they run in the tensor's own dtype:
 ``all_reduce``, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
@@ -77,6 +78,7 @@ __all__ = [
     "gather_replicated",
     "gather_many",
     "all_reduce_max",
+    "all_reduce_sum",
     "gather_to",
     "full_shape",
     "set_ambient_mesh",
@@ -587,6 +589,13 @@ def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.size == 1:
         return x.detach()
     return _all_reduce(x, axis, dist.ReduceOp.MAX).to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The elementwise sum of ``x`` over ``axis`` (no gradient)."""
+    if axis is None or axis.size == 1:
+        return x.detach()
+    return _all_reduce(x, axis).to(x.dtype)
 
 
 class _GatherMany(torch.autograd.Function):

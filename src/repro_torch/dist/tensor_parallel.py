@@ -1,5 +1,5 @@
 """Tensor parallelism over the ``model`` mesh axis and FSDP over the data
-axes, for the decoder LM family.
+axes, for the decoder LM and enc-dec families.
 
 The reference has no counterpart of this module: it declares each leaf's
 sharding through the rule table (``repro.dist.sharding.param_shardings``)
@@ -18,6 +18,9 @@ friends). Which reference rule each part realises:
   K/V can be whole (``p_kv`` not divisible: ``replicated``), exactly the
   KV heads its query heads read (``local``), or a slice that splits a
   head (``gather``: all-gathered, then the heads it needs are taken).
+  Cross attention splits the same way, its k and v applied to the
+  encoder output, which enters the region; a layer whose q table the rule
+  leaves whole runs replicated on every rank.
 * ``mlp`` on ``model`` (:func:`shard_model`, SwiGLU and MLP): ``wi``/``wu``
   column-parallel, ``wo`` row-parallel.
 * ``experts`` on ``model``: each rank runs its ``E / model`` experts on
@@ -34,10 +37,17 @@ Leaves that the rules leave whole on a ``model`` axis > 1 but that a
 sharded region reads (K/V tables in the ``replicated`` case, qk-norm
 scales) enter the region through ``region_input``: each rank's gradient of
 them is a partial, summed over the axis. Tensor parallelism covers the
-``lm`` family's attention-only decoders; :func:`refusal` names what it
-does not cover (the recurrent mixers, the enc-dec family, paligemma's
-vision prefix), which keeps whole params and trains data-parallel on a
-``(world, 1)`` mesh.
+``lm`` family's attention-only decoders and the enc-dec family;
+:func:`refusal` names what it does not cover (the recurrent mixers,
+paligemma's vision prefix, FSDP of the enc-dec family), which keeps whole
+params and trains data-parallel on a ``(world, 1)`` mesh.
+
+Serving (:class:`ServeParallel`) takes the caches of
+``launch.specs.cache_shardings``: a self ring split on its KV heads, an
+enc-dec cross cache on its KV heads or on its frames (``model`` lands on
+the frame axis when ``enc_seq`` equals a channel size the rule names, as
+seamless's 4096 = ``d_ff``); every attention layer, a replicated one too,
+writes and reads only what its shard holds (``nn.attention``).
 """
 
 from __future__ import annotations
@@ -63,10 +73,6 @@ def _model_size(mesh) -> int:
 
 def refusal(model) -> Optional[str]:
     """What of ``model`` tensor parallelism does not cover, or None."""
-    from repro_torch.models.decoder import HybridDecoderLM
-
-    if not isinstance(model, HybridDecoderLM):
-        return "the enc-dec family (models/encdec.py)"
     return model.tensor_parallel_refusal()
 
 
@@ -78,9 +84,10 @@ def refuse_unsupported(model, mesh) -> None:
     if why is not None:
         raise NotImplementedError(
             f"{model.cfg.name}: {why} does not run under a 'model' mesh "
-            f"axis of {m}; tensor parallelism covers the decoder LM "
-            f"family's attention, FFN, MoE, embedding and loss (ROADMAP.md "
-            f"Queue 1). Train it data-parallel on a (world, 1) mesh.")
+            f"axis of {m}; tensor parallelism covers the attention, FFN, "
+            f"MoE, embedding and loss of the decoder LM and enc-dec "
+            f"families (ROADMAP.md Queue 1). Train it data-parallel on a "
+            f"(world, 1) mesh.")
 
 
 def is_sharded(spec, mesh) -> bool:
@@ -237,12 +244,15 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     from repro_torch.nn.layers import Embedding
     from repro_torch.nn.moe import MoE
 
+    from torch import nn
+
     specs = model.specs()
     tp = _model_size(mesh) > 1
     maxis = mesh_axis(mesh, "model", log) if tp else None
     if tp:
         for name, mod in model.named_modules():
             if isinstance(mod, Attention):
+                mod.cache_axis = maxis
                 mod.tp = attention_layout(mod, _sub(specs, name),
                                           _sub(pspecs, name), mesh, maxis)
                 if mod.tp is not None:
@@ -270,7 +280,7 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
                 if "model" in _entry_axes(spec[0]):
                     shape = _sub(specs, name)["table"].shape
                     mod.tp = (maxis,) + local_slices(shape, spec, mesh)[0]
-        if model.cfg.tie_embeddings:
+        if "lm_head" not in model._modules:      # the tied embedding
             spec, shape, d = (pspecs["embed"]["table"],
                               specs["embed"]["table"].shape, 0)
         else:
@@ -281,7 +291,8 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     dp = data_axes(mesh)
     units = {}
     for unit in [n for n in ("embed", "lm_head") if n in model._modules] + [
-            f"layers.{i}" for i in range(len(model._modules["layers"]))]:
+            f"{n}.{i}" for n, stack in model._modules.items()
+            if isinstance(stack, nn.ModuleList) for i in range(len(stack))]:
         entries = _fsdp_entries(model.get_submodule(unit), unit, pspecs,
                                 mesh, dp)
         if entries:
@@ -379,6 +390,7 @@ class ServeParallel:
 
         from repro_torch.dist.sharding import (data_axes, dp_size,
                                                param_shardings)
+        from repro_torch.nn.attention import Attention
         from repro_torch.nn.module import load_tree, map_specs, module_tree
 
         refuse_unsupported(model, mesh)
@@ -396,6 +408,9 @@ class ServeParallel:
                 lambda path, s: (None,) * len(s.shape), self.specs)
         load_tree(model, shard_params(module_tree(model), self.specs,
                                       self.param_specs, mesh))
+        self._cross = [m for m in model.modules()
+                       if isinstance(m, Attention) and m.cross]
+        self._frames = {}
         dp = data_axes(mesh)
         self.world = dp_size(mesh)
         self.group, self.rank = None, 0
@@ -417,7 +432,8 @@ class ServeParallel:
     def cache_shardings(self, batch: int, cache_len: int):
         """The spec tree of the global cache ``(batch, cache_len)``
         (``launch.specs.cache_shardings``), checked: ``model`` only on a
-        KV-head dim, the data axes on every leaf's slot axis or on none."""
+        KV-head dim or a cross cache's frame axis, the data axes on every
+        leaf's slot axis or on none."""
         from repro_torch.launch.specs import cache_sds, cache_shardings
 
         sds = cache_sds(self.cfg, batch, cache_len)
@@ -427,16 +443,21 @@ class ServeParallel:
         for (path, (shape, _)), (_, spec) in zip(leaves, spec_leaves):
             for d, e in enumerate(spec):
                 if ("model" in _entry_axes(e) and _model_size(self.mesh) > 1
-                        and not (path[-1] in ("k", "v") and d == 2)):
+                        and not (path[-1] in ("k", "v") and d == 2)
+                        and not (path[0] == "cross" and d == 1)):
                     raise NotImplementedError(
                         f"{self.cfg.name}: the cache rule puts 'model' on dim "
                         f"{d} of {path} {shape}; a sharded serve step splits "
-                        f"a cache over 'model' on its KV heads only")
+                        f"a cache over 'model' on its KV heads, or a cross "
+                        f"cache on its frames, only")
             rows.add(spec[0] is not None)
         if len(rows) > 1:
             raise NotImplementedError(
                 f"{self.cfg.name}: the cache rule splits the slot axis of "
                 f"some leaves over the data axes and not others")
+        if isinstance(specs, dict):
+            self._frames[(batch, cache_len)] = "model" in _entry_axes(
+                specs["cross"][0]["k"][1])
         return specs
 
     def init_cache(self, batch: int, cache_len: int):
@@ -476,6 +497,28 @@ class ServeParallel:
             raise ValueError(f"cache shard of {n} rows: neither the batch of "
                              f"{batch} nor this rank's {split[1] - split[0]}")
         return (0, batch)
+
+    @contextlib.contextmanager
+    def layout(self, batch: int, cache):
+        """The cross attentions' ``frames_split`` for the body of a
+        ``with``: whether the cache rule splits the cross caches of the
+        global ``batch`` over ``model`` on their frames. The rule reads the
+        whole cache's shape, ``(batch, the self rings' length)``, which no
+        shard's shape alone tells (a shard of half the frames looks like a
+        whole cache of fewer)."""
+        split = False
+        if self._cross and _model_size(self.mesh) > 1:
+            key = (batch, cache["self"][0]["k"].shape[1])
+            if key not in self._frames:       # read once per cache shape
+                self.cache_shardings(*key)
+            split = self._frames[key]
+        for mod in self._cross:
+            mod.frames_split = split
+        try:
+            yield
+        finally:
+            for mod in self._cross:
+                mod.frames_split = False
 
     @contextlib.contextmanager
     def routing(self, rows, batch: int):

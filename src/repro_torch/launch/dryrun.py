@@ -15,9 +15,9 @@ impls. The step is the one a user runs: ``train.loop.make_train_step``
 for a ``train_*`` shape, ``serve.engine.make_prefill_step`` or
 ``make_decode_step`` (params sharded with ``fsdp=False``, caches under
 ``launch.specs.cache_shardings``) for the others. A cell whose model the
-tensor-parallel rules do not cover (the Mamba and RWKV mixers, the enc-dec
-family, paligemma's vision prefix under ``model`` = 16) is written like
-the reference's failed cell, with ``error`` and ``traceback``.
+tensor-parallel rules do not cover (the Mamba and RWKV mixers and
+paligemma's vision prefix under ``model`` = 16) is written like the
+reference's failed cell, with ``error`` and ``traceback``.
 
 The record keeps the reference's keys where the port measures the same
 thing, all for rank 0:

@@ -37,7 +37,11 @@ written by ``launch.train``) instead of seeded random ones;
 ``--snapshot-dir`` snapshots the engine's whole state every
 ``--snapshot-every`` steps (default 8), so a replacement engine can
 ``restore()`` it mid-stream. ``--device`` defaults to ``cuda`` and fails
-without a card; ``--device cpu`` runs the plain PyTorch path.
+without a card; ``--device cpu`` runs the plain PyTorch path. The engine
+serves on one device, as the reference's launcher does (it has no
+``--mesh``); sharded serving under a ``(data, model)`` mesh, the enc-dec
+family's included, is ``serve.engine.make_prefill_step(mesh=)`` /
+``make_decode_step(mesh=)``.
 """
 
 from __future__ import annotations

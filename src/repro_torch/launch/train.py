@@ -35,8 +35,10 @@ shard of every global batch and holds its ZeRO-1 share of the moments.
 512 ranks: each rank holds its shard of the params under the rule table
 (tensor parallelism over ``model``, FSDP over the data axes for an FSDP
 config; ``dist.tensor_parallel``). A model that tensor parallelism does
-not cover (the Mamba and RWKV mixers, the enc-dec family, paligemma's
-vision prefix) stops there with ``NotImplementedError``.
+not cover (the Mamba and RWKV mixers, paligemma's vision prefix, an FSDP
+enc-dec config) stops there with ``NotImplementedError``; the enc-dec
+family is covered, and stops at its first step for want of ``frames`` as
+above (``train.loop.make_train_step(mesh=)`` takes them in the batch).
 """
 
 from __future__ import annotations

@@ -19,6 +19,20 @@ decoder layer in each list, slot axis 0: the decoder's self-attention ring
 of ``cache_len`` entries, and the cross attention's K/V of ``enc_seq`` (or
 ``cache_len``) encoder frames, stashed once at prefill and read back by
 every decode step.
+
+On a mesh (``dist.tensor_parallel.shard_model``, which the train step's
+and the serve steps' ``mesh=`` run) the modules take this rank's shares
+over the ``model`` axis, as the decoder LM's do: the attention heads of
+encoder self, decoder self and cross attention, the MLP's blocks and the
+tied embedding's vocab rows (``vocab_shard`` = (model axis, first row)
+tells the loss which rows of the output table this rank holds). Cross
+attention's encoder output enters each layer's sharded region, so that
+its gradient partials are summed over the axis. A serving rank's cross
+cache shard holds its KV heads or, where ``launch.specs.cache_shardings``
+splits the frame axis (``enc_seq`` equal to a channel size the rule
+names, as seamless's 4096 = ``d_ff``), its slice of the frames, read
+through a combine of the ranks' attention partials
+(``nn.attention``).
 """
 
 from __future__ import annotations
@@ -108,6 +122,8 @@ class EncDecLM(nn.Module):
                                              or cfg.n_layers)))
         self.add_module("decoder", nn.ModuleList(
             DecoderLayer(cfg) for _ in range(cfg.n_layers)))
+        # set by dist.tensor_parallel.shard_model on a mesh
+        self.vocab_shard = None
 
     def specs(self):
         out = {n: self._modules[n].specs()
@@ -116,6 +132,14 @@ class EncDecLM(nn.Module):
             out[n] = {str(i): layer.specs()
                       for i, layer in enumerate(self._modules[n])}
         return out
+
+    def tensor_parallel_refusal(self) -> Optional[str]:
+        """What of this model tensor parallelism does not cover, or None:
+        FSDP (``cfg.fsdp``), whose per-layer gathers the enc-dec stacks do
+        not run."""
+        if self.cfg.fsdp:
+            return "FSDP of the enc-dec family (cfg.fsdp)"
+        return None
 
     def encode(self, frames: torch.Tensor):
         """frames (B, T, d_model) -> (encoder output (B, T, d), positions

@@ -181,7 +181,7 @@ def _on_rows(par, step, tokens, cache, *rest):
         return step(tokens, cache, *rest)
     B = tokens.shape[0]
     a, b = par.step_rows(B, cache)
-    with par.routing((a, b), B):
+    with par.routing((a, b), B), par.layout(B, cache):
         return step(tokens[a:b], cache,
                     *(None if t is None else t[a:b] for t in rest))
 

@@ -567,7 +567,7 @@ def test_refused_mixer_trains_data_parallel(ranks):
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b",
-                                  "seamless-m4t-medium", "paligemma-3b"])
+                                  "paligemma-3b"])
 def test_refused_under_a_model_axis(arch):
     cfg = get_smoke(arch)
     mesh = MeshSpec(("data", "model"), {"data": 1, "model": 2})

@@ -361,11 +361,11 @@ def _keys(tree, path=()):
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b",
-                                  "paligemma-3b", "seamless-m4t-medium"])
+                                  "paligemma-3b"])
 def test_refused_for_serving_under_a_model_axis(arch):
-    """The recurrent mixers, the enc-dec family and paligemma's vision
-    prefix stay refused for serving under ``model = 2``, as for training
-    (on a fake world of 2 ranks in this process)."""
+    """The recurrent mixers and paligemma's vision prefix stay refused for
+    serving under ``model = 2``, as for training (on a fake world of 2
+    ranks in this process)."""
     from repro_torch.launch.dryrun import fake_world
 
     cfg = get_smoke(arch)
