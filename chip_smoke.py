@@ -61,25 +61,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3d. tensor parallelism and FSDP (``tp`` phase; its ranks are spawned
    before the analysis phase and run beside it, the rest follows it; its
    rows join phase 4's checks): runs (a) qwen3-0.6b, (b) arctic-480b with
-   ``fsdp=True`` and (c) seamless-m4t-medium, each cut to 2 layers (2
-   encoder + 2 decoder for seamless) at full width in f32
-   (``impl="pallas"``, AdamW, one step at step 1 of the schedule, batch 8
-   x seq 256; seamless's 2 rows x 256 tokens, each with 4096 seeded
-   encoder frames), on meshes (data=1, model=2), (data=2, model=2) and
-   (data=1, model=2): 2, 4 and 2 ranks in ``gloo`` groups on cuda:0 (NCCL refuses two ranks on one GPU;
+   ``fsdp=True``, (c) seamless-m4t-medium and (d) jamba-v0.1-52b with
+   ``fsdp=True`` (layer 0 Mamba + dense SwiGLU, layer 1 Mamba + MoE of 16
+   experts, top 2; each Mamba layer's d_inner channels split over
+   ``model``), each cut to 2 layers (2 encoder + 2 decoder for seamless)
+   at full width in f32 (``impl="pallas"``, AdamW, one step at step 1 of
+   the schedule, batch 8 x seq 256; seamless's 2 rows x 256 tokens, each
+   with 4096 seeded encoder frames), on meshes (data=1, model=2), (data=2,
+   model=2), (data=1, model=2) and (data=2, model=2): 2, 4, 2 and 4 ranks
+   in ``gloo`` groups on cuda:0 (NCCL refuses two ranks on one GPU;
    collectives staged through host memory). Each rank saves its state
    whole (``save_checkpoint(shardings=, mesh=)``); this process takes the
    same step on one process and holds the checkpoint, restored onto one
    process, to it (params over the tree and moments leaf by leaf, rel <=
    1e-5; loss and grad norm of every rank too); launches per rank per step
-   pinned (30/10, 54/16, 72/24); collectives, bytes per collective, per-rank
-   param and moment bytes beside one process's, and (b)'s peak device
-   memory per rank, which must be below one process's; (c) every shard
-   shape (qwen3's fused QKV (16, 8), o (8, 8), gate/up (12, 8), down
+   pinned (30/10, 54/16, 72/24, 33/10); collectives, bytes per collective,
+   per-rank param and moment bytes beside one process's, and (b)'s and
+   (d)'s peak device memory per rank, which must be below one process's;
+   (c) every shard shape (qwen3's fused QKV (16, 8), o (8, 8), gate/up
+   (12, 8), down
    (8, 12); arctic's (36, 56), (56, 28), (19, 56), (56, 19) and its 64
    local experts' (38, 56) and (56, 38) grouped; seamless's fused QKV
    (12, 8), o (8, 4), cross q and k/v (4, 8) on its decoder's and its
-   encoder's rows, wi (16, 8), wo (8, 16); their dx transposes, and
+   encoder's rows, wi (16, 8), wo (8, 16); jamba's Mamba in_proj (64, 32)
+   and out_proj (32, 32), its dense FFN's (56, 32) and (32, 56) and its 8
+   local experts' (112, 32) and (32, 112) grouped; their dx transposes, and
    q and k/v alone) against its plain version, f32 and bf16, ``bc_dw`` at
    every weight shape, and their device times; (d) after its train step
    each rank serves through ``make_prefill_step(mesh=)`` /
@@ -90,17 +96,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    data ranks and the MoE routes over the global batch) and (c)
    seamless-m4t-medium at 2 + 2 layers, each request with 4096 seeded
    frames (the cross caches split on their frames, 2048 per rank, read
-   through the combine of the ranks' attention partials), held to this
+   through the combine of the ranks' attention partials) and (d)
+   jamba-v0.1-52b at the train step's 2 layers (each Mamba layer's conv
+   window and SSM state split on their channels), held to this
    process serving the same prompts (greedy tokens equal, the last step's
    logits within 1e-5 f32 and 2e-5 int8); launches per prefill and per
-   decode step pinned (140/140, 24/24, 24/12), collectives and bytes per step by
+   decode step pinned (140/140, 24/24, 24/12, 10/10), collectives and
+   bytes per step by
    kind, per-rank param and cache bytes beside one process's, prefill and
    decode wall and busy ms; the serve shard shapes' kernels against plain,
    f32 and int8, and their device times; (e) ``python -m
    repro_torch.launch.dryrun`` on the three committed cells (the CPU,
    beside the rest): ``params``, ``analytic`` and the donated cache bytes
-   equal to ``experiments/dryrun/``'s; and on seamless's three cells, each
-   ``OK`` with the reference's argument and donated cache bytes;
+   equal to ``experiments/dryrun/``'s; and on seamless's three cells and
+   jamba's four (its Mamba mixer under ``model = 16``), each ``OK`` with
+   the reference's argument and donated cache bytes;
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -261,18 +271,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (2 of 94 layers, full width: 128 experts, top-8, untied head),
    paligemma-3b (18 layers, a seeded 256 x 2048 image prefix per row),
    seamless-m4t-medium (12 + 12 layers, seeded (256, 1024) frames per
-   row), jamba-v0.1-52b and rwkv6-7b (32 layers each, their Mamba and WKV
-   scans under autograd) and arctic-480b (2 of 35 layers: attention, 128
+   row), jamba-v0.1-52b and rwkv6-7b (one 8-layer period each, their Mamba
+   and WKV scans under autograd) and arctic-480b (2 of 35 layers: attention, 128
    experts and the dense residual), each with ``impl="pallas"``, seeded
    random params, AdamW, ``remat="block"`` and batch 8 x seq 256 in
    ``launch.specs.batch_specs``' shapes through ``make_train_step``: one
    warm-up step, then 4 counted steps (2 for jamba and rwkv6) with both
    kernels' launches held to the pinned counts per step (36/10, 270/90,
-   432/144, 528/160, 768/256, 54/16: the experts' grad through one grouped
+   432/144, 132/40, 192/64, 54/16: the experts' grad through one grouped
    ``bc_matmul`` dx and one grouped ``bc_dw`` per projection), a profiled
    step (device busy and idle share), peak memory, and one step at batch 2
-   x seq 32 on the card against the CPU (loss and grad norm; jamba and
-   rwkv6 on one 8-layer period); then ``bc_matmul`` against its
+   x seq 32 on the card against the CPU (loss and grad norm); then
+   ``bc_matmul`` against its
    plain version at every shape and row count the path launches (the
    grouped launches at the experts' capacity rows, G = 16 and 128, group
    by group against single launches), ``bc_dw`` against its plain version
@@ -345,10 +355,23 @@ FULL_WIDTH_TOL = 1e-2
 # times the sum of |terms|), so FP32_TOL, which holds to 512 rows, scales
 # with the row count beyond that
 DW_TOL_ROWS = 512
-# device-side sleep queued ahead of each timed call (~5 ms at 1.98 GHz), so
-# the host has enqueued the call before the device reaches it and the
-# events time the device alone, not the Python launch path
+# device-side sleep queued ahead of each timed call, so the host has
+# enqueued the call before the device reaches it and the events time the
+# device alone, not the Python launch path. Its length is SLEEP_COVER times
+# the host's enqueue of one call, measured before the timed runs, at the
+# SM clock's 1.98 GHz maximum (a lower clock only lengthens it), between
+# SLEEP_MIN_CYCLES and SLEEP_CYCLES (~5 ms): a fixed 5 ms sleep before each
+# of 30 runs of ~1,100 timed functions would add ~160 s to the command
 SLEEP_CYCLES = 10_000_000
+SLEEP_MIN_CYCLES = 200_000
+SLEEP_COVER = 4
+SLEEP_CLOCK_HZ = 1.98e9
+# timed runs per function: TIME_RUNS, or TIME_MIN_RUNS once the runs have
+# taken TIME_BUDGET_S (the plain versions of the G = 128 grouped launches,
+# 60-100 ms each)
+TIME_RUNS = 30
+TIME_MIN_RUNS = 7
+TIME_BUDGET_S = 0.3
 
 K = 128
 # (name, p, q) of every circulant launch in one qwen3-0.6b layer, and its
@@ -795,21 +818,34 @@ def phase_int8(torch, cfg, params, dev, fp32_bytes):
         fail("int8 tables are not below 0.55x of fp32")
 
 
-def time_ms(torch, fn, runs=30):
-    """Device time of one call: median over ``runs`` calls, CUDA events
-    around each, with the device kept busy while the host enqueues."""
-    for _ in range(3):
+def time_ms(torch, fn, runs=TIME_RUNS, cycles=None):
+    """Device time of one call: median over ``runs`` calls (TIME_MIN_RUNS
+    once they pass TIME_BUDGET_S), CUDA events around each, behind a
+    device-side sleep that outlasts the host's enqueue of the call (or of
+    ``cycles``)."""
+    for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    if cycles is None:
+        cycles = int(min(SLEEP_CYCLES, max(
+            SLEEP_MIN_CYCLES, SLEEP_COVER * enqueue_s * SLEEP_CLOCK_HZ)))
     times = []
-    for _ in range(runs):
+    t = time.perf_counter()
+    for i in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+        if i + 1 >= TIME_MIN_RUNS and time.perf_counter() - t > TIME_BUDGET_S:
+            break
     return statistics.median(times)
 
 
@@ -829,7 +865,7 @@ def phase_times(torch, kernel, dev, cases):
     Kf = K // 2 + 1
     rows = []
     print("bc_matmul device times (bf16 x, f32 tables, no bias; median of "
-          "30 runs, CUDA events; bound = max(bytes / 3.35 TB/s, flops / "
+          "7-30 runs, CUDA events; bound = max(bytes / 3.35 TB/s, flops / "
           "67 TFLOP/s), flops with FFT-counted transforms; 'own' = the "
           "kernel's own flops / 67 TFLOP/s (x transformed once per block "
           "column); torch.matmul = the dense-equivalent product, a "
@@ -841,6 +877,10 @@ def phase_times(torch, kernel, dev, cases):
         dense_t = blocks_to_dense(w).T.contiguous().bfloat16()
         x = torch.randn(B, q * K, generator=gen, device=dev).bfloat16()
         ms = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=K))
+        # the same call behind the fixed SLEEP_CYCLES sleep: the shorter
+        # sleep must time the same device work
+        fixed = time_ms(torch, lambda: kernel.bc_matmul(x, wr, wi, k=K),
+                        cycles=SLEEP_CYCLES)
         plain = time_ms(torch, lambda: kernel.bc_matmul_plain(x, wr, wi, k=K))
         lib = time_ms(torch, lambda: torch.matmul(x, dense_t))
         nbytes = x.nbytes + wr.nbytes + wi.nbytes + B * p * K * 2
@@ -859,13 +899,14 @@ def phase_times(torch, kernel, dev, cases):
                     f"{g.q_groups} q groups, "
                     f"{'fft' if g.fft else 'dense'}")
         row = dict(shape=name, B=B, p=p, q=q, k=K, launches=per, ms=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   fixed_sleep_ms=fixed, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes, flops=flops,
                    kernel_flops=kernel_flops,
                    kernel_flops_ms=kernel_flops / F32_FLOP_PER_S * 1e3,
                    geometry=geometry, smem_bytes=g.smem_bytes)
         rows.append(row)
-        print(f"  {name:9s} p={p:2d} q={q:2d} B={B:4d}: kernel {ms!r} ms, "
+        print(f"  {name:9s} p={p:2d} q={q:2d} B={B:4d}: kernel {ms!r} ms "
+              f"({fixed!r} behind a {SLEEP_CYCLES}-cycle sleep), "
               f"plain {plain!r} ms, torch.matmul {lib!r} ms, bound "
               f"{b_ms!r} ms ({b_by}), own {row['kernel_flops_ms']!r} "
               f"ms, {per} launches; {geometry}, {g.smem_bytes} B smem")
@@ -961,8 +1002,8 @@ def phase_dw_times(torch, kernel, dev, B):
     Kf = K // 2 + 1
     rows = []
     print(f"bc_dw device times (B={B}, bf16 x and g, dw (P, Q*k) f32; median "
-          f"of 30 runs, CUDA events; bound = max(one read of x and g and one "
-          f"write of dw / 3.35 TB/s, flops / 67 TFLOP/s) with (P+Q) FFT-"
+          f"of 7-30 runs, CUDA events; bound = max(one read of x and g and "
+          f"one write of dw / 3.35 TB/s, flops / 67 TFLOP/s) with (P+Q) FFT-"
           f"counted transforms and 8*P*Q*K per row; g.T @ x = the dense "
           f"weight gradient, a yardstick the port never calls; [first "
           f"version's ms]; geometry = grid, tile p x q blocks, thread p x q, "
@@ -996,14 +1037,28 @@ def phase_dw_times(torch, kernel, dev, B):
     return rows
 
 
+def device_kernels(torch, prof):
+    """{name: [device ns, count]} of a finished profile's device events
+    (kernels, copies, sets), read from the raw kineto events:
+    ``key_averages()`` would build a Python event per kernel first (~80 µs
+    each, tens of seconds for a train step of the scans' ~300k kernels).
+    CPU op rows are left out: they carry the device time of the kernels
+    they launch, which would count it twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            row = out.setdefault(e.name(), [0, 0])
+            row[0] += e.duration_ns()
+            row[1] += 1
+    return out
+
+
 def report_profile(torch, prof, n, wall_ms, what):
     """Device busy time per step and the top kernels of a profile; returns
     the busy ms per step (None when the profiler saw no device time)."""
-    # kernel (device-side) rows only: CPU op rows carry the device time of
-    # the kernels they launch, which would count it twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(ns for ns, _ in kernels.values()) / 1e6 / n
     if busy_ms == 0:
         print(f"profile, {what}: the profiler saw no device time "
               f"(not measured)")
@@ -1011,14 +1066,13 @@ def report_profile(torch, prof, n, wall_ms, what):
     print(f"profile, {what}: device busy {busy_ms:.3f} ms/step of "
           f"{wall_ms:.2f} ms/step unprofiled (device idle share "
           f"{1 - busy_ms / wall_ms:.3f}); "
-          f"{sum(e.count for e in kernels) // n} device kernels/step")
+          f"{sum(c for _, c in kernels.values()) // n} device kernels/step")
     # the six largest, then the port's own kernels wherever they rank
-    ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)
-    for i, e in enumerate(ranked):
-        if i < 6 or "bc_matmul" in e.key or "bc_dw" in e.key:
-            print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
-                  f"{e.count // n:5d} launches/step  {e.key[:70]}")
+    ranked = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
+    for i, (key, (ns, count)) in enumerate(ranked):
+        if i < 6 or "bc_matmul" in key or "bc_dw" in key:
+            print(f"  {ns / 1e6 / n:8.3f} ms/step "
+                  f"{count // n:5d} launches/step  {key[:70]}")
     return busy_ms
 
 
@@ -1101,8 +1155,7 @@ def timed_calls(torch, runner, log, attr="prefill"):
             out = inner(tokens, *args, **kw)
             b.record()
             b.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = device_busy_ms(torch, prof)
         log.append((tuple(tokens.shape), a.elapsed_time(b), busy))
         return out
 
@@ -2855,7 +2908,7 @@ def phase_paper_times(torch, kernel, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = []
     print("paper bc_matmul device times (f32 x, f32 tables, no bias; "
-          "median of 30 runs, CUDA events; bound and yardstick as above):")
+          "median of 7-30 runs, CUDA events; bound and yardstick as above):")
     for name, B, p, q, k in PAPER_SHAPES:
         w = torch.randn(p, q, k, generator=gen, device=dev) * (q * k) ** -0.5
         wr, wi = freq_weights(w)
@@ -3279,9 +3332,9 @@ def phase_hybrid_times(torch, kernel, dev, cases, label="hybrid", seed=9):
     gen = torch.Generator(device=dev).manual_seed(seed)
     Kf = K // 2 + 1
     rows = []
-    print(f"{label} bc_matmul device times (bf16 x, f32 tables; median of 30 "
-          "runs, CUDA events; bound as above over all groups; yardstick = "
-          "torch.bmm on the (G, q*k, p*k) dense-equivalent stack for a "
+    print(f"{label} bc_matmul device times (bf16 x, f32 tables; median of "
+          "7-30 runs, CUDA events; bound as above over all groups; "
+          "yardstick = torch.bmm on the (G, q*k, p*k) dense-equivalent stack for a "
           "grouped launch, torch.matmul otherwise):")
     for name, G, p, q, per, B in cases:
         w = torch.randn(G, p, q, K, generator=gen, device=dev) * (
@@ -3794,9 +3847,8 @@ def encdec_prefill_profile(torch, engine, reqs):
     busy = report_profile(torch, prof, 1, wall_ms, f"{ENCDEC_ARCH} prefill "
                           f"of 4 requests ({4 * extra.shape[1]} encoder "
                           f"rows, 4 x {Sb} decoder rows)")
-    bc_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "bc_matmul" in e.key) / 1e3
+    bc_ms = sum(ns for key, (ns, _) in device_kernels(torch, prof).items()
+                if "bc_matmul" in key) / 1e6
     gp_ms = time_ms(torch, lambda: runner.place_state(
         engine.cache, runner.gather_state(engine.cache, slots), slots),
         runs=10)
@@ -3956,25 +4008,31 @@ def phase_examples(torch, kernel, dev):
 # its full model stores 4.21 B params (launch.specs.count_params), whose
 # AdamW state is about 50 GB on the card and again in host memory for the
 # card-vs-CPU step, which runs the same cut. So it trains the 2-layer cut
-# that its serve path compares against the CPU. jamba-v0.1-52b (1.07 B
-# stored) and rwkv6-7b (0.65 B) train at full depth
+# that its serve path compares against the CPU. jamba-v0.1-52b and
+# rwkv6-7b train one 8-layer period (jamba's 7 Mamba + 1 attention layers,
+# 4 of them with the MoE; rwkv6's single layer kind), the cut their
+# card-vs-CPU step compares: every projection shape and row count of the
+# full depth, at a quarter of its host time (a full-depth step took
+# 11.6-21.9 s, the scans' ~260-330k small kernels, on an NVIDIA H100 80GB
+# HBM3 at 700 W; their warm-up, counted and profiled steps ~155 s of the
+# command)
 TRAIN_FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 2, "paligemma-3b": None,
-                      "seamless-m4t-medium": None, "jamba-v0.1-52b": None,
-                      "rwkv6-7b": None, "arctic-480b": 2}
+                      "seamless-m4t-medium": None, "jamba-v0.1-52b": 8,
+                      "rwkv6-7b": 8, "arctic-480b": 2}
 # (bc_matmul, bc_dw) launches per train step, pinned. remat="block" in
 # every config: each launch of a forward runs again in the layer's
 # recompute and once more as dx on the transposed grid (3 per projection),
 # a MoE layer's three grouped expert projections once more in the experts'
 # own recompute, and each projection takes one bc_dw. qwen3-moe 2 x (3 x 5
 # + 3) and 2 x 5; paligemma 3 x 90 and 90; seamless 3 x 144 and 144; jamba
-# 3 x 160 + 3 x 16 MoE layers and 160; rwkv6 3 x 256 and 256; arctic 2 x
-# (3 x 8 + 3) and 2 x 8. ``train_family_launches`` derives the same counts
+# (8 layers) 3 x 40 + 3 x 4 MoE layers and 40; rwkv6 (8 layers) 3 x 64 and
+# 64; arctic 2 x (3 x 8 + 3) and 2 x 8. ``train_family_launches`` derives the same counts
 # from the built model
 TRAIN_FAMILY_LAUNCHES = {"qwen3-moe-235b-a22b": (36, 10),
                          "paligemma-3b": (270, 90),
                          "seamless-m4t-medium": (432, 144),
-                         "jamba-v0.1-52b": (528, 160),
-                         "rwkv6-7b": (768, 256),
+                         "jamba-v0.1-52b": (132, 40),
+                         "rwkv6-7b": (192, 64),
                          "arctic-480b": (54, 16)}
 # batch 8 x seq 256: 2048 token rows; paligemma's 256-position image prefix
 # makes 8 x 512 = 4096; seamless's frames are min(256, enc_seq) = 256 per
@@ -3982,24 +4040,22 @@ TRAIN_FAMILY_LAUNCHES = {"qwen3-moe-235b-a22b": (36, 10),
 # C = int(2048 x top_k / E x 1.25): qwen3-moe 160 rows (top 8 of 128),
 # jamba 320 (top 2 of 16), arctic 40 (top 2 of 128)
 TRAIN_FAMILY_BATCH = (8, 256)
-# counted steps where not TRAIN_STEPS: a full-depth step of jamba or rwkv6
-# takes 9-13 s of host time (their scans' ~260-330k small kernels per
-# step), so they count 2 steps after the warm-up instead of cutting depth
+# counted steps where not TRAIN_STEPS: a step of jamba or rwkv6 is host
+# time (their scans' ~65-80k small kernels per 8-layer step), so they count
+# 2 steps after the warm-up
 TRAIN_FAMILY_STEPS = {"jamba-v0.1-52b": 2, "rwkv6-7b": 2}
 MOE_CAPACITY = 160
-# the depth of the card-vs-CPU train step where not the trained depth: one
-# step of jamba or rwkv6 at 32 layers takes 20-45 s on the host's CPU, so
-# it compares one 8-layer period (jamba's 7 Mamba + 1 attention layers, 4
-# with the MoE; rwkv6's single layer kind) at full width. rwkv6's bf16
-# backward also amplifies rounding with depth: on an NVIDIA H100 80GB HBM3
-# at 700 W its 32-layer bf16 grad norms read 9.1106 on the card and 8.5920
-# on the CPU (rel 6.0e-2; losses within 1e-4), where in f32 they agree to
-# 2.4e-6 and at 8 layers in bf16 to 1.5e-4 (PERF.md §6). paligemma-3b and
+# the depth of the card-vs-CPU train step where not the trained depth.
+# jamba's and rwkv6's trained 8-layer period is also the compared one: at
+# 32 layers a CPU step takes 20-45 s, and rwkv6's bf16 backward amplifies
+# rounding with depth (on an NVIDIA H100 80GB HBM3 at 700 W its 32-layer
+# bf16 grad norms read 9.1106 on the card and 8.5920 on the CPU, rel
+# 6.0e-2, losses within 1e-4, where in f32 they agree to 2.4e-6 and at 8
+# layers in bf16 to 1.5e-4; PERF.md §6). paligemma-3b and
 # seamless-m4t-medium compare 2-layer cuts (seamless: 2 encoder + 2
 # decoder layers): their full-depth CPU steps took 25.6-28.1 s and 5.1-6.2
 # s of a run whose host speed moves its total by a quarter
-TRAIN_FAMILY_CPU_DEPTH = {"jamba-v0.1-52b": 8, "rwkv6-7b": 8,
-                          "paligemma-3b": 2, "seamless-m4t-medium": 2}
+TRAIN_FAMILY_CPU_DEPTH = {"paligemma-3b": 2, "seamless-m4t-medium": 2}
 JAMBA_CAPACITY = 320
 ARCTIC_CAPACITY = 40
 # per arch, (name, groups, p, q, rows, bc_matmul launches, bc_dw launches)
@@ -4030,21 +4086,21 @@ TRAIN_FAMILY_SHAPES = {
         ("encdec.wi", 1, 32, 8, 2048, 72, 24),         # and wo's dx
         ("encdec.wo", 1, 8, 32, 2048, 72, 24)],        # and wi's dx
     "jamba-v0.1-52b": [
-        ("jamba.qkv", 1, 48, 32, 2048, 8, 4),
-        ("jamba.qkv.dx", 1, 32, 48, 2048, 4, 0),
-        ("jamba.o", 1, 32, 32, 2048, 12, 4),            # o and its dx
-        ("jamba.in_proj", 1, 128, 32, 2048, 56, 28),
-        ("jamba.in_proj.dx", 1, 32, 128, 2048, 28, 0),
-        ("jamba.out_proj", 1, 32, 64, 2048, 56, 28),
-        ("jamba.out_proj.dx", 1, 64, 32, 2048, 28, 0),
-        ("jamba.wi_wu", 1, 112, 32, 2048, 80, 32),      # and wo's dx
-        ("jamba.wo", 1, 32, 112, 2048, 64, 16),         # and wi_wu's dx
-        ("jamba.expert.wi_wu", 16, 112, 32, JAMBA_CAPACITY, 112, 32),
-        ("jamba.expert.wo", 16, 32, 112, JAMBA_CAPACITY, 80, 16)],
+        ("jamba.qkv", 1, 48, 32, 2048, 2, 1),
+        ("jamba.qkv.dx", 1, 32, 48, 2048, 1, 0),
+        ("jamba.o", 1, 32, 32, 2048, 3, 1),             # o and its dx
+        ("jamba.in_proj", 1, 128, 32, 2048, 14, 7),
+        ("jamba.in_proj.dx", 1, 32, 128, 2048, 7, 0),
+        ("jamba.out_proj", 1, 32, 64, 2048, 14, 7),
+        ("jamba.out_proj.dx", 1, 64, 32, 2048, 7, 0),
+        ("jamba.wi_wu", 1, 112, 32, 2048, 20, 8),       # and wo's dx
+        ("jamba.wo", 1, 32, 112, 2048, 16, 4),          # and wi_wu's dx
+        ("jamba.expert.wi_wu", 16, 112, 32, JAMBA_CAPACITY, 28, 8),
+        ("jamba.expert.wo", 16, 32, 112, JAMBA_CAPACITY, 20, 4)],
     "rwkv6-7b": [
-        ("rwkv.rkvgo_wr", 1, 32, 32, 2048, 576, 192),   # and their dx
-        ("rwkv.wk", 1, 112, 32, 2048, 96, 32),          # and wv's dx
-        ("rwkv.wv", 1, 32, 112, 2048, 96, 32)],         # and wk's dx
+        ("rwkv.rkvgo_wr", 1, 32, 32, 2048, 144, 48),    # and their dx
+        ("rwkv.wk", 1, 112, 32, 2048, 24, 8),           # and wv's dx
+        ("rwkv.wv", 1, 32, 112, 2048, 24, 8)],          # and wk's dx
     "arctic-480b": [
         ("arctic.qkv", 1, 72, 56, 2048, 4, 2),
         ("arctic.qkv.dx", 1, 56, 72, 2048, 2, 0),
@@ -4171,7 +4227,9 @@ def phase_train_family(torch, kernel, dev, arch):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = serve_cfg(arch, TRAIN_FAMILY_DEPTH[arch])
+    cfg = serve_cfg(arch)
+    if TRAIN_FAMILY_DEPTH[arch] is not None:
+        cfg = cut_depth(cfg, TRAIN_FAMILY_DEPTH[arch])
     steps = TRAIN_FAMILY_STEPS.get(arch, TRAIN_STEPS)
     tcfg = TrainConfig()
     t0 = time.perf_counter()
@@ -4290,7 +4348,7 @@ def phase_dw_group_times(torch, kernel, dev, cases, label="train_family"):
     gen = torch.Generator(device=dev).manual_seed(15)
     Kf = K // 2 + 1
     rows = []
-    print(f"{label} bc_dw device times (bf16 x and g; median of 30 "
+    print(f"{label} bc_dw device times (bf16 x and g; median of 7-30 "
           "runs, CUDA events; bound as above over all groups; yardstick = "
           "the dense weight gradient g^T @ x, torch.bmm over the groups):")
     for name, G, P, Q, B, per in cases:
@@ -5310,24 +5368,35 @@ def phase_analysis(torch, kernel, dev, engine):
 # ---------------------------------------------------------------------------
 
 # (a) qwen3-0.6b on (data=1, model=2), (b) arctic-480b with fsdp=True on
-# (data=2, model=2) and (c) seamless-m4t-medium on (data=1, model=2):
-# 2-layer cuts at full width in f32 (train_family's depth for arctic; dist
-# (b)'s cut for qwen3; 2 encoder + 2 decoder layers for seamless),
+# (data=2, model=2), (c) seamless-m4t-medium on (data=1, model=2) and (d)
+# jamba-v0.1-52b (its config's fsdp=True) on (data=2, model=2): 2-layer
+# cuts at full width in f32 (train_family's depth for arctic; dist (b)'s
+# cut for qwen3; 2 encoder + 2 decoder layers for seamless; jamba's first
+# two layers, both Mamba, the first with the dense FFN, the second with
+# the MoE),
 # impl="pallas", remat "block", AdamW, one step at step 1 of the schedule
 # on the train batch (seamless's: TP_ENCDEC_BATCH rows of TRAIN_SEQ tokens,
 # each with enc_seq = 4096 seeded frames, so that the cross K/V span the
 # whole frame axis)
 TP_RUNS = {"a": ("qwen3-0.6b", (1, 2)), "b": ("arctic-480b", (2, 2)),
-           "c": ("seamless-m4t-medium", (1, 2))}
+           "c": ("seamless-m4t-medium", (1, 2)),
+           "d": ("jamba-v0.1-52b", (2, 2))}
+# the runs whose config shards ``embed`` over the data axis
+TP_FSDP = ("b", "d")
+# the runs whose one-process step waits for the ranks to exit: jamba's
+# (a 14.5 GB peak) does not fit on the card beside the twelve ranks
+TP_REF_AFTER_JOIN = ("d",)
 TP_LAYERS = 2
 TP_ENCDEC_BATCH = 2
 TP_TOL = 1e-5
 # bc_matmul / bc_dw launches per rank per step, pinned: one process's
 # (2 layers x qwen3's 15 / 5, arctic's 27 / 8; seamless 2 x 12 / 4 per
-# encoder layer and 2 x 24 / 8 per decoder layer), each at its shard shape
+# encoder layer and 2 x 24 / 8 per decoder layer; jamba's Mamba 6 / 2 per
+# layer, its dense FFN 9 / 3 and its MoE 12 / 3), each at its shard shape
 TP_LAUNCHES = {"a": {"bc_matmul": 30, "bc_dw": 10},
                "b": {"bc_matmul": 54, "bc_dw": 16},
-               "c": {"bc_matmul": 72, "bc_dw": 24}}
+               "c": {"bc_matmul": 72, "bc_dw": 24},
+               "d": {"bc_matmul": 33, "bc_dw": 10}}
 # (name, groups, p, q, launches per rank per step, rows) of every shard
 # shape a rank launches at model = 2, k = 128: forward (and recompute) at
 # (p, q), dx at (q, p). qwen3 runs 2048 rows per rank (data = 1); arctic
@@ -5374,6 +5443,22 @@ TP_SHAPES = {
           ("seamless.dec.wi.dx", 1, 8, 16, 2, 512),
           ("seamless.dec.wo", 1, 8, 16, 4, 512),
           ("seamless.dec.wo.dx", 1, 16, 8, 2, 512)],
+    # jamba: 1024 rows per rank (data = 2); in_proj keeps the rule's cut
+    # of its 2 d_inner outputs (p 64 of 128) and, under FSDP, its whole q
+    # (32) after the layer's gather; the 8 local experts at the global
+    # batch's capacity, 320 rows
+    "d": [("jamba.in_proj", 1, 64, 32, 4, 1024),
+          ("jamba.in_proj.dx", 1, 32, 64, 2, 1024),
+          ("jamba.out_proj", 1, 32, 32, 4, 1024),
+          ("jamba.out_proj.dx", 1, 32, 32, 2, 1024),
+          ("jamba.wi_wu", 1, 56, 32, 4, 1024),
+          ("jamba.wi_wu.dx", 1, 32, 56, 2, 1024),
+          ("jamba.wo", 1, 32, 56, 2, 1024),
+          ("jamba.wo.dx", 1, 56, 32, 1, 1024),
+          ("jamba.experts.wi_wu", 8, 112, 32, 6, JAMBA_CAPACITY),
+          ("jamba.experts.wi_wu.dx", 8, 32, 112, 2, JAMBA_CAPACITY),
+          ("jamba.experts.wo", 8, 32, 112, 3, JAMBA_CAPACITY),
+          ("jamba.experts.wo.dx", 8, 112, 32, 1, JAMBA_CAPACITY)],
 }
 # the q and k/v tables on their own (the fused launch concatenates them)
 TP_SPLIT_SHAPES = [("qwen3.q", 1, 8, 8, 0, 2048),
@@ -5399,6 +5484,12 @@ TP_DW_SHAPES = {
           ("seamless.cross.kv", 1, 4, 8, 4, 8192),
           ("seamless.dec.wi", 1, 16, 8, 2, 512),
           ("seamless.dec.wo", 1, 8, 16, 2, 512)],
+    "d": [("jamba.in_proj", 1, 64, 32, 2, 1024),
+          ("jamba.out_proj", 1, 32, 32, 2, 1024),
+          ("jamba.wi_wu", 1, 56, 32, 2, 1024),
+          ("jamba.wo", 1, 32, 56, 1, 1024),
+          ("jamba.experts.wi_wu", 8, 112, 32, 2, JAMBA_CAPACITY),
+          ("jamba.experts.wo", 8, 32, 112, 1, JAMBA_CAPACITY)],
 }
 
 # (d) serving after the train step: (a) qwen3-0.6b at full depth, (b)
@@ -5407,17 +5498,21 @@ TP_DW_SHAPES = {
 # every data rank all the rows), (c) seamless-m4t-medium at the train
 # step's 2 + 2 layers, each request with enc_seq = 4096 seeded frames
 # (the cross caches split on their frames: 4096 = d_ff, a channel size of
-# the cache rule), full width, f32, frozen tables f32 then int8; prompts,
-# prompt tokens, greedy decode steps, cache length
-TP_SERVE_DEPTH = {"a": None, "b": 3, "c": TP_LAYERS}
+# the cache rule), (d) jamba-v0.1-52b at the train step's 2 layers (the
+# Mamba states split on their channels, the slot axis over the data
+# ranks), full width, f32, frozen tables f32 then int8; prompts, prompt
+# tokens, greedy decode steps, cache length (no channel size of the rule)
+TP_SERVE_DEPTH = {"a": None, "b": 3, "c": TP_LAYERS, "d": TP_LAYERS}
 TP_SERVE = (4, 64, 16)
 TP_SERVE_CACHE = 128
 TP_SERVE_INT8_TOL = FP32_TOL    # tests/test_torch_bcplan.py's int8 plans
 # bc_matmul launches per rank per prefill and per decode step, pinned: one
 # process's (qwen3's 5 per layer x 28, arctic's 8 per layer x 3; seamless
 # 4 per encoder and 8 per decoder layer in prefill, 6 per decoder layer in
-# decode: cross k and v run at prefill only)
-TP_SERVE_LAUNCHES = {"a": (140, 140), "b": (24, 24), "c": (24, 12)}
+# decode: cross k and v run at prefill only; jamba's 2 per Mamba layer, 3
+# per dense FFN and 3 per MoE)
+TP_SERVE_LAUNCHES = {"a": (140, 140), "b": (24, 24), "c": (24, 12),
+                     "d": (10, 10)}
 # (name, groups, p, q, launches per rank per forward) of every serve shard
 # shape at model = 2, k = 128; rows from tp_serve_rows
 TP_SERVE_SHAPES = {
@@ -5440,6 +5535,12 @@ TP_SERVE_SHAPES = {
           ("seamless.serve.cross.q", 1, 4, 8, 2),
           ("seamless.serve.wi", 1, 16, 8, 2),
           ("seamless.serve.wo", 1, 8, 16, 2)],
+    "d": [("jamba.serve.in_proj", 1, 64, 32, 2),
+          ("jamba.serve.out_proj", 1, 32, 32, 2),
+          ("jamba.serve.wi_wu", 1, 56, 32, 2),
+          ("jamba.serve.wo", 1, 32, 56, 1),
+          ("jamba.serve.experts.wi_wu", 8, 112, 32, 2),
+          ("jamba.serve.experts.wo", 8, 32, 112, 1)],
 }
 # the serve shapes that run on the encoder's frames (prefill only)
 TP_SERVE_ENC = {"seamless.serve.enc.qkv", "seamless.serve.enc.o",
@@ -5447,10 +5548,16 @@ TP_SERVE_ENC = {"seamless.serve.enc.qkv", "seamless.serve.enc.o",
                 "seamless.serve.cross.kv"}
 # the committed dry-run records the dry-run step reproduces on the CPU
 DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
-# seamless's three cells beside them, which have no committed record: rank
-# 0's argument bytes and donated cache bytes (None: the train state, not a
-# cache) as the reference's repro.launch.specs.input_specs gives them on
-# 256 fake devices (tests/test_torch_dryrun_encdec.py computes them there)
+# seamless's three cells and jamba's four beside them, which have no
+# committed record: rank 0's argument bytes and donated cache bytes (None:
+# the train state, not a cache) as the reference's
+# repro.launch.specs.input_specs gives them on 256 fake devices
+# (tests/test_torch_dryrun_encdec.py and tests/test_torch_dryrun_jamba.py
+# compute them there)
+DRYRUN_JAMBA = {"train_4k": (60_524_612, None),
+                "prefill_32k": (1_216_430_080, 1_076_797_440),
+                "decode_32k": (4_446_560_320, 4_307_189_760),
+                "long_500k": (8_738_697_224, 8_599_326_720)}
 DRYRUN_ENCDEC = {"train_4k": (793_847_876, None),
                  "prefill_32k": (774_221_824, 229_662_720),
                  "decode_32k": (1_446_170_688, 918_650_880)}
@@ -5709,6 +5816,7 @@ def tp_rank_main(run, rank, port, ckpt, q):
                                 mesh_dim_names=("data", "model"))
         kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
         from repro_torch.nn.attention import Attention
+        from repro_torch.nn.ssm import Mamba
 
         state, step, model, metrics, ms, peak = tp_step(torch, dev, run,
                                                         mesh)
@@ -5723,7 +5831,10 @@ def tp_rank_main(run, rank, port, ckpt, q):
                    moment_bytes=tp_bytes(state["opt"]),
                    kv=sorted({m.tp.kv for m in model.modules()
                                if isinstance(m, Attention)
-                               and m.tp is not None}))
+                               and m.tp is not None}),
+                   mamba=sorted({m.tp.channels for m in model.modules()
+                                 if isinstance(m, Mamba)
+                                 and m.tp is not None}))
         t = time.perf_counter()
         save_checkpoint(ckpt, 1, state, shardings=dp.state_shardings,
                         mesh=mesh)
@@ -5813,7 +5924,8 @@ def tp_compare(torch, ref, ckpt, dev):
 
 def dryrun_start(out_dir):
     """(e) ``python -m repro_torch.launch.dryrun`` on each committed cell
-    and on seamless's three into ``out_dir``, one process per cell, started
+    and on seamless's three and jamba's four into ``out_dir``, one process
+    per cell, started
     together in the background (the CPU and ``meta`` tensors: no card).
     The processes are killed and ``out_dir`` removed when this script
     exits."""
@@ -5825,7 +5937,8 @@ def dryrun_start(out_dir):
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     cells = [("qwen3-0.6b", shape) for shape in DRYRUN_CELLS] + [
-        ("seamless-m4t-medium", shape) for shape in DRYRUN_ENCDEC]
+        ("seamless-m4t-medium", shape) for shape in DRYRUN_ENCDEC] + [
+        ("jamba-v0.1-52b", shape) for shape in DRYRUN_JAMBA]
     # at the lowest priority: they take the cores the kernels' build and
     # the serve phases leave idle
     procs = {cell: subprocess.Popen(
@@ -5850,8 +5963,9 @@ def dryrun_join(torch, started, timeout=300):
     """Each cell's record against the reference's: qwen3's ``params`` and
     donated cache bytes equal to its committed record's, ``analytic`` to
     rel 1e-12, the port's bytes, flops and collectives printed beside the
-    reference's; seamless's argument and donated cache bytes equal to
-    DRYRUN_ENCDEC. A cell not ``OK`` fails the run."""
+    reference's; seamless's and jamba's argument and donated cache bytes
+    equal to DRYRUN_ENCDEC's and DRYRUN_JAMBA's. A cell not ``OK`` fails
+    the run."""
     import os
 
     out_dir, procs = started
@@ -5872,7 +5986,8 @@ def dryrun_join(torch, started, timeout=300):
         keys = ("argument_size_in_bytes", "output_size_in_bytes",
                 "alias_size_in_bytes", "temp_size_in_bytes", "flops")
         if arch != "qwen3-0.6b":
-            args, cache = DRYRUN_ENCDEC[shape]
+            args, cache = (DRYRUN_ENCDEC if arch == "seamless-m4t-medium"
+                           else DRYRUN_JAMBA)[shape]
             if mine["argument_size_in_bytes"] != args or (
                     cache is not None
                     and mine["alias_size_in_bytes"] != cache):
@@ -5927,17 +6042,24 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
 
     t_phase = time.perf_counter()
     saved = dict(kernel.LAUNCHES)
-    refs = {}
-    for run in TP_RUNS:
-        state, _, _, metrics, ms, peak = tp_step(torch, dev, run, None)
-        refs[run] = dict(state=state, loss=float(metrics["loss"]),
-                         grad_norm=float(metrics["grad_norm"]), ms=ms,
-                         peak=peak, param_bytes=tp_bytes(state["params"]),
-                         moment_bytes=tp_bytes(state["opt"]))
-    # (d) one process serving what the ranks serve
-    serve_refs = {run: {q_: tp_serve(torch, kernel, dev, run, q_)
-                        for q_ in ("off", "int8")} for run in TP_RUNS}
-    kernel.LAUNCHES.update(saved)
+    refs, serve_refs = {}, {}
+
+    def one_process(runs):
+        """The one-process train step and serving of each of ``runs``,
+        their launches not counted."""
+        for run in runs:
+            state, _, _, metrics, ms, peak = tp_step(torch, dev, run, None)
+            refs[run] = dict(state=state, loss=float(metrics["loss"]),
+                             grad_norm=float(metrics["grad_norm"]), ms=ms,
+                             peak=peak,
+                             param_bytes=tp_bytes(state["params"]),
+                             moment_bytes=tp_bytes(state["opt"]))
+            # (d) one process serving what the ranks serve
+            serve_refs[run] = {q_: tp_serve(torch, kernel, dev, run, q_)
+                               for q_ in ("off", "int8")}
+        kernel.LAUNCHES.update(saved)
+
+    one_process([run for run in TP_RUNS if run not in TP_REF_AFTER_JOIN])
     t_ref = time.perf_counter() - t_phase
     # (c) the shard shapes against their plain versions while the ranks
     # finish (their timing waits for the ranks' exit); (d)'s serve shard
@@ -5967,6 +6089,7 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
           f"(f32) = {dw_abs!r}")
     t_checks = time.perf_counter() - t_phase
     outs = tp_join(procs, q)
+    one_process(TP_REF_AFTER_JOIN)
     t_join = time.perf_counter() - t_phase
     report = {}
     for run, (arch, shape) in TP_RUNS.items():
@@ -5991,8 +6114,8 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                 if not e <= TP_TOL:
                     fail(f"tp ({run}) rank {o['rank']}: {key} {o[key]!r} "
                          f"vs one process's {ref[key]!r}")
-            if run == "b" and not o["peak"] < ref["peak"]:
-                fail(f"tp (b) rank {o['rank']}: peak device memory "
+            if run in TP_FSDP and not o["peak"] < ref["peak"]:
+                fail(f"tp ({run}) rank {o['rank']}: peak device memory "
                      f"{o['peak']} B is not below one process's "
                      f"{ref['peak']} B")
         if len(coll) != 1:
@@ -6003,7 +6126,8 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
               f"at full width, "
               f"f32, AdamW, on mesh (data={shape[0]}, model={shape[1]}) = "
               f"{len(ranks)} gloo ranks on cuda:0 (collectives staged "
-              f"through host memory){', fsdp=True' if run == 'b' else ''}; "
+              f"through host memory)"
+              f"{', fsdp=True' if run in TP_FSDP else ''}; "
               f"one step at step 1 of the schedule, batch "
               f"{tp_batch_rows(run)} x seq {TRAIN_SEQ}: params rel "
               f"{rel_p!r} over the tree (leaf "
@@ -6013,7 +6137,9 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
               f"{max(o['save_s'] for o in ranks):.1f} s save); loss "
               f"{o0['loss']!r} vs {ref['loss']!r}, grad norm "
               f"{o0['grad_norm']!r} vs {ref['grad_norm']!r}; K/V "
-              f"{o0['kv']}; per rank per step: launches {o0['launches']} "
+              f"{o0['kv']}; Mamba channels per rank "
+              f"{[o['mamba'] for o in ranks]}; per rank per step: launches "
+              f"{o0['launches']} "
               f"(pinned), {o0['collectives']} collectives, "
               f"{o0['comm_bytes']} B sent ({per_coll:.0f} B per "
               f"collective); per rank: params {o0['param_bytes']} B and "
@@ -6038,7 +6164,8 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                            ref_peak=ref["peak"],
                            ms=[o["ms"] for o in ranks], ref_ms=ref["ms"],
                            save_s=max(o["save_s"] for o in ranks),
-                           restore_s=restore_s, kv=o0["kv"])
+                           restore_s=restore_s, kv=o0["kv"],
+                           mamba=[o["mamba"] for o in ranks])
     for run, (arch, shape) in TP_RUNS.items():
         report[run]["serve"] = tp_serve_compare(run, arch, shape, outs[run],
                                                 serve_refs[run])
@@ -6065,7 +6192,8 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
     secs = time.perf_counter() - t_phase
     print(f"tp phase: {secs:.1f}s after the analysis phase (one-process "
           f"steps until {t_ref:.1f}s, kernel checks until {t_checks:.1f}s, "
-          f"waiting for the ranks until {t_join:.1f}s, their checkpoints "
+          f"waiting for the ranks and the one-process steps of "
+          f"{list(TP_REF_AFTER_JOIN)} until {t_join:.1f}s, their checkpoints "
           f"held to the steps until {t_cmp:.1f}s, then the times)")
     launches = {k: sum(o["launches"][k] for run in TP_RUNS
                        for o in outs[run]) for k in ("bc_matmul", "bc_dw")}

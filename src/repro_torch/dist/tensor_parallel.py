@@ -1,5 +1,6 @@
 """Tensor parallelism over the ``model`` mesh axis and FSDP over the data
-axes, for the decoder LM and enc-dec families.
+axes, for the decoder LM (attention and Mamba mixers) and enc-dec
+families.
 
 The reference has no counterpart of this module: it declares each leaf's
 sharding through the rule table (``repro.dist.sharding.param_shardings``)
@@ -23,6 +24,17 @@ friends). Which reference rule each part realises:
   leaves whole runs replicated on every rank.
 * ``mlp`` on ``model`` (:func:`shard_model`, SwiGLU and MLP): ``wi``/``wu``
   column-parallel, ``wo`` row-parallel.
+* ``mlp`` on ``model`` for the Mamba mixer (:func:`mamba_layout`): each
+  rank holds one contiguous range of the ``d_inner`` channels in every
+  per-channel leaf (``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``,
+  ``D``), in ``dt_proj``'s output and in ``x_proj``'s and ``out_proj``'s
+  input. ``in_proj`` keeps the rule's contiguous cut of its ``2 d_inner``
+  outputs, which at ``model = 2`` gives rank 0 all of ``xi`` and rank 1
+  all of ``z``: its output is all-gathered and the rank takes its
+  channels of both halves (the reference's global split, where GSPMD
+  reshards). ``x_proj`` is row-parallel and its summed output feeds
+  per-channel work on every rank, so it is summed forward and its
+  gradient summed backward; ``out_proj`` is row-parallel.
 * ``experts`` on ``model``: each rank runs its ``E / model`` experts on
   the (replicated) tokens routed to them, and the partial combines are
   summed.
@@ -37,8 +49,8 @@ Leaves that the rules leave whole on a ``model`` axis > 1 but that a
 sharded region reads (K/V tables in the ``replicated`` case, qk-norm
 scales) enter the region through ``region_input``: each rank's gradient of
 them is a partial, summed over the axis. Tensor parallelism covers the
-``lm`` family's attention-only decoders and the enc-dec family;
-:func:`refusal` names what it does not cover (the recurrent mixers,
+``lm`` family's decoders with attention and Mamba mixers and the enc-dec
+family; :func:`refusal` names what it does not cover (the RWKV mixer,
 paligemma's vision prefix, FSDP of the enc-dec family), which keeps whole
 params and trains data-parallel on a ``(world, 1)`` mesh.
 
@@ -46,8 +58,9 @@ Serving (:class:`ServeParallel`) takes the caches of
 ``launch.specs.cache_shardings``: a self ring split on its KV heads, an
 enc-dec cross cache on its KV heads or on its frames (``model`` lands on
 the frame axis when ``enc_seq`` equals a channel size the rule names, as
-seamless's 4096 = ``d_ff``); every attention layer, a replicated one too,
-writes and reads only what its shard holds (``nn.attention``).
+seamless's 4096 = ``d_ff``), and a Mamba layer's conv window and SSM
+state split on their channels; every attention layer, a replicated one
+too, writes and reads only what its shard holds (``nn.attention``).
 """
 
 from __future__ import annotations
@@ -61,8 +74,8 @@ from repro_torch.dist.sharding import (Axis, CommLog, _entry_axes,
                                        local_shard, local_slices, mesh_axis)
 
 __all__ = ["refusal", "refuse_unsupported", "AttnLayout", "FSDPPlan",
-           "attention_layout", "shard_model", "shard_params",
-           "ServeParallel", "is_sharded", "norm_owner"]
+           "MambaLayout", "attention_layout", "mamba_layout", "shard_model",
+           "shard_params", "ServeParallel", "is_sharded", "norm_owner"]
 
 
 def _model_size(mesh) -> int:
@@ -84,8 +97,8 @@ def refuse_unsupported(model, mesh) -> None:
     if why is not None:
         raise NotImplementedError(
             f"{model.cfg.name}: {why} does not run under a 'model' mesh "
-            f"axis of {m}; tensor parallelism covers the attention, FFN, "
-            f"MoE, embedding and loss of the decoder LM and enc-dec "
+            f"axis of {m}; tensor parallelism covers the attention, Mamba, "
+            f"FFN, MoE, embedding and loss of the decoder LM and enc-dec "
             f"families (ROADMAP.md Queue 1). Train it data-parallel on a "
             f"(world, 1) mesh.")
 
@@ -183,6 +196,54 @@ def attention_layout(attn, specs, pspecs, mesh, axis) -> Optional[AttnLayout]:
                       (q0, q1) != (h0 * hd, h1 * hd), (k0, k1))
 
 
+@dataclasses.dataclass(frozen=True)
+class MambaLayout:
+    """One rank's share of a Mamba mixer: ``channels``, the range of the
+    ``d_inner`` channels it holds."""
+
+    axis: Axis
+    channels: Tuple[int, int]
+
+
+def mamba_layout(mamba, specs, pspecs, mesh, axis) -> Optional[MambaLayout]:
+    """The :class:`MambaLayout` of ``mamba`` on this rank, or None when the
+    rules leave all of it whole (it then runs replicated). Every part
+    must hold the same channel range: ``NotImplementedError`` names the
+    one that does not."""
+    m, di = mamba._modules, mamba.d_inner
+
+    def lin(name, which):
+        return _features(m[name], pspecs[name]["w"], specs[name]["w"].shape,
+                         mesh, which)
+
+    def leaf(name, d):
+        spec = pspecs[name]
+        if "model" not in _entry_axes(spec[d]) or _model_size(mesh) == 1:
+            return 0, di, False
+        return local_slices(specs[name].shape, spec, mesh)[d] + (True,)
+
+    a, b, split = lin("in_proj", "out")
+    parts = {"dt_proj's output": lin("dt_proj", "out"),
+             "x_proj's input": lin("x_proj", "in"),
+             "out_proj's input": lin("out_proj", "in"),
+             "conv_w": leaf("conv_w", 1), "conv_b": leaf("conv_b", 0),
+             "dt_bias": leaf("dt_bias", 0), "A_log": leaf("A_log", 0),
+             "D": leaf("D", 0),
+             # an even cut of the 2 d_inner outputs: half of its range is
+             # the rank's range of each half's channels
+             "each half of in_proj's output": (a // 2, b // 2, split)}
+    if not any(split for *_, split in parts.values()):
+        return None
+    first = parts["dt_proj's output"]
+    for name, part in parts.items():
+        if part != first:
+            raise NotImplementedError(
+                f"{mamba.cfg.name}: {name} holds channels {part[:2]} "
+                f"({'split' if part[2] else 'whole'}) over 'model', "
+                f"dt_proj's output {first[:2]}")
+    return MambaLayout(axis, first[:2])
+
+
 class FSDPPlan:
     """The leaves of each FSDP unit (a decoder layer ``layers.<i>``, the
     ``embed`` module, the ``lm_head``) that are sharded over the data
@@ -235,7 +296,9 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     """Give every module of ``model`` (a decoder LM that :func:`refusal`
     passes) the layout of this rank's shard under ``pspecs`` (the param
     spec tree of ``dist.sharding.param_shardings``): the attention layers
-    their :class:`AttnLayout`, the dense FFNs their ``model`` axis (and
+    their :class:`AttnLayout`, the Mamba mixers their
+    :class:`MambaLayout` (and ``x_proj``/``out_proj`` their row-parallel
+    mode), the dense FFNs their ``model`` axis (and
     ``wo`` its row-parallel mode), the MoE layers their expert range, the
     embedding and the loss their vocab range, the model its
     :class:`FSDPPlan`."""
@@ -243,6 +306,7 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     from repro_torch.nn.ffn import MLP, SwiGLU
     from repro_torch.nn.layers import Embedding
     from repro_torch.nn.moe import MoE
+    from repro_torch.nn.ssm import Mamba
 
     from torch import nn
 
@@ -257,6 +321,13 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
                                           _sub(pspecs, name), mesh, maxis)
                 if mod.tp is not None:
                     mod.o.parallel, mod.o.tp = "row", maxis
+            elif isinstance(mod, Mamba):
+                mod.tp = mamba_layout(mod, _sub(specs, name),
+                                      _sub(pspecs, name), mesh, maxis)
+                if mod.tp is not None:
+                    for part in ("x_proj", "out_proj"):
+                        lin = mod._modules[part]
+                        lin.parallel, lin.tp = "row", maxis
             elif isinstance(mod, (SwiGLU, MLP)) and not mod.wi.expert_dims:
                 s, p = _sub(specs, name), _sub(pspecs, name)
                 a, b, split = _features(mod.wi, p["wi"]["w"],
@@ -432,7 +503,8 @@ class ServeParallel:
     def cache_shardings(self, batch: int, cache_len: int):
         """The spec tree of the global cache ``(batch, cache_len)``
         (``launch.specs.cache_shardings``), checked: ``model`` only on a
-        KV-head dim or a cross cache's frame axis, the data axes on every
+        KV-head dim, a cross cache's frame axis or a Mamba state's channel
+        dim (``conv``'s dim 2, ``ssm``'s dim 1), the data axes on every
         leaf's slot axis or on none."""
         from repro_torch.launch.specs import cache_sds, cache_shardings
 
@@ -444,12 +516,14 @@ class ServeParallel:
             for d, e in enumerate(spec):
                 if ("model" in _entry_axes(e) and _model_size(self.mesh) > 1
                         and not (path[-1] in ("k", "v") and d == 2)
-                        and not (path[0] == "cross" and d == 1)):
+                        and not (path[0] == "cross" and d == 1)
+                        and (path[-1], d) not in (("conv", 2), ("ssm", 1))):
                     raise NotImplementedError(
                         f"{self.cfg.name}: the cache rule puts 'model' on dim "
                         f"{d} of {path} {shape}; a sharded serve step splits "
-                        f"a cache over 'model' on its KV heads, or a cross "
-                        f"cache on its frames, only")
+                        f"a cache over 'model' on its KV heads, a cross "
+                        f"cache on its frames or a Mamba state on its "
+                        f"channels, only")
             rows.add(spec[0] is not None)
         if len(rows) > 1:
             raise NotImplementedError(

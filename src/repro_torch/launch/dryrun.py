@@ -15,9 +15,9 @@ impls. The step is the one a user runs: ``train.loop.make_train_step``
 for a ``train_*`` shape, ``serve.engine.make_prefill_step`` or
 ``make_decode_step`` (params sharded with ``fsdp=False``, caches under
 ``launch.specs.cache_shardings``) for the others. A cell whose model the
-tensor-parallel rules do not cover (the Mamba and RWKV mixers and
-paligemma's vision prefix under ``model`` = 16) is written like the
-reference's failed cell, with ``error`` and ``traceback``.
+tensor-parallel rules do not cover (the RWKV mixer and paligemma's vision
+prefix under ``model`` = 16) is written like the reference's failed cell,
+with ``error`` and ``traceback``.
 
 The record keeps the reference's keys where the port measures the same
 thing, all for rank 0:
@@ -128,6 +128,15 @@ def _meta_key(x):
     raise TypeError(type(x).__name__)
 
 
+def _metas(ts) -> list:
+    return [(t.shape, t.stride(), t.dtype) for t in ts]
+
+
+def _fresh(metas) -> list:
+    return [torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+            for shape, stride, dtype in metas]
+
+
 class _MetaStep(TorchDispatchMode):
     """The measurements of one ``meta`` step, in one dispatch mode.
 
@@ -163,7 +172,10 @@ class _MetaStep(TorchDispatchMode):
 
     def _hold(self, t) -> None:
         """Count the storage of ``t``, an op's fresh output."""
-        st = t.untyped_storage()
+        self.hold_storage(t.untyped_storage())
+
+    def hold_storage(self, st) -> None:
+        """Count storage ``st`` until it is freed."""
         key = st._cdata
         if key in self.held:
             return
@@ -173,6 +185,15 @@ class _MetaStep(TorchDispatchMode):
         self.live += nbytes
         if self.live > self.peak:
             self.peak = self.live
+
+    def release(self, t) -> None:
+        """Stop counting the storage of ``t`` before it is freed (a
+        replayed backward frees what the real one freed as it ran)."""
+        key = t.untyped_storage()._cdata
+        if key in self.held:
+            ref, nbytes = self.held[key]
+            self.held[key] = (ref, 0)
+            self.live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -197,9 +218,7 @@ class _MetaStep(TorchDispatchMode):
         hit = None if key is None else self.cache.get(key)
         if hit is not None:
             spec, metas, flops = hit
-            leaves = [torch.empty_strided(shape, stride, dtype=dtype,
-                                          device="meta")
-                      for shape, stride, dtype in metas]
+            leaves = _fresh(metas)
             out = leaves[0] if spec is None else tree_unflatten(leaves, spec)
         else:
             out = func(*args, **kwargs)
@@ -212,8 +231,7 @@ class _MetaStep(TorchDispatchMode):
             if key is not None and leaves and all(
                     isinstance(t, torch.Tensor) and t.device.type == "meta"
                     for t in leaves):
-                self.cache[key] = (spec, [(t.shape, t.stride(), t.dtype)
-                                          for t in leaves], flops)
+                self.cache[key] = (spec, _metas(leaves), flops)
         self.flops += flops
         for t in leaves:
             if isinstance(t, torch.Tensor):
@@ -236,18 +254,15 @@ class _Replayed(torch.autograd.Function):
         ctx.save_for_backward(torch.empty(rec["saved"], dtype=torch.uint8,
                                           device="meta"))
         ctx.rec, ctx.mode = rec, mode
-        ctx.metas = [(t.shape, t.stride(), t.dtype) for t in tensors]
-        return torch.empty_strided(*rec["out"][:2], dtype=rec["out"][2],
-                                   device="meta")
+        ctx.metas = _metas(tensors)
+        return _fresh([rec["out"]])[0]
 
     @staticmethod
     def backward(ctx, grad):
         rec, mode = ctx.rec, ctx.mode
         mode.flops += rec["bwd_flops"]
         mode.peak = max(mode.peak, mode.live + rec["bwd_rise"])
-        return (None, None) + tuple(
-            torch.empty_strided(shape, stride, dtype=dtype, device="meta")
-            for shape, stride, dtype in ctx.metas)
+        return (None, None) + tuple(_fresh(ctx.metas))
 
 
 def _record(real, mode: "_MetaStep", args, kwargs) -> dict:
@@ -267,7 +282,7 @@ def _record(real, mode: "_MetaStep", args, kwargs) -> dict:
                                                      lambda t: t):
         out = real(q, k, v, *args[3:], **kwargs)
     rec["flops"], rec["rise"] = mode.flops - flops, mode.peak - live
-    rec["out"] = (out.shape, out.stride(), out.dtype)
+    (rec["out"],) = _metas([out])
     rec["saved"] = max(mode.live - live - out.untyped_storage().nbytes(), 0)
     if need:
         grad = torch.empty_like(out)
@@ -310,6 +325,244 @@ def _replayed_attention(mode: "_MetaStep"):
         yield
     finally:
         attention.flash_attention = real
+
+
+class _LoopCall:
+    """One ``nn.scan._loop`` call's signature, holding no tensor (a
+    replayed call must not keep its inputs alive): the step function's
+    code and the non-tensor values of its closure, and the metadata of
+    its tensors, flat: the carry's leaves, the time-major inputs and the
+    tensors of the step's closure (a Mamba step reads ``A`` and the mask
+    from there). :attr:`tensors` holds the call's own tensors until the
+    call has been keyed and recorded."""
+
+    def __init__(self, step_fn, carry, xs):
+        self.code, self.globals = step_fn.__code__, step_fn.__globals__
+        cells = [c.cell_contents for c in step_fn.__closure__ or ()]
+        self.is_tensor = [isinstance(v, torch.Tensor) for v in cells]
+        self.consts = tuple(v for v, t in zip(cells, self.is_tensor)
+                            if not t)
+        carry, self.carry_spec = tree_flatten(carry)
+        self.n_carry, self.n_xs = len(carry), len(xs)
+        self.tensors = carry + list(xs) + [
+            v for v, t in zip(cells, self.is_tensor) if t]
+        self.metas = _metas(self.tensors)
+        self.grads = tuple(t.requires_grad for t in self.tensors)
+
+    def key(self):
+        return (self.code, _meta_key(self.consts), tuple(self.metas),
+                self.grads, self.carry_spec, torch.is_grad_enabled())
+
+    def leaves(self) -> list:
+        """Fresh ``meta`` leaves of the call's tensors' metadata, each
+        requiring a grad where the call's does."""
+        return [t.requires_grad_(g) for t, g in zip(_fresh(self.metas),
+                                                   self.grads)]
+
+    def run(self, real, tensors):
+        """The real loop on ``tensors`` (in :attr:`tensors`'s order):
+        its outputs, flat (the carry's leaves, then the stacked ys)."""
+        import types
+
+        n = self.n_carry + self.n_xs
+        it, consts = iter(tensors[n:]), iter(self.consts)
+        cells = [next(it) if t else next(consts) for t in self.is_tensor]
+        step_fn = types.FunctionType(self.code, self.globals, None, None,
+                                     tuple(types.CellType(v) for v in cells))
+        carry = tree_unflatten(list(tensors[:self.n_carry]), self.carry_spec)
+        carry, ys = real(step_fn, carry, tuple(tensors[self.n_carry:n]))
+        outs, self.out_spec = tree_flatten((carry, ys))
+        return outs
+
+
+def _drops_saved() -> bool:
+    """Whether a tensor saved for the backward now is dropped: inside the
+    forward of a non-reentrant ``torch.utils.checkpoint`` region (its
+    recompute, and a step outside any region, keep theirs)."""
+    top = getattr(torch._C._autograd, "_top_saved_tensors_default_hooks",
+                  None)
+    hooks = None if top is None else top(False)
+    return hooks is not None and "_checkpoint_hook" in getattr(
+        hooks[0], "__qualname__", "")
+
+
+def _keep_saved(mode=None, marks=None):
+    """Saved-tensor hooks that keep what a standalone run saves, as no
+    hooks would, shielding it from a ``remat`` region's: the pack hook
+    keeps a detached alias (an op's own output, kept with its grad_fn,
+    would make a reference cycle through the graph that outlives it).
+    With ``marks``, each save appends ``mode``'s flops and peak as they
+    were when it was made."""
+    def pack(t):
+        if marks is not None:
+            marks.append((mode.flops, mode.peak))
+        return t.detach()
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+
+
+def _measure(mode, fn):
+    """``fn()``'s flops and peak rise above the live bytes it started at,
+    and its result; ``mode``'s totals left as they were."""
+    flops, live, peak = mode.flops, mode.live, mode.peak
+    mode.peak = live
+    out = fn()
+    rise, got = mode.peak - live, mode.flops - flops
+    mode.flops, mode.peak = flops, peak
+    return got, rise, out
+
+
+def _record_loop(real, mode, call) -> dict:
+    """One standalone run of the loop of ``call``: its forward flops and
+    peak rise with the saved tensors dropped (inside a ``remat`` region's
+    forward), kept (outside one, or in its recompute) or not made (no
+    grad), the bytes a kept run leaves saved, and its outputs' metadata."""
+    rec = {"bwd": {}}
+    leaves = call.leaves()
+    if not torch.is_grad_enabled():
+        rec["flops"], rec["rise"], out = _measure(
+            mode, lambda: call.run(real, leaves))
+        rec["out"] = _metas(out)
+        return rec
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: t.shape,
+                                                  lambda t: None):
+        _, rec["rise_drop"], out = _measure(
+            mode, lambda: call.run(real, leaves))
+    del out
+    live, flops, marks = mode.live, mode.flops, []
+    with _keep_saved(mode, marks):
+        rec["flops"], rec["rise"], out = _measure(
+            mode, lambda: call.run(real, leaves))
+    # a remat region's recompute stops at the region's last save: the
+    # flops and peak rise of the loop up to its last save, for a region
+    # that ends with the loop (an input is saved before its op runs)
+    rec["flops_stop"], rec["rise_stop"] = (
+        (marks[-1][0] - flops, marks[-1][1] - live) if marks
+        else (rec["flops"], rec["rise"]))
+    rec["out"] = _metas(out)
+    rec["saved"] = max(mode.live - live - sum(
+        o.untyped_storage().nbytes() for o in out), 0)
+    del out
+    return rec
+
+
+def _record_backward(real, mode, call, given) -> tuple:
+    """The flops and peak rise of the loop's backward when the outputs
+    ``given`` (a mask over them) receive grads, from a kept standalone
+    forward; ``mode``'s totals left as they were."""
+    flops, live, peak = mode.flops, mode.live, mode.peak
+    leaves = call.leaves()
+    need = [t for t in leaves if t.requires_grad]
+    with torch.enable_grad(), _keep_saved():
+        out = call.run(real, leaves)
+    roots = [o for o, g in zip(out, given) if g and o.requires_grad]
+    grads = [torch.empty_like(o) for o in roots]
+    before, start = mode.flops, mode.live
+    mode.peak = start
+    got = torch.autograd.grad(roots, need, grads, allow_unused=True)
+    result = (mode.flops - before, mode.peak - start)
+    del got, grads, roots, out, leaves, need
+    mode.flops, mode.peak = flops, peak
+    return result
+
+
+class _ReplayedLoop(torch.autograd.Function):
+    """A recorded ``_loop`` call (``_replayed_scan``) under autograd. Its
+    forward adds the recorded flops and, by whether the saved bytes it
+    saves are kept (a ``remat`` region's forward drops them, its
+    recompute keeps them), the peak rise of a dropping or a keeping run;
+    its backward adds the recorded backward's flops and peak rise, stops
+    counting the saved bytes (the real backward frees them as it runs)
+    and returns fresh ``meta`` grads."""
+
+    @staticmethod
+    def forward(ctx, real, mode, call, rec, *tensors):
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        live = mode.live
+        mode.flops += rec["flops"]
+        drop = _drops_saved()
+        # the saved bytes, counted while they are kept
+        with _disable_current_modes() if drop else contextlib.nullcontext():
+            ctx.save_for_backward(torch.empty(rec["saved"],
+                                              dtype=torch.uint8,
+                                              device="meta"))
+        if drop:
+            mode.peak = max(mode.peak, live + rec["rise_drop"])
+        ctx.set_materialize_grads(False)
+        ctx.real, ctx.mode, ctx.call, ctx.rec = real, mode, call, rec
+        return tuple(_fresh(rec["out"]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mode, rec = ctx.mode, ctx.rec
+        (saved,) = ctx.saved_tensors
+        given = tuple(g is not None for g in grads)
+        if given not in rec["bwd"]:
+            rec["bwd"][given] = _record_backward(ctx.real, mode, ctx.call,
+                                                 given)
+        flops, rise = rec["bwd"][given]
+        mode.flops += flops
+        mode.peak = max(mode.peak, mode.live + rise)
+        mode.release(saved)
+        del saved
+        return (None,) * 4 + tuple(
+            _fresh([m])[0] if g else None
+            for m, g in zip(ctx.call.metas, ctx.call.grads))
+
+
+@contextlib.contextmanager
+def _replayed_scan(mode: "_MetaStep"):
+    """``nn.scan._loop`` (the time loop of ``chunked_time_scan``: the
+    Mamba and RWKV scans) run once per metadata of its arguments, as
+    :func:`_replayed_attention` runs ``flash_attention``: a prefill's
+    32,768 steps or a train step's chunks of 256, each a Python loop of
+    its step's ops, are then one recorded call per layer and chunk. The
+    record (:func:`_record_loop`) is taken by the real loop on ``meta``,
+    where no output depends on a value; a call whose arguments have no
+    metadata key runs the real loop."""
+    from repro_torch.nn import scan
+
+    real = scan._loop
+    memo: Dict[tuple, dict] = {}
+    stop = getattr(torch.utils.checkpoint, "_StopRecomputationError", ())
+
+    def loop(step_fn, carry, xs):
+        call = _LoopCall(step_fn, carry, xs)
+        try:
+            key = call.key()
+        except TypeError:
+            return real(step_fn, carry, xs)
+        rec = memo.get(key)
+        if rec is None:
+            rec = memo[key] = _record_loop(real, mode, call)
+            rec["out_spec"] = call.out_spec
+        tensors, call.tensors = call.tensors, None
+        if torch.is_grad_enabled():
+            live, drop = mode.live, _drops_saved()
+            try:
+                out = _ReplayedLoop.apply(real, mode, call, rec, *tensors)
+            except stop:
+                # the recompute of a region that ends with this loop
+                # stopped at the loop's save, as the real one stops at its
+                # last save
+                mode.flops -= rec["flops"] - rec["flops_stop"]
+                mode.peak = max(mode.peak, live + rec["rise_stop"])
+                raise
+            if not drop:
+                mode.peak = max(mode.peak, live + rec["rise"])
+        else:
+            live = mode.live
+            mode.flops += rec["flops"]
+            mode.peak = max(mode.peak, live + rec["rise"])
+            out = _fresh(rec["out"])
+        return tree_unflatten(list(out), rec["out_spec"])
+
+    scan._loop = loop
+    try:
+        yield
+    finally:
+        scan._loop = real
 
 
 def _kernel_flops() -> dict:
@@ -452,7 +705,7 @@ def measure(cfg, shape, spec) -> dict:
             run, log = _run_serve(cfg, shape, mesh, specs)
         mode = _MetaStep()
         t0 = time.perf_counter()
-        with mode, _replayed_attention(mode):
+        with mode, _replayed_attention(mode), _replayed_scan(mode):
             out = run()
         lower_s = time.perf_counter() - t0
         del out

@@ -24,14 +24,15 @@ front of the token embeddings.
 
 On a mesh (``dist.tensor_parallel.shard_model``, which the train step's
 ``mesh=`` runs) the modules take this rank's shares: attention heads,
-FFN and expert blocks and vocab rows over the ``model`` axis, and, for an
-FSDP config, ``embed``-sharded leaves over the data axes. Then
-``fsdp`` (a ``FSDPPlan``) gathers each layer's leaves at use, inside the
+Mamba channels, FFN and expert blocks and vocab rows over the ``model``
+axis, and, for an FSDP config, ``embed``-sharded leaves over the data
+axes. Then ``fsdp`` (a ``FSDPPlan``) gathers each layer's leaves at use, inside the
 layer's remat recompute too, and the embedding's and the output table's
 before theirs; ``vocab_shard`` = (model axis, first row) tells the loss
 which rows of the output table this rank holds. Tensor parallelism covers
-the attention-only ``lm`` family: :meth:`tensor_parallel_refusal` names
-the Mamba and RWKV mixers and paligemma's vision prefix.
+the ``lm`` family's attention and Mamba mixers (a Mamba layer's channels
+over ``model``): :meth:`tensor_parallel_refusal` names the RWKV mixer and
+paligemma's vision prefix.
 """
 
 from __future__ import annotations
@@ -196,10 +197,8 @@ class HybridDecoderLM(nn.Module):
 
     def tensor_parallel_refusal(self) -> Optional[str]:
         """What of this model tensor parallelism does not cover, or None:
-        the recurrent mixers and paligemma's vision prefix."""
+        the RWKV mixer and paligemma's vision prefix."""
         kinds = {layer.mixer_kind for layer in self._modules["layers"]}
-        if "mamba" in kinds:
-            return "the Mamba mixer (nn/ssm.py)"
         if "rwkv" in kinds:
             return "the RWKV mixer (nn/rwkv.py)"
         if self.cfg.family == "vlm" or self.cfg.n_img_tokens:

@@ -6,6 +6,16 @@ kernel on the kernel impl); ``x_proj``/``dt_proj`` (family
 ``mamba_inner``) stay dense, and the selective scan is not a weight matrix
 and stays in plain PyTorch, as the reference left it to XLA. Decode carries
 ``{conv window, ssm state}`` per slot: O(1) per token.
+
+Under tensor parallelism (``tp``, a ``dist.tensor_parallel.MambaLayout``
+set by ``shard_model`` when ``mlp`` is split over ``model``) the rank holds
+one range of the ``d_inner`` channels: x enters the region, ``in_proj``'s
+output (the rule's contiguous cut of both halves) is all-gathered and the
+rank takes its channels of ``xi`` and ``z``; the conv, the scan and the
+gate run on those channels, with the cache's states cut to them;
+``x_proj``'s partial outputs are summed forward and, because every rank's
+channels read the sum, its gradient is summed backward too; ``out_proj``
+sums the partial outputs into the residual.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import gather_along, region_input
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import ParamSpec
 from repro_torch.nn.scan import chunked_time_scan
@@ -57,6 +68,7 @@ class Mamba(nn.Module):
         self.add_module("out_proj", Linear(di, cfg.d_model, family="ffn",
                                            in_axis="mlp", out_axis="embed",
                                            **kw))
+        self.tp = None
 
     @property
     def d_inner(self) -> int:
@@ -112,21 +124,32 @@ class Mamba(nn.Module):
         m, b = self._modules, self._buffers
         B, S, _ = x.shape
         di, ds = self.d_inner, cfg.mamba_d_state
+        axis = None if self.tp is None else self.tp.axis
 
-        xi, z = m["in_proj"](x).chunk(2, dim=-1)             # (B, S, di) each
+        xz = m["in_proj"](region_input(x, axis))
+        if self.tp is None:
+            xi, z = xz.chunk(2, dim=-1)                      # (B, S, di) each
+        else:
+            # the reference splits the global (B, S, 2 di): gather the
+            # rank's cut, take its channels of each half
+            xz = gather_along(xz, axis, -1)
+            c0, c1 = self.tp.channels
+            xi, z = xz[..., c0:c1], xz[..., di + c0:di + c1]
         if mask is not None:
             xi = torch.where(mask[..., None], xi, torch.zeros_like(xi))
         xi, new_conv = self._conv(xi, None if cache is None
                                   else cache["conv"])
         xi = F.silu(xi)
 
-        xdb = m["x_proj"](xi).float()
+        # row-parallel: summed forward, and its gradient summed backward
+        # (every rank's channels read the sum)
+        xdb = region_input(m["x_proj"](xi), axis).float()
         dt, Bc, Cc = torch.split(xdb, [self.dt_rank, ds, ds], dim=-1)
         dt = F.softplus(m["dt_proj"](dt.to(x.dtype)).float() + b["dt_bias"])
         A = -torch.exp(b["A_log"])                           # (di, ds)
         xf = xi.float()
         h0 = (cache["ssm"] if cache is not None
-              else torch.zeros((B, di, ds), dtype=torch.float32,
+              else torch.zeros((B, xi.shape[-1], ds), dtype=torch.float32,
                                device=x.device))
 
         def step(h, t):

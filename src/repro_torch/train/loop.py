@@ -32,7 +32,7 @@ the data axes for an FSDP config), averages the grads over the data axes
 with one bucketed all-reduce, and holds the optimizer moments as its
 ZeRO-1 shard. The mesh also becomes the ambient mesh that
 ``impl="freq_shmap"`` reads. A model that tensor parallelism does not
-cover (the Mamba and RWKV mixers, paligemma's vision prefix, FSDP of the
+cover (the RWKV mixer, paligemma's vision prefix, FSDP of the
 enc-dec family) is refused on a ``model`` axis > 1 and keeps whole params on a
 ``(world, 1)`` mesh.
 

@@ -360,10 +360,9 @@ def _keys(tree, path=()):
     return [path]
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "paligemma-3b"])
 def test_refused_for_serving_under_a_model_axis(arch):
-    """The recurrent mixers and paligemma's vision prefix stay refused for
+    """The RWKV mixer and paligemma's vision prefix stay refused for
     serving under ``model = 2``, as for training (on a fake world of 2
     ranks in this process)."""
     from repro_torch.launch.dryrun import fake_world
