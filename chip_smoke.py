@@ -61,21 +61,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3d. tensor parallelism and FSDP (``tp`` phase; its ranks are spawned
    before the analysis phase and run beside it, the rest follows it; its
    rows join phase 4's checks): runs (a) qwen3-0.6b, (b) arctic-480b with
-   ``fsdp=True``, (c) seamless-m4t-medium and (d) jamba-v0.1-52b with
+   ``fsdp=True``, (c) seamless-m4t-medium, (d) jamba-v0.1-52b with
    ``fsdp=True`` (layer 0 Mamba + dense SwiGLU, layer 1 Mamba + MoE of 16
    experts, top 2; each Mamba layer's d_inner channels split over
-   ``model``), each cut to 2 layers (2 encoder + 2 decoder for seamless)
-   at full width in f32 (``impl="pallas"``, AdamW, one step at step 1 of
-   the schedule, batch 8 x seq 256; seamless's 2 rows x 256 tokens, each
-   with 4096 seeded encoder frames), on meshes (data=1, model=2), (data=2,
-   model=2), (data=1, model=2) and (data=2, model=2): 2, 4, 2 and 4 ranks
-   in ``gloo`` groups on cuda:0 (NCCL refuses two ranks on one GPU;
-   collectives staged through host memory). Each rank saves its state
+   ``model``) and (e) rwkv6-7b (each time mix's 64 WKV heads and each
+   channel mix's d_ff blocks split over ``model``), each cut to 2 layers
+   (2 encoder + 2 decoder for seamless) at full width in f32
+   (``impl="pallas"``, AdamW, one step at step 1 of the schedule, batch 8
+   x seq 256; seamless's 2 rows x 256 tokens, each with 4096 seeded
+   encoder frames), on meshes (data=1, model=2), (data=2, model=2),
+   (data=1, model=2), (data=2, model=2) and (data=1, model=2): 2, 4, 2, 4
+   and 2 ranks in ``gloo`` groups on cuda:0 (NCCL refuses two ranks on one
+   GPU; collectives staged through host memory; (d)'s ranks start once
+   (a)'s and (c)'s are done and (e)'s once all others are, so that the
+   card's memory holds them). Each rank saves its state
    whole (``save_checkpoint(shardings=, mesh=)``); this process takes the
    same step on one process and holds the checkpoint, restored onto one
-   process, to it (params over the tree and moments leaf by leaf, rel <=
-   1e-5; loss and grad norm of every rank too); launches per rank per step
-   pinned (30/10, 54/16, 72/24, 33/10); collectives, bytes per collective,
+   process, to it (params over the tree and moments leaf by leaf, (e)'s
+   over each moment's tree beside a rounding-step control of one process
+   against itself, rel <= 1e-5; loss and grad norm of every rank too); launches per rank per step
+   pinned (30/10, 54/16, 72/24, 33/10, 48/16); collectives, bytes per
+   collective,
    per-rank param and moment bytes beside one process's, and (b)'s and
    (d)'s peak device memory per rank, which must be below one process's;
    (c) every shard shape (qwen3's fused QKV (16, 8), o (8, 8), gate/up
@@ -85,7 +91,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (12, 8), o (8, 4), cross q and k/v (4, 8) on its decoder's and its
    encoder's rows, wi (16, 8), wo (8, 16); jamba's Mamba in_proj (64, 32)
    and out_proj (32, 32), its dense FFN's (56, 32) and (32, 56) and its 8
-   local experts' (112, 32) and (32, 112) grouped; their dx transposes, and
+   local experts' (112, 32) and (32, 112) grouped; rwkv6's r, k, v, g
+   (16, 32), o (32, 16), wk (56, 32), wr (32, 32), wv (32, 56); their dx
+   transposes, and
    q and k/v alone) against its plain version, f32 and bf16, ``bc_dw`` at
    every weight shape, and their device times; (d) after its train step
    each rank serves through ``make_prefill_step(mesh=)`` /
@@ -98,19 +106,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    frames (the cross caches split on their frames, 2048 per rank, read
    through the combine of the ranks' attention partials) and (d)
    jamba-v0.1-52b at the train step's 2 layers (each Mamba layer's conv
-   window and SSM state split on their channels), held to this
+   window and SSM state split on their channels) and (e) rwkv6-7b at the
+   train step's 2 layers (the shift states split on their channels and
+   all-gathered at each step, the WKV states on their heads), held to this
    process serving the same prompts (greedy tokens equal, the last step's
    logits within 1e-5 f32 and 2e-5 int8); launches per prefill and per
-   decode step pinned (140/140, 24/24, 24/12, 10/10), collectives and
-   bytes per step by
+   decode step pinned (140/140, 24/24, 24/12, 10/10, 16/16), collectives
+   and bytes per step by
    kind, per-rank param and cache bytes beside one process's, prefill and
    decode wall and busy ms; the serve shard shapes' kernels against plain,
    f32 and int8, and their device times; (e) ``python -m
    repro_torch.launch.dryrun`` on the three committed cells (the CPU,
    beside the rest): ``params``, ``analytic`` and the donated cache bytes
-   equal to ``experiments/dryrun/``'s; and on seamless's three cells and
-   jamba's four (its Mamba mixer under ``model = 16``), each ``OK`` with
-   the reference's argument and donated cache bytes;
+   equal to ``experiments/dryrun/``'s; and on seamless's three cells,
+   jamba's four (its Mamba mixer under ``model = 16``) and rwkv6's four
+   (its RWKV mixer), each ``OK`` with the reference's argument and donated
+   cache bytes (rwkv6's cache 16 times the reference's per rank: the
+   reference puts the data axes on its stack of 32 layers);
 4. every kernel against its plain PyTorch version on the card: the
    slice's projection shapes at every row count the serve and train runs
    launched and at B in {1, 4, 512}, with f32 and bf16 x, each launched
@@ -5368,35 +5380,57 @@ def phase_analysis(torch, kernel, dev, engine):
 # ---------------------------------------------------------------------------
 
 # (a) qwen3-0.6b on (data=1, model=2), (b) arctic-480b with fsdp=True on
-# (data=2, model=2), (c) seamless-m4t-medium on (data=1, model=2) and (d)
-# jamba-v0.1-52b (its config's fsdp=True) on (data=2, model=2): 2-layer
-# cuts at full width in f32 (train_family's depth for arctic; dist (b)'s
-# cut for qwen3; 2 encoder + 2 decoder layers for seamless; jamba's first
-# two layers, both Mamba, the first with the dense FFN, the second with
-# the MoE),
+# (data=2, model=2), (c) seamless-m4t-medium on (data=1, model=2), (d)
+# jamba-v0.1-52b (its config's fsdp=True) on (data=2, model=2) and (e)
+# rwkv6-7b on (data=1, model=2): 2-layer cuts at full width in f32
+# (train_family's depth for arctic; dist (b)'s cut for qwen3; 2 encoder +
+# 2 decoder layers for seamless; jamba's first two layers, both Mamba, the
+# first with the dense FFN, the second with the MoE; rwkv6's time mix
+# split on its 64 heads, its channel mix on its d_ff blocks),
 # impl="pallas", remat "block", AdamW, one step at step 1 of the schedule
 # on the train batch (seamless's: TP_ENCDEC_BATCH rows of TRAIN_SEQ tokens,
 # each with enc_seq = 4096 seeded frames, so that the cross K/V span the
 # whole frame axis)
 TP_RUNS = {"a": ("qwen3-0.6b", (1, 2)), "b": ("arctic-480b", (2, 2)),
            "c": ("seamless-m4t-medium", (1, 2)),
-           "d": ("jamba-v0.1-52b", (2, 2))}
+           "d": ("jamba-v0.1-52b", (2, 2)), "e": ("rwkv6-7b", (1, 2))}
 # the runs whose config shards ``embed`` over the data axis
 TP_FSDP = ("b", "d")
 # the runs whose one-process step waits for the ranks to exit: jamba's
-# (a 14.5 GB peak) does not fit on the card beside the twelve ranks
-TP_REF_AFTER_JOIN = ("d",)
+# (a 14.5 GB peak) does not fit on the card beside the fourteen ranks;
+# rwkv6's, whose recomputed layer keeps a (8, 64, 64, 64) f32 WKV state
+# per step, runs there with its control
+TP_REF_AFTER_JOIN = ("d", "e")
+# the runs whose ranks start on the card only once every rank of the named
+# runs is done (its step and its serving): one wave at a time, (a) with (c)
+# (19.7 GB of rank peaks), then (b) (28.3 GB), (d) (26.1 GB) and (e)
+# (19.8 GB), beside this process's analysis phase and one-process steps
+# (up to 15.4 GB). Every rank at once ran the card out of memory, and so
+# did (d) started after (a) and (c) only, beside (b)'s ranks
+TP_RANKS_AFTER = {"b": ("a", "c"), "d": ("b",), "e": ("d",)}
+TP_RANKS_WAIT_S = 600
 TP_LAYERS = 2
 TP_ENCDEC_BATCH = 2
 TP_TOL = 1e-5
+# the runs whose moments are held to TP_TOL over each moment's tree, not
+# leaf by leaf (printed all the same): rwkv6's f32 time-mix gradients are
+# ill-conditioned leaf by leaf, so a change of summation order moves a
+# moment leaf by more than TP_TOL of its largest entry. Their control
+# shows it: one process's step taken again with its embedding table times
+# 1 + TP_CONTROL_NOISE noise (a rounding step), held to the first by the
+# same measures and printed beside the ranks'
+TP_MOMENTS_OVER_TREE = ("e",)
+TP_CONTROL_NOISE = 6e-8
 # bc_matmul / bc_dw launches per rank per step, pinned: one process's
 # (2 layers x qwen3's 15 / 5, arctic's 27 / 8; seamless 2 x 12 / 4 per
 # encoder layer and 2 x 24 / 8 per decoder layer; jamba's Mamba 6 / 2 per
-# layer, its dense FFN 9 / 3 and its MoE 12 / 3), each at its shard shape
+# layer, its dense FFN 9 / 3 and its MoE 12 / 3; rwkv6's time mix 15 / 5
+# and channel mix 9 / 3 per layer), each at its shard shape
 TP_LAUNCHES = {"a": {"bc_matmul": 30, "bc_dw": 10},
                "b": {"bc_matmul": 54, "bc_dw": 16},
                "c": {"bc_matmul": 72, "bc_dw": 24},
-               "d": {"bc_matmul": 33, "bc_dw": 10}}
+               "d": {"bc_matmul": 33, "bc_dw": 10},
+               "e": {"bc_matmul": 48, "bc_dw": 16}}
 # (name, groups, p, q, launches per rank per step, rows) of every shard
 # shape a rank launches at model = 2, k = 128: forward (and recompute) at
 # (p, q), dx at (q, p). qwen3 runs 2048 rows per rank (data = 1); arctic
@@ -5459,6 +5493,19 @@ TP_SHAPES = {
           ("jamba.experts.wi_wu.dx", 8, 32, 112, 2, JAMBA_CAPACITY),
           ("jamba.experts.wo", 8, 32, 112, 3, JAMBA_CAPACITY),
           ("jamba.experts.wo.dx", 8, 112, 32, 1, JAMBA_CAPACITY)],
+    # rwkv6: 2048 rows per rank (data = 1); r, k, v and g one launch each
+    # at the rank's 32 heads (p 16 of 32), o on their blocks (q 16), the
+    # channel mix's wk and wv on 56 of d_ff's 112 blocks and wr whole
+    "e": [("rwkv6.rkvg", 1, 16, 32, 16, 2048),
+          ("rwkv6.rkvg.dx", 1, 32, 16, 8, 2048),
+          ("rwkv6.o", 1, 32, 16, 4, 2048),
+          ("rwkv6.o.dx", 1, 16, 32, 2, 2048),
+          ("rwkv6.wk", 1, 56, 32, 4, 2048),
+          ("rwkv6.wk.dx", 1, 32, 56, 2, 2048),
+          ("rwkv6.wr", 1, 32, 32, 4, 2048),
+          ("rwkv6.wr.dx", 1, 32, 32, 2, 2048),
+          ("rwkv6.wv", 1, 32, 56, 4, 2048),
+          ("rwkv6.wv.dx", 1, 56, 32, 2, 2048)],
 }
 # the q and k/v tables on their own (the fused launch concatenates them)
 TP_SPLIT_SHAPES = [("qwen3.q", 1, 8, 8, 0, 2048),
@@ -5490,6 +5537,11 @@ TP_DW_SHAPES = {
           ("jamba.wo", 1, 32, 56, 1, 1024),
           ("jamba.experts.wi_wu", 8, 112, 32, 2, JAMBA_CAPACITY),
           ("jamba.experts.wo", 8, 32, 112, 1, JAMBA_CAPACITY)],
+    "e": [("rwkv6.rkvg", 1, 16, 32, 8, 2048),
+          ("rwkv6.o", 1, 32, 16, 2, 2048),
+          ("rwkv6.wk", 1, 56, 32, 2, 2048),
+          ("rwkv6.wr", 1, 32, 32, 2, 2048),
+          ("rwkv6.wv", 1, 32, 56, 2, 2048)],
 }
 
 # (d) serving after the train step: (a) qwen3-0.6b at full depth, (b)
@@ -5500,9 +5552,13 @@ TP_DW_SHAPES = {
 # (the cross caches split on their frames: 4096 = d_ff, a channel size of
 # the cache rule), (d) jamba-v0.1-52b at the train step's 2 layers (the
 # Mamba states split on their channels, the slot axis over the data
-# ranks), full width, f32, frozen tables f32 then int8; prompts, prompt
-# tokens, greedy decode steps, cache length (no channel size of the rule)
-TP_SERVE_DEPTH = {"a": None, "b": 3, "c": TP_LAYERS, "d": TP_LAYERS}
+# ranks), (e) rwkv6-7b at the train step's 2 layers (the shift states
+# split on their channels, all-gathered at each step, the WKV state on its
+# heads), full width, f32, frozen tables f32 then int8; prompts, prompt
+# tokens, greedy decode steps, cache length (none a channel or head size
+# of the rule: a batch of 64 would put rwkv6's 'model' on the slot axis)
+TP_SERVE_DEPTH = {"a": None, "b": 3, "c": TP_LAYERS, "d": TP_LAYERS,
+                  "e": TP_LAYERS}
 TP_SERVE = (4, 64, 16)
 TP_SERVE_CACHE = 128
 TP_SERVE_INT8_TOL = FP32_TOL    # tests/test_torch_bcplan.py's int8 plans
@@ -5510,9 +5566,10 @@ TP_SERVE_INT8_TOL = FP32_TOL    # tests/test_torch_bcplan.py's int8 plans
 # process's (qwen3's 5 per layer x 28, arctic's 8 per layer x 3; seamless
 # 4 per encoder and 8 per decoder layer in prefill, 6 per decoder layer in
 # decode: cross k and v run at prefill only; jamba's 2 per Mamba layer, 3
-# per dense FFN and 3 per MoE)
+# per dense FFN and 3 per MoE; rwkv6's 5 per time mix and 3 per channel
+# mix)
 TP_SERVE_LAUNCHES = {"a": (140, 140), "b": (24, 24), "c": (24, 12),
-                     "d": (10, 10)}
+                     "d": (10, 10), "e": (16, 16)}
 # (name, groups, p, q, launches per rank per forward) of every serve shard
 # shape at model = 2, k = 128; rows from tp_serve_rows
 TP_SERVE_SHAPES = {
@@ -5541,6 +5598,11 @@ TP_SERVE_SHAPES = {
           ("jamba.serve.wo", 1, 32, 56, 1),
           ("jamba.serve.experts.wi_wu", 8, 112, 32, 2),
           ("jamba.serve.experts.wo", 8, 32, 112, 1)],
+    "e": [("rwkv6.serve.rkvg", 1, 16, 32, 8),
+          ("rwkv6.serve.o", 1, 32, 16, 2),
+          ("rwkv6.serve.wk", 1, 56, 32, 2),
+          ("rwkv6.serve.wr", 1, 32, 32, 2),
+          ("rwkv6.serve.wv", 1, 32, 56, 2)],
 }
 # the serve shapes that run on the encoder's frames (prefill only)
 TP_SERVE_ENC = {"seamless.serve.enc.qkv", "seamless.serve.enc.o",
@@ -5561,6 +5623,19 @@ DRYRUN_JAMBA = {"train_4k": (60_524_612, None),
 DRYRUN_ENCDEC = {"train_4k": (793_847_876, None),
                  "prefill_32k": (774_221_824, 229_662_720),
                  "decode_32k": (1_446_170_688, 918_650_880)}
+# rwkv6's four (its RWKV mixer under model = 16), the reference's figures
+# (tests/test_torch_dryrun_rwkv.py). rwkv6's 32 stacked layers divide the
+# 16-way data axis, so the reference puts the data axes on its layer stack
+# and the port's per-layer cache leaves, whose slot axis stays whole, hold
+# DRYRUN_CACHE_FACTOR times the reference's cache bytes per rank (ROADMAP
+# Queue 3 item 1); the rest of the arguments are equal
+DRYRUN_RWKV = {"train_4k": (374_462_532, None),
+               "prefill_32k": (328_056_832, 4_259_840),
+               "decode_32k": (340_574_272, 17_039_360),
+               "long_500k": (323_667_976, 133_120)}
+DRYRUN_CACHE_FACTOR = {"rwkv6-7b": 16}
+DRYRUN_REF = {"seamless-m4t-medium": DRYRUN_ENCDEC,
+              "jamba-v0.1-52b": DRYRUN_JAMBA, "rwkv6-7b": DRYRUN_RWKV}
 
 
 def tp_config(run):
@@ -5620,11 +5695,12 @@ def tp_bytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def tp_step(torch, dev, run, mesh):
+def tp_step(torch, dev, run, mesh, perturb=False):
     """One step of ``run`` from seed 0's params, on ``mesh`` (this rank's
-    shards) or in one process (None). Returns (state, step fn, model,
-    metrics, step ms, peak device bytes above the bytes held before the
-    model)."""
+    shards) or in one process (None); with ``perturb``, the embedding
+    table times 1 + TP_CONTROL_NOISE seeded noise. Returns (state, step
+    fn, model, metrics, step ms, peak device bytes above the bytes held
+    before the model)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.specs import build_model
     from repro_torch.nn.module import init_params
@@ -5638,8 +5714,13 @@ def tp_step(torch, dev, run, mesh):
     step = make_train_step(model, cfg, tcfg, mesh=mesh)
     shard = (step.data_parallel.state_shardings if mesh is not None
              else {"params": None, "opt": None})
-    state = init_train_state(init_params(model.specs(), seed=0, device=dev),
-                             tcfg, opt_shardings=shard["opt"],
+    params = init_params(model.specs(), seed=0, device=dev)
+    if perturb:
+        table = params["embed"]["table"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params["embed"]["table"] = table * (1 + TP_CONTROL_NOISE * torch.randn(
+            table.shape, generator=gen, device=dev))
+    state = init_train_state(params, tcfg, opt_shardings=shard["opt"],
                              param_shardings=shard["params"], mesh=mesh)
     state["step"] = 1                  # a step whose learning rate is > 0
     batch = tp_batch(torch, cfg, dev)
@@ -5788,18 +5869,33 @@ def tp_serve(torch, kernel, dev, run, quantize, mesh=None):
     return out
 
 
-def tp_rank_main(run, rank, port, ckpt, q):
-    """A rank of (a) or (b): a gloo group on cuda:0 (NCCL refuses two
-    ranks on one GPU), one step on its shards, then the state saved whole
-    (``save_checkpoint(shardings=, mesh=)``, rank 0 writing) for the
-    parent to restore onto one process; its figures go back through
-    ``q``."""
+def tp_wait_for(done, run):
+    """Wait until every rank of the runs ``TP_RANKS_AFTER[run]`` is done
+    (``done``: the count of such ranks by run)."""
+    after = [r for r in TP_RANKS_AFTER.get(run, ()) if r in done]
+    deadline = time.monotonic() + TP_RANKS_WAIT_S
+    while any(done[r].value < math.prod(TP_RUNS[r][1]) for r in after):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"the ranks of {after} were not done in "
+                               f"{TP_RANKS_WAIT_S} s")
+        time.sleep(0.2)
+
+
+def tp_rank_main(run, rank, port, ckpt, q, done):
+    """A rank of a ``TP_RUNS`` run, once the ranks of the runs
+    ``TP_RANKS_AFTER`` names are done: a gloo group on cuda:0 (NCCL refuses
+    two ranks on one GPU), one step on its shards, then the state saved
+    whole (``save_checkpoint(shardings=, mesh=)``, rank 0 writing) for the
+    parent to restore onto one process, then serving; its figures go back
+    through ``q``, and ``done[run]`` counts it at its end."""
     import torch
     import torch.distributed as dist
 
     arch, shape = TP_RUNS[run]
     out = {"run": run, "rank": rank}
     try:
+        tp_wait_for(done, run)         # before this rank touches the card
+        out["t_card"] = time.time()
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_num_threads(1)
@@ -5816,6 +5912,7 @@ def tp_rank_main(run, rank, port, ckpt, q):
                                 mesh_dim_names=("data", "model"))
         kernel.LAUNCHES.update(bc_matmul=0, bc_dw=0)
         from repro_torch.nn.attention import Attention
+        from repro_torch.nn.rwkv import RWKV6TimeMix
         from repro_torch.nn.ssm import Mamba
 
         state, step, model, metrics, ms, peak = tp_step(torch, dev, run,
@@ -5834,7 +5931,10 @@ def tp_rank_main(run, rank, port, ckpt, q):
                                and m.tp is not None}),
                    mamba=sorted({m.tp.channels for m in model.modules()
                                  if isinstance(m, Mamba)
-                                 and m.tp is not None}))
+                                 and m.tp is not None}),
+                   rwkv=sorted({m.tp.heads for m in model.modules()
+                                if isinstance(m, RWKV6TimeMix)
+                                and m.tp is not None}))
         t = time.perf_counter()
         save_checkpoint(ckpt, 1, state, shardings=dp.state_shardings,
                         mesh=mesh)
@@ -5854,33 +5954,82 @@ def tp_rank_main(run, rank, port, ckpt, q):
 
         out["error"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
     finally:
+        torch.cuda.empty_cache()
+        out["t_done"] = time.time()
+        with done[run].get_lock():     # a failed rank holds no one back
+            done[run].value += 1
         q.put(out)
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 def tp_spawn(tmp):
-    """Start (a)'s two and (b)'s four ranks (``spawn``: this process holds
+    """Start every ``TP_RUNS`` run's ranks (``spawn``: this process holds
     the card), each run with its own group and checkpoint directory under
-    ``tmp``; returns (processes, queue)."""
+    ``tmp``; returns (processes, the queue of their reports, the ranks'
+    shared counts of ``tp_rank_main``), the last to be held while the ranks
+    run (``start()`` lets go of a process's arguments before the child has
+    read them). A thread moves each report off the ranks' pipe as it comes,
+    so that a rank that is done exits and lets go of its CUDA context
+    (a child's exit waits until its queue's data is in the pipe)."""
     import os
+    import queue
     import socket
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
+    done = {run: ctx.Value("i", 0) for run in TP_RUNS}
     procs = []
     for run, (_, shape) in TP_RUNS.items():
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
         procs += [ctx.Process(target=tp_rank_main,
-                              args=(run, r, port, os.path.join(tmp, run), q))
+                              args=(run, r, port, os.path.join(tmp, run), q,
+                                    done))
                   for r in range(shape[0] * shape[1])]
     for p in procs:
         p.start()
-    return procs, q
+    got = queue.Queue()
+
+    def drain():
+        for _ in procs:
+            got.put(q.get())
+
+    threading.Thread(target=drain, daemon=True).start()
+    return procs, got, done
+
+
+def card_memory_sampler(torch, every=0.05):
+    """Sample the bytes in use on the card, every process's
+    (``torch.cuda.mem_get_info``), on a thread every ``every`` s; returns
+    stop(), which ends the thread and returns (the most bytes in use, the
+    seconds from the start to that sample, this process's reserved bytes
+    then, the card's bytes)."""
+    halt = threading.Event()
+    t0 = time.perf_counter()
+    total = torch.cuda.mem_get_info()[1]
+    peak = [0, 0.0, 0]
+
+    def sample():
+        while not halt.is_set():
+            used = total - torch.cuda.mem_get_info()[0]
+            if used > peak[0]:
+                peak[:] = [used, time.perf_counter() - t0,
+                           torch.cuda.memory_reserved()]
+            halt.wait(every)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+
+    def stop():
+        halt.set()
+        thread.join()
+        return (*peak, total)
+
+    return stop
 
 
 def tp_join(procs, q):
@@ -5901,31 +6050,44 @@ def tp_join(procs, q):
 
 def tp_compare(torch, ref, ckpt, dev):
     """The ranks' checkpoint, restored onto one process, against the
-    one-process state ``ref``: params over the tree (||diff|| / ||ref||,
-    and leaf by leaf), moments leaf by leaf (max |diff| / max |ref|)."""
+    one-process state ``ref`` (``state_rel``), and its step."""
     from repro_torch.ft.checkpoint import restore_checkpoint
-    from repro_torch.nn.module import tree_leaves
 
     got = restore_checkpoint(ckpt, 1, device=dev)
+    return state_rel(torch, got, ref) + (int(got["step"]),)
+
+
+def state_rel(torch, got, ref):
+    """Train state ``got`` against ``ref``: params over the tree (||diff||
+    / ||ref||, and leaf by leaf), moments leaf by leaf (max |diff| / max
+    |ref|) and over each moment's tree (the larger of m's and v's)."""
+    from repro_torch.nn.module import tree_leaves
+
     with torch.no_grad():
         pairs = list(zip(tree_leaves(got["params"]),
                          tree_leaves(ref["params"])))
         if any(a.shape != b.shape for a, b in pairs):
             fail("tp: a restored param's shape differs from one process's")
         leaf = max(rel_err(a, b) for a, b in pairs)
-        diff = sum(float((a.double() - b.double()).square().sum())
-                   for a, b in pairs)
-        norm = sum(float(b.double().square().sum()) for _, b in pairs)
-        moments = max(rel_err(a, b) for key in ("m", "v")
-                      for a, b in zip(tree_leaves(got["opt"][key]),
-                                      tree_leaves(ref["opt"][key])))
-    return math.sqrt(diff / norm), leaf, moments, int(got["step"])
+
+        def over_tree(pairs):
+            diff = sum(float((a.double() - b.double()).square().sum())
+                       for a, b in pairs)
+            norm = sum(float(b.double().square().sum()) for _, b in pairs)
+            return math.sqrt(diff / norm)
+
+        moments = [list(zip(tree_leaves(got["opt"][key]),
+                            tree_leaves(ref["opt"][key])))
+                   for key in ("m", "v")]
+        leaf_m = max(rel_err(a, b) for m in moments for a, b in m)
+        tree_m = max(over_tree(m) for m in moments)
+    return over_tree(pairs), leaf, leaf_m, tree_m
 
 
 def dryrun_start(out_dir):
     """(e) ``python -m repro_torch.launch.dryrun`` on each committed cell
-    and on seamless's three and jamba's four into ``out_dir``, one process
-    per cell, started
+    and on seamless's three, jamba's four and rwkv6's four into
+    ``out_dir``, one process per cell, started
     together in the background (the CPU and ``meta`` tensors: no card).
     The processes are killed and ``out_dir`` removed when this script
     exits."""
@@ -5937,8 +6099,7 @@ def dryrun_start(out_dir):
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     cells = [("qwen3-0.6b", shape) for shape in DRYRUN_CELLS] + [
-        ("seamless-m4t-medium", shape) for shape in DRYRUN_ENCDEC] + [
-        ("jamba-v0.1-52b", shape) for shape in DRYRUN_JAMBA]
+        (arch, shape) for arch, ref in DRYRUN_REF.items() for shape in ref]
     # at the lowest priority: they take the cores the kernels' build and
     # the serve phases leave idle
     procs = {cell: subprocess.Popen(
@@ -5963,9 +6124,9 @@ def dryrun_join(torch, started, timeout=300):
     """Each cell's record against the reference's: qwen3's ``params`` and
     donated cache bytes equal to its committed record's, ``analytic`` to
     rel 1e-12, the port's bytes, flops and collectives printed beside the
-    reference's; seamless's and jamba's argument and donated cache bytes
-    equal to DRYRUN_ENCDEC's and DRYRUN_JAMBA's. A cell not ``OK`` fails
-    the run."""
+    reference's; the other archs' argument and donated cache bytes equal
+    to DRYRUN_REF's, the cache's times DRYRUN_CACHE_FACTOR. A cell not
+    ``OK`` fails the run."""
     import os
 
     out_dir, procs = started
@@ -5986,19 +6147,23 @@ def dryrun_join(torch, started, timeout=300):
         keys = ("argument_size_in_bytes", "output_size_in_bytes",
                 "alias_size_in_bytes", "temp_size_in_bytes", "flops")
         if arch != "qwen3-0.6b":
-            args, cache = (DRYRUN_ENCDEC if arch == "seamless-m4t-medium"
-                           else DRYRUN_JAMBA)[shape]
-            if mine["argument_size_in_bytes"] != args or (
+            args, cache = DRYRUN_REF[arch][shape]
+            f = DRYRUN_CACHE_FACTOR.get(arch, 1)
+            want = (args + (f - 1) * (cache or 0),
+                    None if cache is None else f * cache)
+            if mine["argument_size_in_bytes"] != want[0] or (
                     cache is not None
-                    and mine["alias_size_in_bytes"] != cache):
+                    and mine["alias_size_in_bytes"] != want[1]):
                 fail(f"dryrun {arch} {shape}: argument / donated cache bytes "
                      f"{mine['argument_size_in_bytes']} / "
-                     f"{mine['alias_size_in_bytes']} != the reference's "
-                     f"{args} / {cache}")
+                     f"{mine['alias_size_in_bytes']} != {want[0]} / "
+                     f"{want[1]}: the reference's {args} / {cache} with the "
+                     f"cache times {f}")
             print(f"dryrun (e) {arch} {shape} single on the CPU "
                   f"({mine['lower_s']} s on meta; torch {torch.__version__}): "
-                  f"OK; argument bytes {args} and donated cache bytes "
-                  f"{cache} = the reference's shard bytes; "
+                  f"OK; argument bytes {want[0]} and donated cache bytes "
+                  f"{want[1]}: the reference's shard bytes {args} and "
+                  f"{cache} with the cache's times {f}; "
                   + ", ".join(f"{k} {mine[k]!r}" for k in keys[1:])
                   + f"; collectives {mine['collective_counts']}")
             rows[f"{arch} {shape}"] = {k: mine[k] for k in keys + (
@@ -6054,6 +6219,10 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                              peak=peak,
                              param_bytes=tp_bytes(state["params"]),
                              moment_bytes=tp_bytes(state["opt"]))
+            if run in TP_MOMENTS_OVER_TREE:
+                control = tp_step(torch, dev, run, None, perturb=True)[0]
+                refs[run]["control"] = state_rel(torch, control, state)
+                del control
             # (d) one process serving what the ranks serve
             serve_refs[run] = {q_: tp_serve(torch, kernel, dev, run, q_)
                                for q_ in ("off", "int8")}
@@ -6089,21 +6258,32 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
           f"(f32) = {dw_abs!r}")
     t_checks = time.perf_counter() - t_phase
     outs = tp_join(procs, q)
+    t0 = min(o["t_card"] for run in TP_RUNS for o in outs[run])
+    print("tp ranks on the card (s after the first one reached it; "
+          "TP_RANKS_AFTER's waves): " + ", ".join(
+              f"({run}) {min(o['t_card'] for o in outs[run]) - t0:.1f}-"
+              f"{max(o['t_done'] for o in outs[run]) - t0:.1f}"
+              for run in sorted(TP_RUNS, key=lambda r: min(
+                  o["t_card"] for o in outs[r]))))
     one_process(TP_REF_AFTER_JOIN)
     t_join = time.perf_counter() - t_phase
     report = {}
     for run, (arch, shape) in TP_RUNS.items():
         ref, ranks = refs.pop(run), outs[run]
         t = time.perf_counter()
-        rel_p, rel_leaf, rel_m, step = tp_compare(
+        rel_p, rel_leaf, rel_m, rel_mt, step = tp_compare(
             torch, ref["state"], os.path.join(tmp, run), dev)
         restore_s = time.perf_counter() - t
         del ref["state"]
         torch.cuda.empty_cache()
-        if not (rel_p <= TP_TOL and rel_m <= TP_TOL and step == 2):
+        held = rel_mt if run in TP_MOMENTS_OVER_TREE else rel_m
+        if not (rel_p <= TP_TOL and held <= TP_TOL and step == 2):
             fail(f"tp ({run}) {arch} on {shape}: the ranks' state vs one "
                  f"process's: params rel {rel_p!r}, moments rel {rel_m!r} "
-                 f"(limit {TP_TOL}), step {step}")
+                 f"leaf by leaf and {rel_mt!r} over the tree (limit "
+                 f"{TP_TOL} on the "
+                 f"{'tree' if run in TP_MOMENTS_OVER_TREE else 'leaves'}), "
+                 f"step {step}")
         coll = {o["collectives"] for o in ranks}
         for o in ranks:
             if o["launches"] != TP_LAUNCHES[run]:
@@ -6122,6 +6302,13 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
             fail(f"tp ({run}): the ranks issued {sorted(coll)} collectives")
         o0 = ranks[0]
         per_coll = o0["comm_bytes"] / max(o0["collectives"], 1)
+        control = ref.get("control")
+        control_txt = "" if control is None else (
+            f" (the control, one process's step again with its embedding "
+            f"table times 1 + {TP_CONTROL_NOISE} noise: params rel "
+            f"{control[0]!r} over the tree, {control[1]!r} leaf by leaf; "
+            f"moments {control[2]!r} leaf by leaf and {control[3]!r} over "
+            f"the tree)")
         print(f"tp ({run}) {arch} cut to {tp_depth(tp_config(run))} layers "
               f"at full width, "
               f"f32, AdamW, on mesh (data={shape[0]}, model={shape[1]}) = "
@@ -6132,13 +6319,17 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
               f"{tp_batch_rows(run)} x seq {TRAIN_SEQ}: params rel "
               f"{rel_p!r} over the tree (leaf "
               f"by leaf {rel_leaf!r}), moments rel {rel_m!r} leaf by leaf "
-              f"(limit {TP_TOL}), through the ranks' checkpoint saved whole "
+              f"and {rel_mt!r} over the tree (limit {TP_TOL} on the "
+              f"{'tree' if run in TP_MOMENTS_OVER_TREE else 'leaves'})"
+              f"{control_txt}, "
+              f"through the ranks' checkpoint saved whole "
               f"and restored onto one process ({restore_s:.1f} s restore, "
               f"{max(o['save_s'] for o in ranks):.1f} s save); loss "
               f"{o0['loss']!r} vs {ref['loss']!r}, grad norm "
               f"{o0['grad_norm']!r} vs {ref['grad_norm']!r}; K/V "
               f"{o0['kv']}; Mamba channels per rank "
-              f"{[o['mamba'] for o in ranks]}; per rank per step: launches "
+              f"{[o['mamba'] for o in ranks]}; RWKV heads per rank "
+              f"{[o['rwkv'] for o in ranks]}; per rank per step: launches "
               f"{o0['launches']} "
               f"(pinned), {o0['collectives']} collectives, "
               f"{o0['comm_bytes']} B sent ({per_coll:.0f} B per "
@@ -6152,6 +6343,7 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
               f"{ref['ms']:.1f} ms in one process ({CARD[0]})")
         report[run] = dict(arch=arch, mesh=shape, rel_params=rel_p,
                            rel_params_leaf=rel_leaf, rel_moments=rel_m,
+                           rel_moments_tree=rel_mt, control=control,
                            loss=o0["loss"], ref_loss=ref["loss"],
                            launches=o0["launches"],
                            collectives=o0["collectives"],
@@ -6165,7 +6357,8 @@ def phase_tp(torch, kernel, quant, dev, procs, q, tmp):
                            ms=[o["ms"] for o in ranks], ref_ms=ref["ms"],
                            save_s=max(o["save_s"] for o in ranks),
                            restore_s=restore_s, kv=o0["kv"],
-                           mamba=[o["mamba"] for o in ranks])
+                           mamba=[o["mamba"] for o in ranks],
+                           rwkv=[o["rwkv"] for o in ranks])
     for run, (arch, shape) in TP_RUNS.items():
         report[run]["serve"] = tp_serve_compare(run, arch, shape, outs[run],
                                                 serve_refs[run])
@@ -6314,7 +6507,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     CARD[0] = smi.stdout.strip().splitlines()[0]
     print(CARD[0])
-    # the dry-run's three cells on the CPU, beside the kernels' build and
+    # the dry-run's cells on the CPU, beside the kernels' build and
     # the first serve path; joined in the tp phase
     dry_procs = dryrun_start(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
 
@@ -6366,17 +6559,26 @@ def main() -> int:
     tp_tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     print(f"tp: checkpoints under {tp_tmp}, "
           f"{shutil.disk_usage(tp_tmp).free / 2**30:.1f} GiB free")
-    tp_procs, tp_q = tp_spawn(tp_tmp)
+    card_memory = card_memory_sampler(torch)
+    tp_procs, tp_q, tp_done = tp_spawn(tp_tmp)
     try:
         analysis_row, analysis_launches = phase_analysis(torch, kernel, dev,
                                                          engine)
         tp_row, tp_launches, tp_rows, tp_times, tp_dw_times = phase_tp(
             torch, kernel, quant, dev, tp_procs, tp_q, tp_tmp)
+        used, at, mine, total = card_memory()
+        tp_row["card_peak_bytes"] = used
+        print(f"tp: card memory in use at most {used} B of {total} B "
+              f"(every process's, sampled every 50 ms from the ranks' start "
+              f"to the end of the tp phase), {at:.1f}s after their start, "
+              f"this process then reserving {mine} B ({CARD[0]})")
         tp_row["dryrun"] = dryrun_join(torch, dry_procs)
     finally:
+        card_memory()
         for p in tp_procs:
             if p.is_alive():
                 p.kill()
+        del tp_done
         shutil.rmtree(tp_tmp, ignore_errors=True)
     lap("analysis, tp")
     max_abs = phase_kernels(

@@ -10,8 +10,8 @@ over ``model`` by the tensor-parallel rules, and over the data axes on
 the model's modules their shares, and the state is made so by
 ``train.loop.init_train_state(param_shardings=, opt_shardings=, mesh=)``.
 A model that tensor parallelism does not cover
-(``dist.tensor_parallel.refusal``: the RWKV mixer, paligemma's
-vision prefix, FSDP of the enc-dec family) is refused on a ``model`` axis > 1,
+(``dist.tensor_parallel.refusal``: paligemma's vision prefix, FSDP
+of the enc-dec family) is refused on a ``model`` axis > 1,
 and on a ``(world, 1)`` mesh keeps its params whole on every rank, FSDP
 configs too.
 

@@ -1,5 +1,5 @@
 """Tensor parallelism over the ``model`` mesh axis and FSDP over the data
-axes, for the decoder LM (attention and Mamba mixers) and enc-dec
+axes, for the decoder LM (attention, Mamba and RWKV mixers) and enc-dec
 families.
 
 The reference has no counterpart of this module: it declares each leaf's
@@ -35,6 +35,15 @@ friends). Which reference rule each part realises:
   reshards). ``x_proj`` is row-parallel and its summed output feeds
   per-channel work on every rank, so it is summed forward and its
   gradient summed backward; ``out_proj`` is row-parallel.
+* ``heads`` and ``mlp`` on ``model`` for the RWKV mixer
+  (:func:`rwkv_layout`): the time mix's r, k, v and g are
+  column-parallel and ``u`` split on its heads, so each rank runs the WKV
+  scan, group norm and gate of its heads; ``o`` is row-parallel. The
+  leaves the rules leave whole (the mixes, the LoRAs, ``w0``, the group
+  norm's scale and bias) enter the region with x, and the decay is
+  computed for the rank's channels only. The channel mix's ``wk`` is
+  column- and ``wv`` row-parallel; ``wr`` stays whole, and only ``wk``'s
+  input enters the region (``r``'s gradient is whole on every rank).
 * ``experts`` on ``model``: each rank runs its ``E / model`` experts on
   the (replicated) tokens routed to them, and the partial combines are
   summed.
@@ -47,20 +56,23 @@ friends). Which reference rule each part realises:
 
 Leaves that the rules leave whole on a ``model`` axis > 1 but that a
 sharded region reads (K/V tables in the ``replicated`` case, qk-norm
-scales) enter the region through ``region_input``: each rank's gradient of
-them is a partial, summed over the axis. Tensor parallelism covers the
-``lm`` family's decoders with attention and Mamba mixers and the enc-dec
-family; :func:`refusal` names what it does not cover (the RWKV mixer,
-paligemma's vision prefix, FSDP of the enc-dec family), which keeps whole
-params and trains data-parallel on a ``(world, 1)`` mesh.
+scales, the RWKV time mix's whole leaves) enter the region through
+``region_input``: each rank's gradient of them is a partial, summed over
+the axis. Tensor parallelism covers the ``lm`` family's decoders with
+attention, Mamba and RWKV mixers and the enc-dec family; :func:`refusal`
+names what it does not cover (paligemma's vision prefix, FSDP of the
+enc-dec family), which keeps whole params and trains data-parallel on a
+``(world, 1)`` mesh.
 
 Serving (:class:`ServeParallel`) takes the caches of
 ``launch.specs.cache_shardings``: a self ring split on its KV heads, an
 enc-dec cross cache on its KV heads or on its frames (``model`` lands on
 the frame axis when ``enc_seq`` equals a channel size the rule names, as
-seamless's 4096 = ``d_ff``), and a Mamba layer's conv window and SSM
-state split on their channels; every attention layer, a replicated one
-too, writes and reads only what its shard holds (``nn.attention``).
+seamless's 4096 = ``d_ff``), a Mamba layer's conv window and SSM state
+split on their channels, and an RWKV layer's shift states split on their
+channels (all-gathered at each step, ``nn.rwkv``) and WKV state on its
+heads; every attention layer, a replicated one too, writes and reads only
+what its shard holds (``nn.attention``).
 """
 
 from __future__ import annotations
@@ -74,8 +86,9 @@ from repro_torch.dist.sharding import (Axis, CommLog, _entry_axes,
                                        local_shard, local_slices, mesh_axis)
 
 __all__ = ["refusal", "refuse_unsupported", "AttnLayout", "FSDPPlan",
-           "MambaLayout", "attention_layout", "mamba_layout", "shard_model",
-           "shard_params", "ServeParallel", "is_sharded", "norm_owner"]
+           "MambaLayout", "RWKVLayout", "attention_layout", "mamba_layout",
+           "rwkv_layout", "shard_model", "shard_params", "ServeParallel",
+           "is_sharded", "norm_owner"]
 
 
 def _model_size(mesh) -> int:
@@ -98,9 +111,9 @@ def refuse_unsupported(model, mesh) -> None:
         raise NotImplementedError(
             f"{model.cfg.name}: {why} does not run under a 'model' mesh "
             f"axis of {m}; tensor parallelism covers the attention, Mamba, "
-            f"FFN, MoE, embedding and loss of the decoder LM and enc-dec "
-            f"families (ROADMAP.md Queue 1). Train it data-parallel on a "
-            f"(world, 1) mesh.")
+            f"RWKV, FFN, MoE, embedding and loss of the decoder LM and "
+            f"enc-dec families (ROADMAP.md Queue 1). Train it "
+            f"data-parallel on a (world, 1) mesh.")
 
 
 def is_sharded(spec, mesh) -> bool:
@@ -244,6 +257,54 @@ def mamba_layout(mamba, specs, pspecs, mesh, axis) -> Optional[MambaLayout]:
     return MambaLayout(axis, first[:2])
 
 
+@dataclasses.dataclass(frozen=True)
+class RWKVLayout:
+    """One rank's share of an RWKV time mix: ``heads``, the range of the
+    WKV heads it holds, and ``channels``, their ``d_model`` channels
+    (``heads`` times ``rwkv_head_dim``)."""
+
+    axis: Axis
+    heads: Tuple[int, int]
+    channels: Tuple[int, int]
+
+
+def rwkv_layout(mix, specs, pspecs, mesh, axis) -> Optional[RWKVLayout]:
+    """The :class:`RWKVLayout` of the time mix ``mix`` on this rank, or
+    None when the rules leave r, k, v, g, o and u whole (it then runs
+    replicated). The rule splits a table by its blocks, not by heads:
+    ``NotImplementedError`` names a part whose range cuts a head or
+    differs from r's output."""
+    m, hd, d = mix._modules, mix.cfg.rwkv_head_dim, mix.cfg.d_model
+
+    def lin(name, which):
+        return _features(m[name], pspecs[name]["w"], specs[name]["w"].shape,
+                         mesh, which)
+
+    spec = pspecs["u"]
+    if "model" in _entry_axes(spec[0]) and _model_size(mesh) > 1:
+        h0, h1 = local_slices(specs["u"].shape, spec, mesh)[0]
+        u = (h0 * hd, h1 * hd, True)
+    else:
+        u = (0, d, False)
+    parts = {f"{n}'s output": lin(n, "out") for n in ("r", "k", "v", "g")}
+    parts.update({"o's input": lin("o", "in"), "u's heads": u})
+    if not any(split for *_, split in parts.values()):
+        return None
+    first = parts["r's output"]
+    for name, part in parts.items():
+        if part[0] % hd or part[1] % hd:
+            raise NotImplementedError(
+                f"{mix.cfg.name}: {name} holds channels {part[:2]} over "
+                f"'model', which cuts a head of {hd} channels")
+        if part != first:
+            raise NotImplementedError(
+                f"{mix.cfg.name}: {name} holds channels {part[:2]} "
+                f"({'split' if part[2] else 'whole'}) over 'model', r's "
+                f"output {first[:2]}")
+    c0, c1 = first[:2]
+    return RWKVLayout(axis, (c0 // hd, c1 // hd), (c0, c1))
+
+
 class FSDPPlan:
     """The leaves of each FSDP unit (a decoder layer ``layers.<i>``, the
     ``embed`` module, the ``lm_head``) that are sharded over the data
@@ -298,14 +359,16 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
     spec tree of ``dist.sharding.param_shardings``): the attention layers
     their :class:`AttnLayout`, the Mamba mixers their
     :class:`MambaLayout` (and ``x_proj``/``out_proj`` their row-parallel
-    mode), the dense FFNs their ``model`` axis (and
-    ``wo`` its row-parallel mode), the MoE layers their expert range, the
-    embedding and the loss their vocab range, the model its
-    :class:`FSDPPlan`."""
+    mode), the RWKV time mixes their :class:`RWKVLayout` (and ``o`` its
+    row-parallel mode), the dense FFNs and RWKV channel mixes their
+    ``model`` axis (and ``wo``/``wv`` its row-parallel mode), the MoE
+    layers their expert range, the embedding and the loss their vocab
+    range, the model its :class:`FSDPPlan`."""
     from repro_torch.nn.attention import Attention
     from repro_torch.nn.ffn import MLP, SwiGLU
     from repro_torch.nn.layers import Embedding
     from repro_torch.nn.moe import MoE
+    from repro_torch.nn.rwkv import RWKV6ChannelMix, RWKV6TimeMix
     from repro_torch.nn.ssm import Mamba
 
     from torch import nn
@@ -328,19 +391,33 @@ def shard_model(model, mesh, pspecs, log: CommLog) -> None:
                     for part in ("x_proj", "out_proj"):
                         lin = mod._modules[part]
                         lin.parallel, lin.tp = "row", maxis
-            elif isinstance(mod, (SwiGLU, MLP)) and not mod.wi.expert_dims:
+            elif isinstance(mod, RWKV6TimeMix):
+                mod.cache_axis = maxis
+                mod.tp = rwkv_layout(mod, _sub(specs, name),
+                                     _sub(pspecs, name), mesh, maxis)
+                if mod.tp is not None:
+                    mod.o.parallel, mod.o.tp = "row", maxis
+            elif (isinstance(mod, (SwiGLU, MLP)) and not mod.wi.expert_dims
+                  or isinstance(mod, RWKV6ChannelMix)):
+                # the RWKV channel mix: wk column-, wv row-parallel, wr
+                # whole
+                wi, wo = ("wi", "wo")
+                if isinstance(mod, RWKV6ChannelMix):
+                    wi, wo = ("wk", "wv")
+                    mod.cache_axis = maxis
                 s, p = _sub(specs, name), _sub(pspecs, name)
-                a, b, split = _features(mod.wi, p["wi"]["w"],
-                                        s["wi"]["w"].shape, mesh, "out")
+                a, b, split = _features(mod._modules[wi], p[wi]["w"],
+                                        s[wi]["w"].shape, mesh, "out")
                 if split:
-                    wo = _features(mod.wo, p["wo"]["w"], s["wo"]["w"].shape,
-                                   mesh, "in")
-                    if wo != (a, b, True):
+                    out = mod._modules[wo]
+                    got = _features(out, p[wo]["w"], s[wo]["w"].shape, mesh,
+                                    "in")
+                    if got != (a, b, True):
                         raise NotImplementedError(
-                            f"{name}: wo's input split {wo} does not match "
-                            f"wi's output split {(a, b)}")
+                            f"{name}: {wo}'s input split {got} does not "
+                            f"match {wi}'s output split {(a, b)}")
                     mod.tp = maxis
-                    mod.wo.parallel, mod.wo.tp = "row", maxis
+                    out.parallel, out.tp = "row", maxis
             elif isinstance(mod, MoE):
                 spec = _sub(pspecs, name)["experts"]["wi"]["w"]
                 if "model" in _entry_axes(spec[0]):
@@ -436,6 +513,12 @@ def shard_params(tree, specs, pspecs, mesh, coordinate=None):
     return attach_fused(walk(tree, specs, pspecs, ()))
 
 
+# (leaf, dim) of the recurrent states that a sharded serve step takes
+# split over 'model': Mamba's channels, RWKV's channels and WKV heads
+_MODEL_CACHE_DIMS = (("conv", 2), ("ssm", 1), ("shift_att", 1),
+                     ("shift_ffn", 1), ("wkv", 1))
+
+
 class ServeParallel:
     """The parallel half of the serve steps (``serve.engine``'s
     ``make_prefill_step(mesh=)`` / ``make_decode_step(mesh=)``) on
@@ -503,9 +586,11 @@ class ServeParallel:
     def cache_shardings(self, batch: int, cache_len: int):
         """The spec tree of the global cache ``(batch, cache_len)``
         (``launch.specs.cache_shardings``), checked: ``model`` only on a
-        KV-head dim, a cross cache's frame axis or a Mamba state's channel
-        dim (``conv``'s dim 2, ``ssm``'s dim 1), the data axes on every
-        leaf's slot axis or on none."""
+        KV-head dim, a cross cache's frame axis, a Mamba state's channel
+        dim (``conv``'s dim 2, ``ssm``'s dim 1) or an RWKV state's
+        channel or head dim (``shift_att``'s and ``shift_ffn``'s dim 1,
+        ``wkv``'s dim 1), the data axes on every leaf's slot axis or on
+        none."""
         from repro_torch.launch.specs import cache_sds, cache_shardings
 
         sds = cache_sds(self.cfg, batch, cache_len)
@@ -517,13 +602,14 @@ class ServeParallel:
                 if ("model" in _entry_axes(e) and _model_size(self.mesh) > 1
                         and not (path[-1] in ("k", "v") and d == 2)
                         and not (path[0] == "cross" and d == 1)
-                        and (path[-1], d) not in (("conv", 2), ("ssm", 1))):
+                        and (path[-1], d) not in _MODEL_CACHE_DIMS):
                     raise NotImplementedError(
                         f"{self.cfg.name}: the cache rule puts 'model' on dim "
                         f"{d} of {path} {shape}; a sharded serve step splits "
                         f"a cache over 'model' on its KV heads, a cross "
-                        f"cache on its frames or a Mamba state on its "
-                        f"channels, only")
+                        f"cache on its frames, a Mamba state on its "
+                        f"channels or an RWKV state on its channels or "
+                        f"heads, only")
             rows.add(spec[0] is not None)
         if len(rows) > 1:
             raise NotImplementedError(

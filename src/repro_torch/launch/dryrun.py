@@ -15,9 +15,9 @@ impls. The step is the one a user runs: ``train.loop.make_train_step``
 for a ``train_*`` shape, ``serve.engine.make_prefill_step`` or
 ``make_decode_step`` (params sharded with ``fsdp=False``, caches under
 ``launch.specs.cache_shardings``) for the others. A cell whose model the
-tensor-parallel rules do not cover (the RWKV mixer and paligemma's vision
-prefix under ``model`` = 16) is written like the reference's failed cell,
-with ``error`` and ``traceback``.
+tensor-parallel rules do not cover (paligemma's vision prefix under
+``model`` = 16) is written like the reference's failed cell, with
+``error`` and ``traceback``.
 
 The record keeps the reference's keys where the port measures the same
 thing, all for rank 0:
@@ -386,16 +386,19 @@ def _drops_saved() -> bool:
         hooks[0], "__qualname__", "")
 
 
-def _keep_saved(mode=None, marks=None):
+def _keep_saved(mode=None, marks=None, stores=None):
     """Saved-tensor hooks that keep what a standalone run saves, as no
     hooks would, shielding it from a ``remat`` region's: the pack hook
     keeps a detached alias (an op's own output, kept with its grad_fn,
     would make a reference cycle through the graph that outlives it).
     With ``marks``, each save appends ``mode``'s flops and peak as they
-    were when it was made."""
+    were when it was made; with ``stores``, each save adds its storage's
+    key to the set."""
     def pack(t):
         if marks is not None:
             marks.append((mode.flops, mode.peak))
+        if stores is not None:
+            stores.add(t.untyped_storage()._cdata)
         return t.detach()
 
     return torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
@@ -418,21 +421,27 @@ def _record_loop(real, mode, call) -> dict:
     forward), kept (outside one, or in its recompute) or not made (no
     grad), the bytes a kept run leaves saved, and its outputs' metadata."""
     rec = {"bwd": {}}
+    peak = mode.peak            # the record's own leaves are not the step's
     leaves = call.leaves()
     if not torch.is_grad_enabled():
         rec["flops"], rec["rise"], out = _measure(
             mode, lambda: call.run(real, leaves))
         rec["out"] = _metas(out)
+        mode.peak = peak
         return rec
     with torch.autograd.graph.saved_tensors_hooks(lambda t: t.shape,
                                                   lambda t: None):
         _, rec["rise_drop"], out = _measure(
             mode, lambda: call.run(real, leaves))
     del out
-    live, flops, marks = mode.live, mode.flops, []
-    with _keep_saved(mode, marks):
+    live, flops, marks, stores = mode.live, mode.flops, [], set()
+    with _keep_saved(mode, marks, stores):
         rec["flops"], rec["rise"], out = _measure(
             mode, lambda: call.run(real, leaves))
+    # the inputs the loop saves, which the real backward keeps alive after
+    # the caller lets them go (a scan's carry from the chunk before)
+    rec["saved_inputs"] = [i for i, t in enumerate(leaves)
+                           if t.untyped_storage()._cdata in stores]
     # a remat region's recompute stops at the region's last save: the
     # flops and peak rise of the loop up to its last save, for a region
     # that ends with the loop (an input is saved before its op runs)
@@ -443,6 +452,7 @@ def _record_loop(real, mode, call) -> dict:
     rec["saved"] = max(mode.live - live - sum(
         o.untyped_storage().nbytes() for o in out), 0)
     del out
+    mode.peak = peak
     return rec
 
 
@@ -471,9 +481,11 @@ class _ReplayedLoop(torch.autograd.Function):
     forward adds the recorded flops and, by whether the saved bytes it
     saves are kept (a ``remat`` region's forward drops them, its
     recompute keeps them), the peak rise of a dropping or a keeping run;
-    its backward adds the recorded backward's flops and peak rise, stops
-    counting the saved bytes (the real backward frees them as it runs)
-    and returns fresh ``meta`` grads."""
+    its forward also saves the inputs the real loop saves, which outlive
+    the caller's references as the real ones do; its backward adds the
+    recorded backward's flops and peak rise, stops counting the saved
+    bytes (the real backward frees them as it runs) and returns fresh
+    ``meta`` grads."""
 
     @staticmethod
     def forward(ctx, real, mode, call, rec, *tensors):
@@ -482,11 +494,13 @@ class _ReplayedLoop(torch.autograd.Function):
         live = mode.live
         mode.flops += rec["flops"]
         drop = _drops_saved()
-        # the saved bytes, counted while they are kept
+        # the saved bytes, counted while they are kept, and the inputs the
+        # real loop saves
         with _disable_current_modes() if drop else contextlib.nullcontext():
             ctx.save_for_backward(torch.empty(rec["saved"],
                                               dtype=torch.uint8,
-                                              device="meta"))
+                                              device="meta"),
+                                  *[tensors[i] for i in rec["saved_inputs"]])
         if drop:
             mode.peak = max(mode.peak, live + rec["rise_drop"])
         ctx.set_materialize_grads(False)
@@ -496,7 +510,7 @@ class _ReplayedLoop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         mode, rec = ctx.mode, ctx.rec
-        (saved,) = ctx.saved_tensors
+        saved = ctx.saved_tensors[0]
         given = tuple(g is not None for g in grads)
         if given not in rec["bwd"]:
             rec["bwd"][given] = _record_backward(ctx.real, mode, ctx.call,
@@ -539,15 +553,16 @@ def _replayed_scan(mode: "_MetaStep"):
             rec["out_spec"] = call.out_spec
         tensors, call.tensors = call.tensors, None
         if torch.is_grad_enabled():
-            live, drop = mode.live, _drops_saved()
+            live, peak, drop = mode.live, mode.peak, _drops_saved()
             try:
                 out = _ReplayedLoop.apply(real, mode, call, rec, *tensors)
             except stop:
                 # the recompute of a region that ends with this loop
                 # stopped at the loop's save, as the real one stops at its
-                # last save
+                # last save: before its outputs, which the replay's forward
+                # made before autograd took its saves
                 mode.flops -= rec["flops"] - rec["flops_stop"]
-                mode.peak = max(mode.peak, live + rec["rise_stop"])
+                mode.peak = max(peak, live + rec["rise_stop"])
                 raise
             if not drop:
                 mode.peak = max(mode.peak, live + rec["rise"])

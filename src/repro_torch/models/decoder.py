@@ -24,15 +24,16 @@ front of the token embeddings.
 
 On a mesh (``dist.tensor_parallel.shard_model``, which the train step's
 ``mesh=`` runs) the modules take this rank's shares: attention heads,
-Mamba channels, FFN and expert blocks and vocab rows over the ``model``
-axis, and, for an FSDP config, ``embed``-sharded leaves over the data
-axes. Then ``fsdp`` (a ``FSDPPlan``) gathers each layer's leaves at use, inside the
-layer's remat recompute too, and the embedding's and the output table's
-before theirs; ``vocab_shard`` = (model axis, first row) tells the loss
-which rows of the output table this rank holds. Tensor parallelism covers
-the ``lm`` family's attention and Mamba mixers (a Mamba layer's channels
-over ``model``): :meth:`tensor_parallel_refusal` names the RWKV mixer and
-paligemma's vision prefix.
+Mamba channels, RWKV heads, FFN and expert blocks and vocab rows over
+the ``model`` axis, and, for an FSDP config, ``embed``-sharded leaves over
+the data axes. Then ``fsdp`` (a ``FSDPPlan``) gathers each layer's leaves
+at use, inside the layer's remat recompute too, and the embedding's and
+the output table's before theirs; ``vocab_shard`` = (model axis, first
+row) tells the loss which rows of the output table this rank holds.
+Tensor parallelism covers the ``lm`` family's attention, Mamba and RWKV
+mixers (a Mamba layer's channels, an RWKV layer's heads and channel-mix
+blocks over ``model``): :meth:`tensor_parallel_refusal` names paligemma's
+vision prefix.
 """
 
 from __future__ import annotations
@@ -197,10 +198,7 @@ class HybridDecoderLM(nn.Module):
 
     def tensor_parallel_refusal(self) -> Optional[str]:
         """What of this model tensor parallelism does not cover, or None:
-        the RWKV mixer and paligemma's vision prefix."""
-        kinds = {layer.mixer_kind for layer in self._modules["layers"]}
-        if "rwkv" in kinds:
-            return "the RWKV mixer (nn/rwkv.py)"
+        paligemma's vision prefix."""
         if self.cfg.family == "vlm" or self.cfg.n_img_tokens:
             return "paligemma's vision prefix (family 'vlm')"
         return None

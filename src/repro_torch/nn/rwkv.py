@@ -9,6 +9,22 @@ stay in plain PyTorch, as the reference left them to XLA.
 State per layer: the token-shift last x of the time mix and of the channel
 mix, and the per-head f32 ``(hd, hd)`` WKV matrix: O(1) in sequence
 length. The cache, when given, is updated in place.
+
+Under tensor parallelism (set by ``dist.tensor_parallel.shard_model`` when
+``heads`` and ``mlp`` are split over ``model``) the time mix's ``tp`` is a
+``dist.tensor_parallel.RWKVLayout``: x and every leaf the rules leave
+whole (the mixes, the LoRAs, ``w0``, the group norm's scale and bias)
+enter the region, since each rank uses only its channels' share of what
+they give; the decay is computed for the rank's channels only; r, k, v
+and g are column-parallel and give the rank's heads, ``u`` holds them, and
+the WKV scan, the group norm and the gate run per head; ``o`` sums the
+partial outputs into the residual. The channel mix's ``tp`` is the
+``model`` axis: the region starts at ``xk`` and nowhere else (``r`` is
+computed whole on every rank and multiplies the summed ``wv`` output, so
+its gradient is whole already), ``wk`` is column- and ``wv`` row-parallel.
+Served with a cache split over ``model``, the shift states hold the rank's
+channels and are all-gathered at each step (``cache_axis``), of which the
+rank writes back its own; the WKV state holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -20,6 +36,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import gather_along, region_input
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import ParamSpec
 from repro_torch.nn.scan import chunked_time_scan
@@ -59,12 +76,33 @@ def _prev_valid(mask: torch.Tensor) -> torch.Tensor:
     return F.pad(mask[:, :-1], (1, 0), value=True)
 
 
-def _shifted(x, cache, key, mask):
-    prev = _token_shift(x, None if cache is None else cache[key])
+def _shifted(x, cache, key, mask, axis=None):
+    """The previous token's x under ``mask``; a cache that holds this
+    rank's channels of the carried x only is all-gathered over ``axis``
+    (no gradient: the cache carries none)."""
+    last = None if cache is None else cache[key]
+    if last is not None and last.shape[-1] != x.shape[-1]:
+        last = gather_along(last, axis, -1)
+    prev = _token_shift(x, last)
     if mask is not None:
         prev = torch.where(_prev_valid(mask)[..., None], prev,
                            torch.zeros_like(prev))
     return prev
+
+
+def _keep_last(cache, key, x, axis=None) -> None:
+    """Write x's last position into the cache's ``key``: this rank's
+    channels of it when the cache holds a split over ``axis``."""
+    state = cache[key]
+    last, n = x[:, -1, :], state.shape[-1]
+    if n != x.shape[-1]:
+        last = last[:, axis.index * n:(axis.index + 1) * n]
+    state.copy_(last)
+
+
+# the time mix's leaves that the rules leave whole on a 'model' axis
+_WHOLE = ("mu_x", "mu", "mix_A", "mix_B", "w0", "w_A", "w_B", "ln_scale",
+          "ln_bias")
 
 
 class RWKV6TimeMix(nn.Module):
@@ -78,6 +116,8 @@ class RWKV6TimeMix(nn.Module):
                                          out_axis="heads", **kw))
         self.add_module("o", Linear(d, d, family="attn", in_axis="heads",
                                     out_axis="embed", **kw))
+        # set on a mesh by dist.tensor_parallel.shard_model
+        self.tp, self.cache_axis = None, None
 
     @property
     def n_heads(self) -> int:
@@ -119,11 +159,19 @@ class RWKV6TimeMix(nn.Module):
         left-padded bucketed prefill matches the unpadded B = 1 run.
         Returns (y, cache)."""
         cfg = self.cfg
-        m, b = self._modules, self._buffers
+        m = self._modules
         B, S, d = x.shape
-        H, hd = self.n_heads, cfg.rwkv_head_dim
+        hd = cfg.rwkv_head_dim
+        axis = None if self.tp is None else self.tp.axis
+        c0, c1 = (0, d) if self.tp is None else self.tp.channels
+        H = (c1 - c0) // hd                      # this rank's heads
+        # x and the whole leaves enter the region: each rank's gradient of
+        # them is a partial (its channels' share)
+        x = region_input(x, axis)
+        b = dict(self._buffers)
+        b.update((n, region_input(b[n], axis)) for n in _WHOLE)
 
-        prev = _shifted(x, cache, "shift_att", mask)
+        prev = _shifted(x, cache, "shift_att", mask, self.cache_axis)
         dx = (prev - x).float()
         xf = x.float()
 
@@ -134,8 +182,9 @@ class RWKV6TimeMix(nn.Module):
         xs = xf[:, :, None, :] + dx[:, :, None, :] * mix    # (B, S, 5, d)
         xw, xk, xv, xr, xg = [xs[:, :, i].to(x.dtype) for i in range(5)]
 
-        # data-dependent decay in (0, 1)
-        ww = b["w0"] + torch.tanh(xw.float() @ b["w_A"]) @ b["w_B"]
+        # data-dependent decay in (0, 1), of this rank's channels
+        ww = b["w0"][c0:c1] + torch.tanh(
+            xw.float() @ b["w_A"]) @ b["w_B"][:, c0:c1]
         w = torch.exp(-torch.exp(ww.float()))
 
         r = m["r"](xr).reshape(B, S, H, hd)
@@ -163,18 +212,19 @@ class RWKV6TimeMix(nn.Module):
         if mask is not None:
             ts = ts + (mask.transpose(0, 1),)
         sT, ys = chunked_time_scan(step, s0, ts, chunk=256, remat=S > 256)
-        y = ys.transpose(0, 1).reshape(B, S, d)              # f32
+        y = ys.transpose(0, 1).reshape(B, S, H * hd)         # f32
 
         # per-head group norm, then the gate
         yh = y.reshape(B, S, H, hd)
         mu = yh.mean(dim=-1, keepdim=True)
         var = yh.var(dim=-1, keepdim=True, correction=0)
         yh = (yh - mu) * torch.rsqrt(var + _GN_EPS)
-        y = yh.reshape(B, S, d) * b["ln_scale"] + b["ln_bias"]
+        y = (yh.reshape(B, S, H * hd) * b["ln_scale"][c0:c1]
+             + b["ln_bias"][c0:c1])
         y = y.to(x.dtype) * F.silu(g)
-        out = m["o"](y)
+        out = m["o"](y)                # row-parallel: summed over 'model'
         if cache is not None:
-            cache["shift_att"].copy_(x[:, -1, :])
+            _keep_last(cache, "shift_att", x, self.cache_axis)
             cache["wkv"].copy_(sT)
         return out, cache
 
@@ -190,6 +240,8 @@ class RWKV6ChannelMix(nn.Module):
         self.add_module("wr", Linear(d, d, in_axis="embed", **kw))
         self.add_module("wv", Linear(dff, d, in_axis="mlp", out_axis="embed",
                                      **kw))
+        # set on a mesh by dist.tensor_parallel.shard_model
+        self.tp, self.cache_axis = None, None
 
     def specs(self):
         d = self.cfg.d_model
@@ -207,14 +259,16 @@ class RWKV6ChannelMix(nn.Module):
         """``mask`` as in :class:`RWKV6TimeMix`: pad positions never enter
         the channel-mix token shift. Returns (y, cache)."""
         m, b = self._modules, self._buffers
-        prev = _shifted(x, cache, "shift_ffn", mask)
+        prev = _shifted(x, cache, "shift_ffn", mask, self.cache_axis)
         dx = (prev - x).float()
         xf = x.float()
         xk = (xf + dx * b["mu_k"]).to(x.dtype)
         xr = (xf + dx * b["mu_r"]).to(x.dtype)
-        k = torch.square(F.relu(m["wk"](xk)))
+        # the region starts at xk only: r is whole on every rank and
+        # multiplies wv's summed output, so its gradient is whole already
+        k = torch.square(F.relu(m["wk"](region_input(xk, self.tp))))
         r = torch.sigmoid(m["wr"](xr))
-        y = r * m["wv"](k)
+        y = r * m["wv"](k)             # row-parallel: summed over 'model'
         if cache is not None:
-            cache["shift_ffn"].copy_(x[:, -1, :])
+            _keep_last(cache, "shift_ffn", x, self.cache_axis)
         return y, cache

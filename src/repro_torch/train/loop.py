@@ -32,9 +32,8 @@ the data axes for an FSDP config), averages the grads over the data axes
 with one bucketed all-reduce, and holds the optimizer moments as its
 ZeRO-1 shard. The mesh also becomes the ambient mesh that
 ``impl="freq_shmap"`` reads. A model that tensor parallelism does not
-cover (the RWKV mixer, paligemma's vision prefix, FSDP of the
-enc-dec family) is refused on a ``model`` axis > 1 and keeps whole params on a
-``(world, 1)`` mesh.
+cover (paligemma's vision prefix, FSDP of the enc-dec family) is refused
+on a ``model`` axis > 1 and keeps whole params on a ``(world, 1)`` mesh.
 
 ``audit_args`` gates a step on its structural contract
 (:mod:`repro_torch.analysis`): the step runs once, captured, on a clone of

@@ -441,8 +441,8 @@ def test_launcher_mesh_local_on_the_cpu(tmp_path, capsys):
 
 
 def test_abstract_mesh_and_recurrent_tensor_parallel_are_refused():
-    """An abstract mesh holds no devices; an RWKV model does not run under
-    a ``model`` axis > 1."""
+    """An abstract mesh holds no devices; paligemma's vision prefix does
+    not run under a ``model`` axis > 1."""
     from repro_torch.configs.registry import get_smoke
     from repro_torch.launch.mesh import MeshSpec, make_production_mesh
 
@@ -452,8 +452,8 @@ def test_abstract_mesh_and_recurrent_tensor_parallel_are_refused():
         with pytest.raises(TypeError, match="DeviceMesh"):
             make_train_step(model, CFG, TCFG, mesh=mesh)
     mesh = MeshSpec(("data", "model"), {"data": 1, "model": 2})
-    cfg = get_smoke("rwkv6-7b")
-    with pytest.raises(NotImplementedError, match="RWKV"):
+    cfg = get_smoke("paligemma-3b")
+    with pytest.raises(NotImplementedError, match="vision prefix"):
         make_train_step(build_model(cfg, device="cpu"), cfg, TCFG, mesh=mesh)
 
 

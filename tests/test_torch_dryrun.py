@@ -225,17 +225,17 @@ def test_refused_cell_is_written_and_counted(tmp_path, monkeypatch, capsys):
     """``--all`` over a refused arch's cell and an lm cell: the refused
     one written as the reference writes a failed cell, both counted."""
     monkeypatch.setattr(dryrun, "cells", lambda include_long=True: iter(
-        [("rwkv6-7b", "decode_32k"), ("qwen3-0.6b", "decode_32k")]))
+        [("paligemma-3b", "decode_32k"), ("qwen3-0.6b", "decode_32k")]))
     tally = dryrun.main(["--all", "--mesh", "single", "--out",
                          str(tmp_path)])
     assert tally == {"OK": 1, "FAIL": 1, "skip": 0}
-    with open(tmp_path / "rwkv6-7b__decode_32k__single.json") as f:
+    with open(tmp_path / "paligemma-3b__decode_32k__single.json") as f:
         rec = json.load(f)
     assert rec["error"].startswith("NotImplementedError: ")
-    assert "the RWKV mixer" in rec["error"]
+    assert "vision prefix" in rec["error"]
     assert "Traceback" in rec["traceback"]
     out = capsys.readouterr().out
-    assert "[FAIL] rwkv6-7b__decode_32k__single" in out
+    assert "[FAIL] paligemma-3b__decode_32k__single" in out
     assert "cells: 1 OK, 1 FAIL, 0 skipped" in out
     # a second run skips what is there
     assert dryrun.main(["--all", "--mesh", "single", "--out",

@@ -360,11 +360,10 @@ def _keys(tree, path=()):
     return [path]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b"])
 def test_refused_for_serving_under_a_model_axis(arch):
-    """The RWKV mixer and paligemma's vision prefix stay refused for
-    serving under ``model = 2``, as for training (on a fake world of 2
-    ranks in this process)."""
+    """Paligemma's vision prefix stays refused for serving under ``model =
+    2``, as for training (on a fake world of 2 ranks in this process)."""
     from repro_torch.launch.dryrun import fake_world
 
     cfg = get_smoke(arch)
